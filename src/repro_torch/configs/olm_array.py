@@ -1,0 +1,34 @@
+"""The paper's own configuration: online-multiplier inner-product arrays at
+n = 8/16/24/32 digits (delta=3, t=2, Eq. 8 truncation, G=2 tail), and the
+DotEngine wiring that selects them as a model's matmul numerics."""
+from repro_torch.core.numerics import TRUNCATED_SPECS, DotEngine
+
+# Every array width is a registered DotEngine matmul mode.
+MATMUL_MODES = {8: "olm8", 16: "olm16", 24: "olm24", 32: "olm32"}
+
+# Truncated working-precision tiers, keyed (n, p): mode olm{n}t{p} runs
+# truncation_schedule(n, p), the p-digit array.
+TRUNCATED_MODES = {(n, p): f"olm{n}t{p}" for n, p in TRUNCATED_SPECS}
+
+
+def engine_for(n_bits: int, *, trunc: int | None = None,
+               tiling: str | None = "auto", **overrides) -> DotEngine:
+    """DotEngine running every model GEMM through the n_bits-digit array;
+    trunc=p selects the truncated tier olm{n}t{p}. tiling="auto" (the
+    default) stands for the autotuner, which resolves to the Hopper
+    kernel's own launch shape; any DotEngine field may be overridden."""
+    if trunc is not None:
+        if (n_bits, trunc) not in TRUNCATED_MODES:
+            raise ValueError(
+                f"no truncated olm mode at n_bits={n_bits} trunc={trunc}; "
+                f"available: {sorted(TRUNCATED_MODES)}")
+        mode = TRUNCATED_MODES[(n_bits, trunc)]
+    elif n_bits in MATMUL_MODES:
+        mode = MATMUL_MODES[n_bits]
+    else:
+        raise ValueError(
+            f"no olm matmul mode at n_bits={n_bits}; "
+            f"available: {sorted(MATMUL_MODES)}")
+    if tiling not in (None, "auto"):
+        raise ValueError(f"tiling must be 'auto' or None, got {tiling!r}")
+    return DotEngine(**{"mode": mode, "tiling": tiling, **overrides})

@@ -1,0 +1,191 @@
+"""DotEngine: pluggable matmul numerics for the model stack (port of
+`repro/core/numerics.py`).
+
+Every numerics choice is a registered `DotMode`:
+
+  native   - matmul in the activation compute dtype; the baseline.
+  olm8 / olm16 / olm24 / olm32 - the paper's inner-product array
+    (kernels/online_dot/matmul.olm_matmul) at every array width: K-lane
+    online multipliers feeding an online adder tree, operands quantized
+    to signed-digit grids, digit streams decoded exactly and accumulated
+    in f32. n = 24/32 streams take the exact wide decode.
+  olm{n}t{p} - the truncated working-precision tiers (TRUNCATED_SPECS):
+    the n-digit mode run at p < n working digits.
+
+The digit modes dispatch on the device of their operands: a CUDA tensor
+runs the Hopper kernel, a CPU tensor the plain version. Weights go to the
+kernel in f32 from their stored dtype, never rounded through the
+activation dtype first; the output returns in the activation dtype.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
+
+import torch
+
+__all__ = ["DotEngine", "DotMode", "register_mode", "TRUNCATED_SPECS"]
+
+# The registered truncated tiers as (n, p) pairs: mode `olm{n}t{p}` is
+# the n-digit array run at p working digits.
+TRUNCATED_SPECS: Tuple[Tuple[int, int], ...] = (
+    (16, 12), (16, 10), (32, 24), (32, 20), (32, 16))
+
+
+@dataclasses.dataclass(frozen=True)
+class DotMode:
+    """One registered numerics mode: implementation + trade-off docs."""
+    name: str
+    summary: str
+    error: str
+    cost: str
+    fn: Callable[["DotEngine", torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+_MODES: Dict[str, DotMode] = {}
+
+
+def register_mode(name: str, *, summary: str, error: str, cost: str):
+    """Register a DotEngine mode. The decorated function receives
+    (engine, x (..., K), w (K, N)) and returns (..., N). Names are
+    single-assignment."""
+    def deco(fn):
+        if name in _MODES:
+            raise ValueError(f"DotEngine mode {name!r} already registered")
+        _MODES[name] = DotMode(name, summary, error, cost, fn)
+        return fn
+    return deco
+
+
+@register_mode(
+    "native",
+    summary="matmul in the model compute dtype",
+    error="exact at compute dtype (its rounding only)",
+    cost="full-precision matmul; baseline")
+def _native_dot(eng: "DotEngine", x: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def _lowered_dot(eng: "DotEngine", x: torch.Tensor, w: torch.Tensor,
+                 matmul_fn, n_bits: int) -> torch.Tensor:
+    """Flatten the lead axes onto a 2-D tile, hand the weights over in f32
+    from their stored dtype, and restore the activation shape and dtype."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    out = matmul_fn(x.reshape(-1, K), w.to(torch.float32), n_bits=n_bits)
+    return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+
+
+def _olm_dot(eng: "DotEngine", x: torch.Tensor, w: torch.Tensor,
+             n_bits: int, trunc: Optional[int] = None) -> torch.Tensor:
+    from repro_torch.kernels.online_dot.matmul import olm_matmul
+    # k_tile is the numerics knob (array width per K tile). block_m /
+    # block_n and tiling="auto" only shape the TPU kernel's grid; the
+    # Hopper kernel picks its own launch shape and block shapes never
+    # change the bits, so they are accepted and not forwarded.
+    kw = {"trunc": trunc}
+    if eng.k_tile is not None:
+        kw["k_tile"] = eng.k_tile
+    return _lowered_dot(eng, x, w, functools.partial(olm_matmul, **kw),
+                        n_bits)
+
+
+def _register_olm_modes() -> None:
+    for n in (8, 16, 24, 32):
+        wide = n > 16
+        decode = ("wide int64 stream decode" if wide
+                  else "exact plain-f32 stream decode")
+        error = f"<= k_tile * 3.1 ulp @ 2^-{n} per K-tile (olm_error_bound)"
+        if wide:
+            error = (f"<= k_tile * (3.1 @ 2^-{n} + (T+1) @ 2^-26) per "
+                     "K-tile (olm_error_bound wide term)")
+        register_mode(
+            f"olm{n}",
+            summary=f"fused online inner-product array, {n}-digit "
+                    f"operands ({decode})",
+            error=error,
+            cost="Eq.8-truncated digit-serial array")(
+            functools.partial(_olm_dot, n_bits=n))
+    for n, p in TRUNCATED_SPECS:
+        wide = "wide int64" if p > 16 else "exact plain-f32"
+        error = (f"<= k_tile * 3.1 * (2^-{n} + 2^-{p}) per K-tile "
+                 "(olm_error_bound truncation term)")
+        if p > 16:
+            error = error[:-1] + " + wide term)"
+        register_mode(
+            f"olm{n}t{p}",
+            summary=f"truncated olm{n}: {p} working digits "
+                    f"({wide} stream decode)",
+            error=error,
+            cost=f"p/n = {p}/{n} of olm{n}'s recurrence iterations")(
+            functools.partial(_olm_dot, n_bits=n, trunc=p))
+
+
+_register_olm_modes()
+
+
+@dataclasses.dataclass(frozen=True)
+class DotEngine:
+    mode: str = "native"          # any registered mode, see DotEngine.modes()
+    # olm array width (lanes per adder tree); None = the kernel default.
+    # A numerics parameter: it changes the bits.
+    k_tile: Optional[int] = None
+    # Output-tile knobs of the TPU grid kernel, kept so engines carry the
+    # same fields as the reference; block shapes never change the bits and
+    # the Hopper kernel chooses its own launch shape.
+    block_m: Optional[int] = None
+    block_n: Optional[int] = None
+    # tiling="auto" stands for the autotuner, which is not ported yet: it
+    # resolves to the kernel's own launch shape.
+    tiling: Optional[str] = None
+    # Per-role mode overrides {"attn" | "mlp" | "head": mode}; a dict is
+    # normalized to a sorted tuple of pairs so the engine stays hashable.
+    layer_modes: Union[Mapping[str, str],
+                       Tuple[Tuple[str, str], ...], None] = None
+
+    _ROLES = frozenset({"attn", "mlp", "head"})
+
+    def __post_init__(self):
+        if self.mode not in _MODES:
+            raise ValueError(
+                f"unknown DotEngine mode {self.mode!r}; registered: "
+                f"{', '.join(sorted(_MODES))}")
+        if self.tiling not in (None, "auto"):
+            raise ValueError(
+                f"unknown DotEngine tiling {self.tiling!r}; expected "
+                "None (static knobs / kernel defaults) or 'auto'")
+        if self.layer_modes is not None:
+            pairs = tuple(sorted(dict(self.layer_modes).items()))
+            if bad := {r for r, _ in pairs} - self._ROLES:
+                raise ValueError(
+                    f"unknown layer_modes roles {sorted(bad)}; expected "
+                    f"a subset of {sorted(self._ROLES)}")
+            if bad := {m for _, m in pairs if m not in _MODES}:
+                raise ValueError(
+                    f"layer_modes names unregistered modes {sorted(bad)}; "
+                    f"registered: {', '.join(sorted(_MODES))}")
+            object.__setattr__(self, "layer_modes", pairs or None)
+
+    def for_role(self, role: str) -> "DotEngine":
+        """The engine a GEMM of this role ("attn" / "mlp" / "head") runs
+        under: self, unless layer_modes overrides the role."""
+        if role not in self._ROLES:
+            raise ValueError(f"unknown GEMM role {role!r}; expected one "
+                             f"of {sorted(self._ROLES)}")
+        if not self.layer_modes:
+            return self
+        mode = dict(self.layer_modes).get(role)
+        if mode is None or mode == self.mode:
+            return self
+        return dataclasses.replace(self, mode=mode, layer_modes=None)
+
+    @staticmethod
+    def modes() -> Tuple[str, ...]:
+        """Names of all registered modes."""
+        return tuple(sorted(_MODES))
+
+    def dot(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """x (..., K) @ w (K, N) -> (..., N), in this engine's numerics."""
+        return _MODES[self.mode].fn(self, x, w)

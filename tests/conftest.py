@@ -39,3 +39,9 @@ def _x64_scope():
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0xC0FFEE)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's hand-written kernels); "
+        "skipped where there is none")

@@ -1,0 +1,68 @@
+"""The port stands alone: no module of `src/repro_torch/` and not
+`chip_smoke.py` imports JAX or the JAX package, and its entry points run
+on the CUDA card unless the caller asks for the CPU."""
+import ast
+import dataclasses
+import pathlib
+
+import pytest
+import torch
+
+from repro_torch.configs import smoke_config
+from repro_torch.models.model import Model
+from repro_torch.serving.engine import ServeEngine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # Test workers share the machine's cores: one torch thread each keeps
+    # their OpenMP pools from spinning against one another.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in BANNED]
+    assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_modules_found():
+    names = {p.name for p in FILES}
+    assert {"matmul_kernel.py", "engine.py", "chip_smoke.py"} <= names
+
+
+def test_entry_points_refuse_to_drift_onto_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is real")
+    cfg = dataclasses.replace(smoke_config("internlm2_1_8b"), n_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg)
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(model, params)
+    ServeEngine(model, params, device="cpu", max_len=16)
+
+
+def test_serve_cli_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is real")
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "internlm2_1_8b", "--smoke", "--requests", "1"])
