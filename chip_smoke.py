@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and hold each of
-its hand-written kernels against the kernel's plain PyTorch version.
+"""Drive the PyTorch port's paths on one NVIDIA card and hold each of its
+hand-written kernels against the kernel's plain PyTorch version.
 
 Run from the root of a checkout, with no arguments:
 
@@ -8,19 +8,29 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each printing its own lines:
   1. device  - the card's name, count, power limit and SM clock;
-  2. build   - every kernel of the path, compiled with nvcc for sm_90a
-               from the sources in the checkout (ptxas report, seconds);
+  2. build   - every kernel, compiled with nvcc for sm_90a from the sources
+               in the checkout, all sources at once (ptxas summary, seconds);
   3. check   - each kernel against its plain version on the card, bit for
-               bit, on a ragged shape at every olm width and at the
-               slice's real shapes; plus the smoke-size model on the card
-               against the same model on the CPU;
-  4. time    - each kernel at the real shapes (CUDA events) beside its
-               bound, its plain version and the PyTorch context call;
-  5. serve   - ServeEngine at the full published InternLM2-1.8B width
-               under dot_mode="olm16": 4 seeded requests; every kernel's
-               launch count must equal the GEMMs the forward passes issued.
-               Then the same requests again, with each kernel launch
-               between CUDA events, for the share of the wall it takes.
+               bit: olm_matmul_fused (K1) and olm_matmul_host (K2) at every
+               olm width and tier on a ragged shape and at the serve path's
+               GEMM shapes, online_mul (K4) and online_dot (K3) at a million
+               and four thousand rows, tpmm (K5) at tpmm16 and tpmm8 on a
+               ragged shape, every serve GEMM shape and an all-subnormal
+               row; plus the smoke-size model under olm16 and under tpmm16
+               on the card against the same model on the CPU;
+  4. time    - each kernel at those shapes (CUDA events) beside its bound,
+               its plain version and a PyTorch context call;
+  5. serve   - ServeEngine at the full published InternLM2-1.8B width,
+               4 seeded requests, once under dot_mode="olm16" (every GEMM
+               through K1) and once under "tpmm16" (every GEMM through K5):
+               the path's kernel launch count must equal the GEMMs the
+               forward passes issued. Each is run a second time with the
+               kernel's launches between CUDA events, for its share of the
+               wall;
+  6. paths   - the other two paths a user calls: olm_matmul(quantize="host")
+               over one decoder layer's GEMMs at decode (K2), and the
+               digit-level API online_mul / online_dot (K4, K3), each with
+               the launch counts set to 0 just before and read just after.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -41,6 +51,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+INT8_OPS_PER_S = 1.979e15          # H100 SXM int8 tensor cores, dense
 # Integer operations an SM can retire per clock: its 4 schedulers issue
 # one 32-thread instruction each (the same 128 lanes the guide's 67 TFLOP/s
 # float32 peak counts). Hopper's 64 INT32 units per SM are not the limit:
@@ -52,8 +63,19 @@ RAGGED = (5, 70, 37)               # (M, K, N)
 DECODE_GEMV = (4, 2048, 8192)      # an MLP up-projection at decode
 PREFILL_GEMM = (64, 2048, 2048)    # a q/o projection of the 4 x 16 prefill
 CHECK_MODES = ("olm8", "olm16", "olm16t12", "olm24", "olm32")
-SERVE = dict(arch="internlm2_1_8b", mode="olm16", requests=4, prompt=(4, 12),
-             max_new=6, slots=4, max_len=128, block=16, seed=0)
+# Every weight-bearing GEMM shape of the serve path: (K, N) of q/o, k/v,
+# gate/up, down and the LM head, at the 4-lane decode and the 64-row prefill.
+SERVE_KN = ((2048, 8192), (2048, 2048), (2048, 1024), (8192, 2048),
+            (2048, 92544))
+TPMM_SHAPES = tuple((M, K, N) for M in (4, 64) for K, N in SERVE_KN)
+MUL_B = 1 << 20
+MUL_CASES = ((8, True), (16, True), (24, True), (32, True), (8, False),
+             (16, False), (24, False))
+DOT_B = 4096
+DOT_CASES = tuple((K, n) for K in (16, 64, 256) for n in (8, 16, 32))
+SERVE = dict(arch="internlm2_1_8b", modes=("olm16", "tpmm16"), requests=4,
+             prompt=(4, 12), max_new=6, slots=4, max_len=128, block=16,
+             seed=0)
 SERVE_LAYERS = None                # None = the full published depth
 
 
@@ -88,6 +110,13 @@ def operands(shape, seed, device):
     return x, w
 
 
+def digits(shape, seed, device):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randint(-1, 2, shape, device=device, generator=g,
+                               dtype=torch.int32) for _ in range(2))
+
+
 def mode_bits(mode: str):
     body = mode[len("olm"):]
     n, _, p = body.partition("t")
@@ -96,8 +125,29 @@ def mode_bits(mode: str):
 
 def bits_equal(a, b) -> bool:
     import torch
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def bound(byte_count: int, ops: float, rate: float):
+    """(bound ms, "bytes" or "operations", bytes ms, operations ms)."""
+    byte_ms = byte_count / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / rate * 1e3
+    return (max(byte_ms, op_ms), "operations" if op_ms >= byte_ms else "bytes",
+            byte_ms, op_ms)
+
+
+def ptxas_summary(log: str) -> str:
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
+    smem = [int(s) for s in re.findall(r"(\d+) bytes smem", log)] or [0]
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"{spills} bytes of spill stores, up to {max(smem)} bytes smem")
 
 
 def main() -> int:
@@ -108,9 +158,24 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.core.numerics import DotEngine
+    from repro_torch.core.precision import OnlinePrecision
     from repro_torch.kernels import build
-    from repro_torch.kernels.online_dot import matmul_kernel as k1
-    from repro_torch.kernels.online_dot.matmul import olm_matmul, olm_matmul_ref
+    from repro_torch.kernels.online_dot import kernel as k3
+    from repro_torch.kernels.online_dot import matmul_kernel as k12
+    from repro_torch.kernels.online_dot.matmul import (_quantize_tiles,
+                                                       _tile_plan,
+                                                       olm_matmul,
+                                                       olm_matmul_ref)
+    from repro_torch.kernels.online_dot.ops import online_dot
+    from repro_torch.kernels.online_dot.ref import (online_dot_batch_ref,
+                                                    tree_levels)
+    from repro_torch.kernels.online_mul import kernel as k4
+    from repro_torch.kernels.online_mul.ops import online_mul
+    from repro_torch.kernels.online_mul.ref import online_mul_batch_ref
+    from repro_torch.kernels.tpmm import kernel as k5
+    from repro_torch.kernels.tpmm.ops import (decompose_operands,
+                                              tpmm_cost_model)
+    from repro_torch.kernels.tpmm.ref import tpmm_ref
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import Request, ServeEngine
 
@@ -118,104 +183,213 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    def reset_counts():
+        k12.launches = k12.host_launches = 0
+        k3.launches = k4.launches = k5.launches = 0
+
+    def read_counts():
+        return {"olm_matmul_fused": k12.launches,
+                "olm_matmul_host": k12.host_launches,
+                "online_dot": k3.launches, "online_mul": k4.launches,
+                "tpmm": k5.launches}
+
     # 1. device --------------------------------------------------------
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi_line = smi("name,power.limit")
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[device] {name} x{count}, {sms} SMs, max SM clock {clock_mhz} MHz, "
-          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+          f"torch {torch.__version__} cuda {torch.version.cuda}; {smi_line}",
+          flush=True)
+    rate = sms * INT_OPS_PER_SM_CLOCK * clock_mhz * 1e6
 
     # 2. build ---------------------------------------------------------
     t0 = time.monotonic()
-    built = build.build([k1.SOURCE])
+    built = build.build([k12.SOURCE, k3.SOURCE, k4.SOURCE, k5.SOURCE])
     for b in built.values():
-        print(f"[build] {b.source}: {b.seconds:.1f} s -> {b.path.name}")
-        entry = "?"
-        for line in b.log.splitlines():
-            m = re.search(r"Compiling entry function '(\S+?)'", line)
-            if m:
-                n = re.search(r"ILi(\d+)E", m.group(1))
-                entry = f"n={n.group(1)}" if n else m.group(1)
-            elif "Used" in line or "spill" in line:
-                print(f"[build]   {entry}: {line.split(' : ')[-1].strip()}")
+        print(f"[build] {b.source}: {b.seconds:.1f} s; "
+              f"{ptxas_summary(b.log)}")
     print(f"[build] all kernels in {time.monotonic() - t0:.1f} s", flush=True)
 
-    # 3. kernel against plain version, bit for bit ----------------------
-    max_err = 0.0
+    # 3. each kernel against its plain version, bit for bit -------------
+    max_err = dict.fromkeys(read_counts(), 0.0)
 
-    def check(label, x, w, n, p):
-        nonlocal max_err
-        got = olm_matmul(x, w, n_bits=n, trunc=p)
-        want = olm_matmul_ref(x, w, n_bits=n, trunc=p)
+    def hold(kernel, label, got, want):
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        max_err = max(max_err, err)
-        ok = bits_equal(got, want) and bool(torch.isfinite(got).all())
-        print(f"[check] olm_matmul_fused {label}: bit-identical={ok} "
+        err = float((got.double() - want.double()).abs().max())
+        max_err[kernel] = max(max_err[kernel], err)
+        ok = bits_equal(got, want)
+        if got.is_floating_point():
+            ok = ok and bool(torch.isfinite(got).all())
+        print(f"[check] {kernel} {label}: bit-identical={ok} "
               f"max_abs_err={err}", flush=True)
         if not ok:
-            raise SystemExit(f"olm_matmul_fused disagrees with its plain "
-                             f"version at {label}")
+            raise SystemExit(f"{kernel} disagrees with its plain version at "
+                             f"{label}")
 
     x, w = operands(RAGGED, 1, dev)
-    for mode in CHECK_MODES:
+    olm_modes = sorted(m for m in DotEngine.modes() if m.startswith("olm"))
+    for mode in olm_modes:
         n, p = mode_bits(mode)
-        check(f"{mode} M,K,N={RAGGED}", x, w, n, p)
+        want = olm_matmul_ref(x, w, n_bits=n, trunc=p)
+        if mode in CHECK_MODES:
+            hold("olm_matmul_fused", f"{mode} M,K,N={RAGGED}",
+                 olm_matmul(x, w, n_bits=n, trunc=p), want)
+        got = olm_matmul(x, w, n_bits=n, trunc=p, quantize="host")
+        hold("olm_matmul_host", f"{mode} M,K,N={RAGGED}", got, want)
+        hold("olm_matmul_host", f"{mode} against olm_matmul_fused", got,
+             olm_matmul(x, w, n_bits=n, trunc=p))
     sub = x.clone()
     sub[0, :16] = 1e-40                      # an all-subnormal K tile
     zeroed = sub.clone()
     zeroed[0, :16] = 0.0
-    check(f"olm16 subnormal tile M,K,N={RAGGED}", sub, w, 16, None)
+    hold("olm_matmul_fused", f"olm16 subnormal tile M,K,N={RAGGED}",
+         olm_matmul(sub, w), olm_matmul_ref(sub, w))
     if not bits_equal(olm_matmul(sub, w), olm_matmul(zeroed, w)):
         raise SystemExit("an all-subnormal tile did not contribute exactly 0")
     print("[check] all-subnormal tile contributes exactly 0: True")
     for shape in (DECODE_GEMV, PREFILL_GEMM):
-        check(f"olm16 M,K,N={shape}", *operands(shape, 2, dev), 16, None)
+        xs, ws = operands(shape, 2, dev)
+        want = olm_matmul_ref(xs, ws)
+        hold("olm_matmul_fused", f"olm16 M,K,N={shape}", olm_matmul(xs, ws),
+             want)
+        hold("olm_matmul_host", f"olm16 M,K,N={shape}",
+             olm_matmul(xs, ws, quantize="host"), want)
+    del xs, ws, want
+
+    for n, truncated in MUL_CASES:
+        cfg = OnlinePrecision(n=n, truncated=truncated, tail_gating=truncated)
+        xd, yd = digits((MUL_B, n), n, dev)
+        want, _ = online_mul_batch_ref(xd, yd, n=n, truncated=truncated,
+                                       tail_gating=truncated)
+        hold("online_mul", f"B={MUL_B} n={n} "
+             f"{'truncated' if truncated else 'full'}",
+             k4.online_mul_kernel(xd, yd, cfg), want)
+    for K, n in DOT_CASES:
+        xd, yd = digits((DOT_B, K, n), K + n, dev)
+        hold("online_dot", f"B={DOT_B} K={K} n={n}",
+             k3.online_dot_kernel(xd, yd, OnlinePrecision(n=n)),
+             online_dot_batch_ref(xd, yd, n=n))
+    del xd, yd, want
+
+    subrow = x.clone()
+    subrow[1] = 1e-40                        # an all-subnormal row
+    for n_bits in (16, 8):
+        for label, (xs, ws) in ((f"M,K,N={RAGGED}", (x, w)),
+                                (f"subnormal row M,K,N={RAGGED}", (subrow, w))):
+            ops = decompose_operands(xs, ws, n_bits=n_bits)
+            hold("tpmm", f"tpmm{n_bits} {label}",
+                 k5.tpmm_kernel(*ops, n_bits=n_bits),
+                 tpmm_ref(*ops, n_bits=n_bits))
+        for shape in TPMM_SHAPES:
+            ops = decompose_operands(*operands(shape, 4, dev), n_bits=n_bits)
+            hold("tpmm", f"tpmm{n_bits} M,K,N={shape}",
+                 k5.tpmm_kernel(*ops, n_bits=n_bits),
+                 tpmm_ref(*ops, n_bits=n_bits))
+    del ops
 
     scfg = dataclasses.replace(smoke_config(SERVE["arch"]),
                                compute_dtype="float32")
-    cpu_model = Model(scfg, DotEngine(mode="olm16"), device="cpu")
+    cpu_model = Model(scfg, device="cpu")
     cpu_params = cpu_model.init(seed=0)
-    gpu_model = Model(scfg, DotEngine(mode="olm16"), device=dev)
     gpu_params = {k: ([{a: {b: t.to(dev) for b, t in d.items()}
                         for a, d in layer.items()} for layer in v]
                       if k == "layers" else {b: t.to(dev) for b, t in v.items()})
                   for k, v in cpu_params.items()}
     toks = torch.from_numpy(np.random.default_rng(0)
                             .integers(0, scfg.vocab_size, (2, 7)))
-    want, _, _ = cpu_model.prefill(cpu_params, {"tokens": toks},
-                                   cpu_model.init_cache(2, 8))
-    got, _, _ = gpu_model.prefill(gpu_params, {"tokens": toks},
-                                  gpu_model.init_cache(2, 8))
-    rel = float((got.cpu() - want).abs().max() / want.abs().max())
-    print(f"[check] smoke model olm16 f32 prefill logits, card vs CPU: "
-          f"rel err {rel:.3e} (limit 1e-3)", flush=True)
-    if not rel <= 1e-3:
-        raise SystemExit("smoke model on the card disagrees with the CPU")
+    for mode in SERVE["modes"]:
+        cpu_model = Model(scfg, DotEngine(mode=mode), device="cpu")
+        gpu_model = Model(scfg, DotEngine(mode=mode), device=dev)
+        want, _, _ = cpu_model.prefill(cpu_params, {"tokens": toks},
+                                       cpu_model.init_cache(2, 8))
+        got, _, _ = gpu_model.prefill(gpu_params, {"tokens": toks},
+                                      gpu_model.init_cache(2, 8))
+        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        print(f"[check] smoke model {mode} f32 prefill logits, card vs CPU: "
+              f"rel err {rel:.3e} (limit 1e-3)", flush=True)
+        if not rel <= 1e-3:
+            raise SystemExit(f"smoke model under {mode} on the card disagrees "
+                             "with the CPU")
 
     # 4. times ---------------------------------------------------------
-    rate = sms * INT_OPS_PER_SM_CLOCK * clock_mhz * 1e6
     timed = {}
+
+    def record(kernel, label, ms, plain_ms, byte_count, ops, op_rate,
+               context=None):
+        b_ms, by, byte_ms, op_ms = bound(byte_count, ops, op_rate)
+        row = dict(label=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=by, context=context)
+        timed.setdefault(kernel, []).append(row)
+        ctx = f"; context {context}" if context else ""
+        print(f"[time] {kernel} {label}: {ms:.4f} ms; bound {b_ms:.4f} ms "
+              f"({by}: bytes {byte_ms:.4f} ms, operations {op_ms:.4f} ms); "
+              f"plain version {plain_ms:.3f} ms{ctx}", flush=True)
+
     for label, shape in (("decode_gemv", DECODE_GEMV),
                          ("prefill_gemm", PREFILL_GEMM)):
         M, K, N = shape
         x, w = operands(shape, 3, dev)
-        ms = cuda_ms(lambda: k1.olm_matmul_fused(x, w, n=16), reps=10, warmup=2)
-        plain_ms = cuda_ms(lambda: olm_matmul_ref(x, w, n_bits=16), reps=1)
         mm_ms = cuda_ms(lambda: torch.matmul(x, w), reps=20, warmup=3)
-        byte_ms = (M * K + K * N + M * N) * 4 / HBM_BYTES_PER_S * 1e3
-        op_ms = k1.int_ops(M, N, K, n=16) / rate * 1e3
-        bound = max(byte_ms, op_ms)
-        timed[label] = dict(shape=f"M={M} K={K} N={N}", ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound,
-                            bound_by="operations" if op_ms >= byte_ms else "bytes",
-                            matmul_f32_ms=mm_ms)
-        print(f"[time] olm_matmul_fused olm16 {label} M={M} K={K} N={N}: "
-              f"{ms:.4f} ms; bound {bound:.4f} ms ({timed[label]['bound_by']}: "
-              f"bytes {byte_ms:.4f} ms, int32 ops {op_ms:.4f} ms); plain "
-              f"version {plain_ms:.2f} ms; context, torch.matmul f32 (not the "
-              f"same function): {mm_ms:.4f} ms", flush=True)
+        plain_ms = cuda_ms(lambda: olm_matmul_ref(x, w, n_bits=16), reps=1)
+        ctx = f"torch.matmul f32 (not the same function) {mm_ms:.4f} ms"
+        record("olm_matmul_fused", f"olm16 {label} M={M} K={K} N={N}",
+               cuda_ms(lambda: k12.olm_matmul_fused(x, w, n=16), reps=10,
+                       warmup=2), plain_ms, (M * K + K * N + M * N) * 4,
+               k12.int_ops(M, N, K, n=16), rate, ctx)
+        kt, T, xp, wpT = _tile_plan(x, w, 16)
+        xd, sx = (t.contiguous() for t in _quantize_tiles(xp, kt, T, 16))
+        wd, sw = (t.contiguous() for t in _quantize_tiles(wpT, kt, T, 16))
+        grids = (xd.numel() + wd.numel() + sx.numel() + sw.numel()) * 4
+        record("olm_matmul_host", f"olm16 {label} M={M} K={K} N={N}",
+               cuda_ms(lambda: k12.olm_matmul_host(xd, sx, wd, sw, n=16),
+                       reps=10, warmup=2), plain_ms, grids + M * N * 4,
+               k12.int_ops(M, N, K, n=16, quantize=False), rate, ctx)
+        del xd, wd
+    for n, truncated in MUL_CASES[:4]:
+        cfg = OnlinePrecision(n=n)
+        xd, yd = digits((MUL_B, n), n, dev)
+        record("online_mul", f"B={MUL_B} n={n}",
+               cuda_ms(lambda: k4.online_mul_kernel(xd, yd, cfg), reps=20,
+                       warmup=2),
+               cuda_ms(lambda: online_mul_batch_ref(xd, yd, n=n), reps=1),
+               3 * MUL_B * n * 4, k4.int_ops(MUL_B, cfg), rate)
+    for K, n in DOT_CASES:
+        cfg = OnlinePrecision(n=n)
+        xd, yd = digits((DOT_B, K, n), K + n, dev)
+        m = n + 2 * tree_levels(K)
+        record("online_dot", f"B={DOT_B} K={K} n={n}",
+               cuda_ms(lambda: k3.online_dot_kernel(xd, yd, cfg), reps=20,
+                       warmup=2),
+               cuda_ms(lambda: online_dot_batch_ref(xd, yd, n=n), reps=1),
+               (2 * DOT_B * K * n + DOT_B * m) * 4,
+               k3.int_ops(DOT_B, K, cfg), rate)
+    del xd, yd
+    for n_bits, shapes in ((16, TPMM_SHAPES), (8, (DECODE_GEMV, PREFILL_GEMM))):
+        for shape in shapes:
+            M, K, N = shape
+            x, w = operands(shape, 5, dev)
+            ops = decompose_operands(x, w, n_bits=n_bits)
+            cost = tpmm_cost_model(n_bits)
+            D, pairs = cost["planes"], cost["pair_matmuls_truncated"]
+            # context: one plane pair through torch._int_mm (int8 -> int32),
+            # which needs more than 16 rows: M = 4 is padded to 32 rows
+            a8 = torch.nn.functional.pad(ops[0][0], (0, 0, 0, max(0, 32 - M)))
+            b8 = ops[1][0].contiguous()
+            int_mm = cuda_ms(lambda: torch._int_mm(a8, b8), reps=10, warmup=2)
+            dec_ms = cuda_ms(
+                lambda: decompose_operands(x, w, n_bits=n_bits), reps=3)
+            ctx = (f"torch._int_mm of one plane pair {int_mm:.4f} ms"
+                   f"{' (rows padded to 32)' if M < 32 else ''}; plane "
+                   f"decomposition of both operands {dec_ms:.4f} ms")
+            record("tpmm", f"tpmm{n_bits} M={M} K={K} N={N}",
+                   cuda_ms(lambda: k5.tpmm_kernel(*ops, n_bits=n_bits),
+                           reps=10, warmup=2),
+                   cuda_ms(lambda: tpmm_ref(*ops, n_bits=n_bits), reps=1),
+                   D * (M * K + K * N) + 4 * (M + N) + 4 * M * N,
+                   2 * M * N * K * pairs, INT8_OPS_PER_S, ctx)
+            timed["tpmm"][-1]["int_mm_ms"] = int_mm
+    del x, w, ops, a8, b8
 
     # 5. serve ---------------------------------------------------------
     cfg = get_config(SERVE["arch"])
@@ -226,110 +400,195 @@ def main() -> int:
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab_size}; params {cfg.param_dtype}, compute "
-          f"{cfg.compute_dtype}, dot_mode {SERVE['mode']}", flush=True)
-    model = Model(cfg, DotEngine(mode=SERVE["mode"]), device=dev)
-    params = model.init(seed=SERVE["seed"])
+          f"{cfg.compute_dtype}", flush=True)
+    params = Model(cfg, device=dev).init(seed=SERVE["seed"])
+    path_kernel = {"olm16": ("olm_matmul_fused", k12, "olm_matmul_fused"),
+                   "tpmm16": ("tpmm", k5, "tpmm_kernel")}
+    launches, outputs = {}, {}
+    for mode in SERVE["modes"]:
+        model = Model(cfg, DotEngine(mode=mode), device=dev)
 
-    def seeded_engine():
-        engine = ServeEngine(model, params, slots=SERVE["slots"],
-                             max_len=SERVE["max_len"],
-                             kv_block_size=SERVE["block"], device=dev)
-        rng = np.random.default_rng(SERVE["seed"])
-        lo, hi = SERVE["prompt"]
-        for rid in range(SERVE["requests"]):
-            prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(
-                lo, hi + 1))).astype(np.int32)
-            engine.submit(Request(rid=rid, prompt=prompt,
-                                  max_new_tokens=SERVE["max_new"]))
-        return engine
+        def seeded_engine():
+            engine = ServeEngine(model, params, slots=SERVE["slots"],
+                                 max_len=SERVE["max_len"],
+                                 kv_block_size=SERVE["block"], device=dev)
+            rng = np.random.default_rng(SERVE["seed"])
+            lo, hi = SERVE["prompt"]
+            for rid in range(SERVE["requests"]):
+                prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(
+                    lo, hi + 1))).astype(np.int32)
+                engine.submit(Request(rid=rid, prompt=prompt,
+                                      max_new_tokens=SERVE["max_new"]))
+            return engine
 
-    engine = seeded_engine()
-    passes = {"prefill": 0, "decode": 0}
-    finite = []
+        engine = seeded_engine()
+        passes = {"prefill": 0, "decode": 0}
+        finite = []
 
-    def counted(kind, fn):
-        def run(*a, **kw):
-            out = fn(*a, **kw)
-            passes[kind] += 1
-            finite.append(bool(torch.isfinite(out[0]).all()))
+        def counted(kind, fn):
+            def run(*a, **kw):
+                out = fn(*a, **kw)
+                passes[kind] += 1
+                finite.append(bool(torch.isfinite(out[0]).all()))
+                return out
+            return run
+
+        engine.model.prefill = counted("prefill", engine.model.prefill)
+        engine.model.decode_step = counted("decode", engine.model.decode_step)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.monotonic()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = read_counts()
+        kernel, module, attr = path_kernel[mode]
+        launches[kernel] = counts[kernel]
+        gemms = (passes["prefill"] + passes["decode"]) * (7 * cfg.n_layers + 1)
+        tokens = sum(len(r.output) for r in done)
+        reasons = {r.rid: r.finish_reason
+                   for r in sorted(done, key=lambda r: r.rid)}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[serve] {mode}: answered {len(done)}/{SERVE['requests']} "
+              f"requests, {tokens} tokens, finish reasons {reasons}")
+        print(f"[serve] {mode}: wall {wall:.3f} s (ends in "
+              f"torch.cuda.synchronize), {tokens / wall:.3f} tokens/s, peak "
+              f"memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+        print(f"[serve] {mode}: forward passes: {passes['prefill']} prefill, "
+              f"{passes['decode']} decode; GEMMs issued {gemms}; kernel "
+              f"launches {counts}", flush=True)
+        if len(done) != SERVE["requests"]:
+            raise SystemExit("not every request was answered")
+        if any(r.finish_reason not in ("length", "eos") for r in done):
+            raise SystemExit(f"unexpected finish reasons {reasons}")
+        if not all(finite):
+            raise SystemExit("non-finite logits in the serve phase")
+        if counts[kernel] != gemms or gemms == 0:
+            raise SystemExit(f"{kernel} launched {counts[kernel]} times for "
+                             f"{gemms} GEMMs under {mode}")
+
+        # Where the serve time goes: the same requests again, every launch
+        # of the path's kernel bracketed by CUDA events on its stream (an
+        # upper bound on its device time: a gap while the host prepares a
+        # launch counts too).
+        engine = seeded_engine()
+        wrapped, spans = getattr(module, attr), []
+
+        def bracketed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = wrapped(*a, **kw)
+            stop.record()
+            spans.append((start, stop))
             return out
-        return run
 
-    engine.model.prefill = counted("prefill", engine.model.prefill)
-    engine.model.decode_step = counted("decode", engine.model.decode_step)
+        setattr(module, attr, bracketed)
+        t0 = time.monotonic()
+        again = engine.run()
+        torch.cuda.synchronize()
+        wall2 = time.monotonic() - t0
+        setattr(module, attr, wrapped)
+        k_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+        outputs[mode] = [r.output for r in sorted(done, key=lambda r: r.rid)]
+        same = [r.output for r in sorted(again, key=lambda r: r.rid)] == \
+            outputs[mode]
+        print(f"[serve] {mode}: breakdown, second run of the same requests: "
+              f"wall {wall2:.3f} s, {kernel} {k_s:.3f} s over {len(spans)} "
+              f"launches ({100 * k_s / wall2:.1f}%), everything else "
+              f"{wall2 - k_s:.3f} s; same tokens as the first run: {same}",
+              flush=True)
+        if not same:
+            raise SystemExit("a second serve of the same requests gave other "
+                             "tokens")
+        del model, engine
+    agree = sum(a == b for r1, r2 in zip(*outputs.values())
+                for a, b in zip(r1, r2))
+    print(f"[serve] olm16 and tpmm16 agree on {agree} of "
+          f"{sum(map(len, outputs['olm16']))} generated tokens (random "
+          "weights; both within their documented error)")
+    del params
+    torch.cuda.empty_cache()
+
+    # 6. the host-quantize path and the digit-level API ------------------
+    layer = [(2048, 2048), (2048, 1024), (2048, 1024), (2048, 2048),
+             (2048, 8192), (2048, 8192), (8192, 2048)]   # q k v o g u d
+    gemms = [operands((4, K, N), 6 + i, dev) for i, (K, N) in enumerate(layer)]
+    reset_counts()
+    host = [olm_matmul(xs, ws, n_bits=16, quantize="host") for xs, ws in gemms]
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    k1.launches = 0
-    t0 = time.monotonic()
-    done = engine.run()
+    counts = read_counts()
+    launches["olm_matmul_host"] = counts["olm_matmul_host"]
+    print(f"[paths] olm_matmul(quantize='host') over one decoder layer's 7 "
+          f"GEMMs at decode: launches {counts}", flush=True)
+    if counts["olm_matmul_host"] != len(layer):
+        raise SystemExit("the host-quantize path did not launch "
+                         "olm_matmul_host once per GEMM")
+    for (xs, ws), got in zip(gemms, host):
+        if not bits_equal(got, olm_matmul(xs, ws, n_bits=16)):
+            raise SystemExit("the host-quantize path disagrees with the "
+                             "fused one")
+    del gemms, host
+
+    n, K = 16, 256
+    cfg = OnlinePrecision(n=n)
+    xm, ym = digits((MUL_B, n), 7, dev)
+    xdot, ydot = digits((DOT_B, K, n), 8, dev)
+    reset_counts()
+    _, z_int = online_mul(xm, ym, cfg)
+    _, dot = online_dot(xdot, ydot, cfg)
     torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = k1.launches
-    gemms = (passes["prefill"] + passes["decode"]) * (7 * cfg.n_layers + 1)
-    tokens = sum(len(r.output) for r in done)
-    reasons = {r.rid: r.finish_reason for r in sorted(done, key=lambda r: r.rid)}
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[serve] answered {len(done)}/{SERVE['requests']} requests, "
-          f"{tokens} tokens, finish reasons {reasons}", flush=True)
-    print(f"[serve] wall {wall:.3f} s (ends in torch.cuda.synchronize), "
-          f"{tokens / wall:.3f} tokens/s, peak memory {peak} bytes "
-          f"({peak / 2**30:.2f} GiB)")
-    print(f"[serve] forward passes: {passes['prefill']} prefill, "
-          f"{passes['decode']} decode; olm GEMMs issued {gemms}; "
-          f"olm_matmul_fused launches {launches}", flush=True)
-    if len(done) != SERVE["requests"]:
-        raise SystemExit("not every request was answered")
-    if any(r.finish_reason not in ("length", "eos") for r in done):
-        raise SystemExit(f"unexpected finish reasons {reasons}")
-    if not all(finite):
-        raise SystemExit("non-finite logits in the serve phase")
-    if launches != gemms or launches == 0:
-        raise SystemExit(f"olm_matmul_fused launched {launches} times for "
-                         f"{gemms} olm GEMMs")
+    counts = read_counts()
+    launches["online_mul"] = counts["online_mul"]
+    launches["online_dot"] = counts["online_dot"]
+    print(f"[paths] online_mul B={MUL_B} n={n} and online_dot B={DOT_B} K={K} "
+          f"n={n}: launches {counts}", flush=True)
+    if counts["online_mul"] != 1 or counts["online_dot"] != 1:
+        raise SystemExit("the digit-level API did not go through its kernels")
+    wts = torch.tensor(0.5 ** np.arange(1, n + 1), device=dev)
+    exact = (xm.double() @ wts) * (ym.double() @ wts)
+    mul_ulp = float((z_int.double() / 2 ** n - exact).abs().max()) * 2 ** n
+    exact = ((xdot.double() @ wts) * (ydot.double() @ wts)).sum(-1)
+    dot_ulp = float((dot - exact).abs().max()) * 2 ** n
+    print(f"[paths] online_mul worst error {mul_ulp:.3f} ulp at 2^-{n} "
+          f"(documented <= 1.1); online_dot {dot_ulp:.3f} ulp "
+          f"(documented <= 1.1 per lane: {1.1 * K:.1f})", flush=True)
+    if not (mul_ulp <= 1.1 and dot_ulp <= 1.1 * K):
+        raise SystemExit("the digit-level API exceeds its documented error")
 
-    # Where the serve time goes: the same requests again, every K1 launch
-    # bracketed by CUDA events on its stream (an upper bound on K1's device
-    # time: a gap while the host prepares a launch counts too).
-    engine = seeded_engine()
-    fused, spans = k1.olm_matmul_fused, []
-
-    def bracketed(*a, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fused(*a, **kw)
-        stop.record()
-        spans.append((start, stop))
-        return out
-
-    k1.olm_matmul_fused = bracketed
-    t0 = time.monotonic()
-    again = engine.run()
-    torch.cuda.synchronize()
-    wall2 = time.monotonic() - t0
-    k1.olm_matmul_fused = fused
-    k1_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
-    same = ([r.output for r in sorted(again, key=lambda r: r.rid)]
-            == [r.output for r in sorted(done, key=lambda r: r.rid)])
-    print(f"[serve] breakdown, second run of the same requests: wall "
-          f"{wall2:.3f} s, olm_matmul_fused {k1_s:.3f} s over {len(spans)} "
-          f"launches ({100 * k1_s / wall2:.1f}%), everything else "
-          f"{wall2 - k1_s:.3f} s; same tokens as the first run: {same}",
-          flush=True)
-    if not same:
-        raise SystemExit("a second serve of the same requests gave other "
-                         "tokens")
-
-    g = timed["decode_gemv"]
-    entry = {"name": "olm_matmul_fused", "route": "cuda",
-             "source": "src/repro_torch/csrc/olm_matmul_fused.cu",
-             "replaces": "src/repro/kernels/online_dot/matmul_kernel.py:269",
-             "launches": launches, "max_abs_err": max_err, "ms": g["ms"],
-             "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-             "bound_by": g["bound_by"], "library_ms": None,
-             "shape": g["shape"], "prefill_gemm": timed["prefill_gemm"]}
+    # the kernels line --------------------------------------------------
+    src = "src/repro_torch/csrc/"
+    meta = {
+        "olm_matmul_fused": ("olm_matmul.cu",
+                             "src/repro/kernels/online_dot/matmul_kernel.py:269"),
+        "olm_matmul_host": ("olm_matmul.cu",
+                            "src/repro/kernels/online_dot/matmul_kernel.py:196"),
+        "online_dot": ("online_dot.cu",
+                       "src/repro/kernels/online_dot/kernel.py:87"),
+        "online_mul": ("online_mul.cu",
+                       "src/repro/kernels/online_mul/kernel.py:134"),
+        "tpmm": ("tpmm.cu", "src/repro/kernels/tpmm/kernel.py:109"),
+    }
+    # the time each entry reports: the decode GEMV for the GEMM kernels
+    shown = {"olm_matmul_fused": "decode_gemv", "olm_matmul_host": "decode_gemv",
+             "online_dot": "K=256 n=16", "online_mul": "n=16",
+             "tpmm": "tpmm16 M=4 K=2048 N=8192"}
+    entries = []
+    for kernel, (source, replaces) in meta.items():
+        head = next(r for r in timed[kernel] if shown[kernel] in r["label"])
+        entries.append({
+            "name": kernel, "route": "cuda", "source": src + source,
+            "replaces": replaces, "launches": launches[kernel],
+            "max_abs_err": max_err[kernel], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "shape": head["label"],
+            "times": [{k: r[k] for k in ("label", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")}
+                      for r in timed[kernel] if r is not head]})
     print(smi_line)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

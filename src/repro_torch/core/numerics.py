@@ -4,6 +4,9 @@
 Every numerics choice is a registered `DotMode`:
 
   native   - matmul in the activation compute dtype; the baseline.
+  tpmm16 / tpmm8 - the paper's truncated-precision inner products
+    (kernels/tpmm): operands decomposed into digit planes, plane pairs
+    beyond the significance cutoff never computed. n_bits = 16 / 8.
   olm8 / olm16 / olm24 / olm32 - the paper's inner-product array
     (kernels/online_dot/matmul.olm_matmul) at every array width: K-lane
     online multipliers feeding an online adder tree, operands quantized
@@ -13,7 +16,7 @@ Every numerics choice is a registered `DotMode`:
     the n-digit mode run at p < n working digits.
 
 The digit modes dispatch on the device of their operands: a CUDA tensor
-runs the Hopper kernel, a CPU tensor the plain version. Weights go to the
+runs a Hopper kernel, a CPU tensor the plain version. Weights go to the
 kernel in f32 from their stored dtype, never rounded through the
 activation dtype first; the output returns in the activation dtype.
 """
@@ -76,6 +79,30 @@ def _lowered_dot(eng: "DotEngine", x: torch.Tensor, w: torch.Tensor,
     K = x.shape[-1]
     out = matmul_fn(x.reshape(-1, K), w.to(torch.float32), n_bits=n_bits)
     return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+
+
+def _tpmm_dot(eng: "DotEngine", x: torch.Tensor, w: torch.Tensor,
+              n_bits: int) -> torch.Tensor:
+    from repro_torch.kernels.tpmm.ops import tpmm
+    return _lowered_dot(eng, x, w, tpmm, n_bits)
+
+
+@register_mode(
+    "tpmm16",
+    summary="truncated digit-plane matmul, 16-bit significance",
+    error="~6e-4 relative (n-bit plane truncation, tested)",
+    cost="10/16 plane-pair MXU matmuls (37.5% MXU ops saved)")
+def _tpmm16(eng, x, w):
+    return _tpmm_dot(eng, x, w, 16)
+
+
+@register_mode(
+    "tpmm8",
+    summary="truncated digit-plane matmul, 8-bit significance",
+    error="~8e-2 relative (n-bit plane truncation, tested)",
+    cost="3/4 plane-pair MXU matmuls (25% MXU ops saved)")
+def _tpmm8(eng, x, w):
+    return _tpmm_dot(eng, x, w, 8)
 
 
 def _olm_dot(eng: "DotEngine", x: torch.Tensor, w: torch.Tensor,

@@ -1,0 +1,120 @@
+// Digit arithmetic shared by the port's digit-serial kernels: the radix-2
+// online multiplier recurrence (Fig. 7, truncated or full working
+// precision), the position-parallel online adder, and the exact powers of
+// two the scales are built from. olm_matmul.cu (K1, K2), online_mul.cu
+// (K4) and online_dot.cu (K3) all include this one copy, as the reference's
+// Pallas kernels all call one `mul_digit_loop` and one `adder_tree`.
+//
+// Bit-identity rules this file keeps: arithmetic right shifts on signed
+// int32, floors by masking, powers of two built by writing the exponent
+// field, and no float arithmetic that a compiler could contract.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace olm {
+
+constexpr int kDelta = 3;                  // online delay
+constexpr int kEst = 2;                    // fractional MSDs of the estimate
+constexpr int kMaxDigits = 32;             // operand digits n
+constexpr int kMaxSteps = kMaxDigits + kDelta;
+
+struct Sched {
+  int T[kMaxSteps];                        // working precision T(j) per step
+};
+
+__device__ __forceinline__ float pow2f(int e) {  // exact 2^e, -126 <= e <= 127
+  return __int_as_float((e + 127) << 23);
+}
+
+// Power-of-two slice scale 2^(ceil(log2 amax) + 1), from the exponent bits.
+__device__ __forceinline__ float pow2_scale_of(float amax) {
+  if (!(amax > 0.0f)) return 1.0f;
+  if (amax > 0x1p126f) return __int_as_float(0x7f800000);   // +inf
+  const int bits = __float_as_int(fminf(fmaxf(amax, 0x1p-126f), 0x1p126f));
+  const int e_floor = (bits >> 23) - 127;
+  const int e_ceil = (bits & 0x7FFFFF) == 0 ? e_floor : e_floor + 1;
+  return pow2f(e_ceil + 1);
+}
+
+// One lane of the radix-2 online multiplier at datapath scale 2^S: the
+// Fig. 7 recurrence under the schedule T(j), digits read MSD first from
+// the packed masks (digit i at bit N-1-i, +1 digits in *p, -1 digits in
+// *n). Output digit j lands at bit j of (zp, zn). S = max T(j) is the
+// truncated working precision p, or n + delta in full mode.
+template <int N>
+__device__ __forceinline__ void mul_digit_loop(uint32_t xp, uint32_t xn,
+                                               uint32_t yp, uint32_t yn,
+                                               const Sched& sc, int S,
+                                               uint64_t& zp, uint64_t& zn) {
+  int X = 0, Y = 0, W = 0;
+  uint64_t op = 0, on = 0;
+#pragma unroll
+  for (int s = 0; s < N + kDelta; ++s) {
+    const int j = s - kDelta;
+    const int q = s + 1;                   // arriving digit position
+    const int T = sc.T[s];
+    int xd = 0, yd = 0;
+    if (q <= N) {
+      const int sh = N - q;
+      xd = (int)((xp >> sh) & 1u) - (int)((xn >> sh) & 1u);
+      yd = (int)((yp >> sh) & 1u) - (int)((yn >> sh) & 1u);
+    }
+    const int keep = (int)(0xFFFFFFFFu << max(S - T, 0));  // floor below 2^-T
+    // the arriving digit's own bit is stored only while its slice is live
+    const int wq = (q <= min(T, S)) ? (1 << max(S - q, 0)) : 0;
+    const int Yf = Y + yd * wq;
+    const int term = X * yd + Yf * xd;
+    const int append = (term >> kDelta) & keep;
+    X = (X + xd * wq) & keep;
+    Y = Yf & keep;
+    const int V = 2 * W + append;
+    if (j >= 0) {
+      const int vq = V >> (S - kEst);      // selection estimate, in quarters
+      const int z = vq >= 2 ? 1 : (vq >= -2 ? 0 : -1);
+      W = (V - z * (1 << S)) & keep;
+      op |= (uint64_t)(z > 0) << j;
+      on |= (uint64_t)(z < 0) << j;
+    } else {
+      W = V & keep;
+    }
+  }
+  zp = op;
+  zn = on;
+}
+
+// One online adder of the tree, position-parallel on packed streams (digit
+// i at bit i). With e_k the digit sums (e_0 = 0, then the sums, then zeros):
+//   t_k = +1 if e_k >= 2 or (e_k == 1 and e_{k+1} >= 0)
+//   t_k = -1 if e_k <= -2 or (e_k == -1 and e_{k+1} < 0)
+//   w_k = e_k - 2 t_k,  out_k = w_k + t_{k+1}  (in {-1, 0, 1})
+// giving the stream of (a + b) / 2, two digits longer. Streams of up to 62
+// digits fit: the result's last digit lands at bit 63.
+__device__ __forceinline__ void online_add(uint64_t ap, uint64_t an,
+                                           uint64_t bp, uint64_t bn,
+                                           uint64_t& op, uint64_t& on) {
+  ap <<= 1; an <<= 1; bp <<= 1; bn <<= 1;  // digit i is e index i + 1
+  const uint64_t a0 = ~(ap | an), b0 = ~(bp | bn);
+  const uint64_t e2 = ap & bp, em2 = an & bn;
+  const uint64_t e1 = (ap & b0) | (bp & a0);
+  const uint64_t em1 = (an & b0) | (bn & a0);
+  const uint64_t neg_next = (em1 | em2) >> 1;          // e_{k+1} < 0
+  const uint64_t tp = e2 | (e1 & ~neg_next);
+  const uint64_t tn = em2 | (em1 & neg_next);
+  const uint64_t odd = e1 | em1;
+  const uint64_t wp = odd & neg_next, wn = odd & ~neg_next;
+  const uint64_t tpn = tp >> 1, tnn = tn >> 1;         // t_{k+1}
+  const uint64_t wz = ~(wp | wn);
+  op = (wp & ~tnn) | (wz & tpn);
+  on = (wn & ~tpn) | (wz & tnn);
+}
+
+// Copy a host schedule of nsteps values into the by-value launch argument.
+inline Sched make_sched(const int* sched, int nsteps) {
+  Sched sc;
+  for (int i = 0; i < kMaxSteps; ++i) sc.T[i] = i < nsteps ? sched[i] : 0;
+  return sc;
+}
+
+}  // namespace olm

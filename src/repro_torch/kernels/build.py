@@ -3,10 +3,11 @@ libraries and load them with ctypes.
 
 Each source is compiled for sm_90a at first use into `build/kernels/` at
 the root of the checkout (listed in .gitignore), under a directory keyed
-by a hash of the source and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. Several sources are compiled by
-parallel nvcc processes started together. No PyTorch header is included:
-a plain C interface keeps a build to seconds.
+by a hash of the source, every shared header (`csrc/*.cuh`) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. Several sources are compiled by parallel nvcc processes
+started together. No PyTorch header is included: a plain C interface
+keeps a build to seconds.
 """
 from __future__ import annotations
 
@@ -53,8 +54,11 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:16]
     stem = Path(source).stem
     return BUILD_ROOT / f"{stem}-{key}" / f"lib{stem}.so"
 

@@ -2,8 +2,8 @@
 kernels (port of `repro/kernels/common.py`).
 
 Every function here is plain PyTorch and is used twice: by the plain
-versions the CPU runs, and as the specification the CUDA kernel
-(`csrc/olm_matmul_fused.cu`) reproduces bit for bit.
+versions the CPU runs, and as the specification the CUDA kernels
+(`csrc/*.cu`) reproduce bit for bit.
 
 Subnormal inputs are flushed to zero before any scale is taken. The
 reference runs on XLA:CPU and on the TPU, and both treat a float32
@@ -25,11 +25,13 @@ __all__ = [
     "schedule_arrays",
     "checked_schedule",
     "fits_int32",
+    "resolve_use_pallas",
     "pad_to_multiple",
     "flush_subnormals",
     "pow2_scale",
     "sd_quantize_inkernel",
     "sd_quantize",
+    "decode_digits",
     "decode_stream",
     "decode_stream_wide",
     "decode_policy",
@@ -77,6 +79,18 @@ def fits_int32(cfg: OnlinePrecision) -> bool:
     except ValueError:
         return False
     return True
+
+
+def resolve_use_pallas(cfg: OnlinePrecision, use_pallas: bool | None) -> bool:
+    """The dispatch predicate shared by the digit-serial kernel families,
+    decided from the configuration before any launch: a CUDA tensor runs
+    the kernel iff the caller allows it (None = auto) and the configuration
+    fits the int32 datapath; otherwise the int64 plain version. (The
+    reference's name: there the kernel is a Pallas one.)"""
+    fits = fits_int32(cfg)
+    if use_pallas is None:
+        return fits
+    return use_pallas and fits
 
 
 def pad_to_multiple(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
@@ -155,6 +169,14 @@ def sd_quantize(a: torch.Tensor, *, n: int, axis: int = -1
         return sd_quantize_inkernel(a, n=n)
     digits, scale = sd_quantize_inkernel(a.movedim(ax, -1), n=n)
     return digits.movedim(-2, ax), scale.movedim(-1, ax)
+
+
+def decode_digits(z: torch.Tensor, n: int) -> torch.Tensor:
+    """SD digit matrix (..., n) -> int64 integer scaled by 2^n, exact for
+    n <= 62 (the software form of the hardware's on-the-fly converter)."""
+    w = torch.from_numpy(np.int64(1) << np.arange(n - 1, -1, -1,
+                                                   dtype=np.int64))
+    return (z.to(torch.int64) * w.to(z.device)).sum(-1)
 
 
 def decode_policy(m: int) -> str:

@@ -15,12 +15,16 @@ array would compute it:
      float32 in K-tile order.
 
 `olm_matmul` dispatches on the device of its operands: a CUDA tensor
-goes to the hand-written Hopper kernel (matmul_kernel.olm_matmul_fused,
-the port of the TPU kernel `olm_matmul_fused_pallas`), a CPU tensor to
-`olm_matmul_ref`, the plain version (the reference's broadcast oracle).
-Both give the same float32 bits: one quantizer specification, bit-exact
-digit arithmetic, an exact decode, power-of-two scale products and the
-same accumulation order.
+goes to a hand-written Hopper kernel, a CPU tensor to `olm_matmul_ref`,
+the plain version (the reference's broadcast oracle). On the card,
+quantize="kernel" (the default) runs matmul_kernel.olm_matmul_fused, the
+port of the TPU kernel `olm_matmul_fused_pallas`, which quantizes inside
+the kernel; quantize="host" quantizes here and runs
+matmul_kernel.olm_matmul_host, the port of `olm_matmul_pallas`, on the
+digit grids. All give the same float32 bits: one quantizer specification,
+bit-exact digit arithmetic, an exact decode, power-of-two scale products
+and the same accumulation order. `digit_traffic` counts the operand
+elements each path delivers to the array.
 """
 from __future__ import annotations
 
@@ -34,11 +38,18 @@ from repro_torch.kernels.online_mul.ref import online_mul_batch_ref
 from .ref import adder_tree, tree_levels
 
 __all__ = ["olm_matmul", "olm_matmul_ref", "olm_error_bound",
-           "DEFAULT_K_TILE", "ULP_PER_LANE", "WIDE_DECODE_ULP"]
+           "digit_traffic", "DEFAULT_K_TILE", "DEFAULT_BLOCK_M",
+           "DEFAULT_BLOCK_N", "ULP_PER_LANE", "WIDE_DECODE_ULP"]
 
 # Array width: lanes reduced by one adder tree. A numerics parameter: it
 # sets the quantization slice and the tree depth, so it stays 16.
 DEFAULT_K_TILE = 16
+
+# The reference's output tile for its TPU grid kernels: digit_traffic
+# counts operand loads per (block_m, block_n) tile of that grid, so its
+# exact-int ledger uses the same defaults.
+DEFAULT_BLOCK_M = 8
+DEFAULT_BLOCK_N = 8
 
 # Per-lane error ledger in output ulp at 2^-n: 2 quantized operands plus
 # 1.1 of multiplier truncation, rounded up.
@@ -151,18 +162,22 @@ def olm_matmul_ref(x: torch.Tensor, w: torch.Tensor, *, n_bits: int = 16,
 
 
 def olm_matmul(x: torch.Tensor, w: torch.Tensor, *, n_bits: int = 16,
-               k_tile: int = DEFAULT_K_TILE,
-               trunc: int | None = None) -> torch.Tensor:
+               k_tile: int = DEFAULT_K_TILE, trunc: int | None = None,
+               quantize: str = "kernel") -> torch.Tensor:
     """Matmul through the fused online inner-product array; (M, N) float32.
 
     trunc=p selects the truncated family `olm{n}t{p}`: the whole array runs
-    at p < n working digits. On a CUDA tensor this launches the Hopper
-    kernel (quantization fused into it, so no digit grid ever reaches
-    device memory: the reference's quantize="kernel" path, the only one
-    ported so far); on a CPU tensor it runs the plain version. Raises when
+    at p < n working digits. On a CUDA tensor this launches a Hopper
+    kernel: quantize="kernel" fuses the quantization into it, so no digit
+    grid ever reaches device memory; quantize="host" quantizes first and
+    ships the digit grids (the reference grid path). On a CPU tensor both
+    run the plain version, which gives the same bits. Raises when
     n_bits + 2 ceil(log2 k_tile) exceeds the 48-digit exact decode window.
     """
     _check_operands(x, w)
+    if quantize not in ("kernel", "host"):
+        raise ValueError(f"quantize must be 'kernel' or 'host', "
+                         f"got {quantize!r}")
     work = _resolve_trunc(n_bits, trunc)
     kt = min(k_tile, x.shape[1])
     _decode_plan(work, kt)                 # refuse unservable streams early
@@ -170,7 +185,13 @@ def olm_matmul(x: torch.Tensor, w: torch.Tensor, *, n_bits: int = 16,
         return olm_matmul_ref(x, w, n_bits=work, k_tile=k_tile)
     if x.device.type != "cuda":
         raise ValueError(f"olm_matmul runs on cpu or cuda, got {x.device}")
-    from .matmul_kernel import olm_matmul_fused
+    from .matmul_kernel import olm_matmul_fused, olm_matmul_host
+    if quantize == "host":
+        kt, n_tiles, xp, wpT = _tile_plan(x, w, k_tile)
+        xd, sx = _quantize_tiles(xp, kt, n_tiles, work)
+        wd, sw = _quantize_tiles(wpT, kt, n_tiles, work)
+        return olm_matmul_host(xd.contiguous(), sx.contiguous(),
+                               wd.contiguous(), sw.contiguous(), n=work)
     # The same f32 casts as _tile_plan; w keeps its layout (a transposed
     # view is read in place).
     return olm_matmul_fused(x.to(torch.float32).contiguous(),
@@ -197,3 +218,48 @@ def olm_error_bound(x: torch.Tensor, w: torch.Tensor, *, n_bits: int = 16,
         per_lane += (n_tiles + 1) * WIDE_DECODE_ULP
     per_lane = torch.tensor(per_lane, dtype=torch.float32)
     return kt * per_lane * torch.einsum("mt,nt->mn", sx, sw)
+
+
+def digit_traffic(M: int, N: int, K: int, *, n_bits: int = 16,
+                  k_tile: int = DEFAULT_K_TILE, trunc: int | None = None,
+                  block_m: int = DEFAULT_BLOCK_M,
+                  block_n: int = DEFAULT_BLOCK_N) -> dict:
+    """Operand traffic ledger for one (M, K) @ (K, N) matmul, in elements
+    (4 bytes each: int32 digits or float32 tiles) delivered to the array.
+
+    broadcast: both digit grids replicated to (M*N, kt, n) per K tile.
+    grid: the host-quantize grid path, each x-row digit grid loaded once
+      per (row tile, K tile) and each w-column grid once per (column tile,
+      K tile) of a (block_m, block_n) output tiling; reuse =
+      broadcast / grid.
+    fused: the quantize-in-kernel path, the same loads as raw float tiles,
+      n_bits times fewer elements than their digit grids.
+    trunc=p streams p-digit grids instead of n-digit ones, so the digit
+    columns shrink by exactly p/n while the float tiles do not.
+    """
+    if trunc is not None and not 0 < trunc < n_bits:
+        raise ValueError(f"trunc must satisfy 0 < trunc < n_bits={n_bits}; "
+                         f"got {trunc}")
+    work = n_bits if trunc is None else trunc
+    kt = min(k_tile, K)
+    n_tiles = -(-K // kt)
+    bm = max(1, min(block_m, M))
+    bn = max(1, min(block_n, N))
+    m_tiles = -(-M // bm)
+    n_out_tiles = -(-N // bn)
+    per_grid = kt * work                        # one row/column digit grid
+    loads = m_tiles * bm * n_out_tiles + n_out_tiles * bn * m_tiles
+    broadcast = 2 * M * N * per_grid * n_tiles
+    grid = loads * per_grid * n_tiles
+    fused = loads * kt * n_tiles
+    return {
+        "broadcast_elems": broadcast,
+        "grid_elems": grid,
+        "fused_elems": fused,
+        "broadcast_bytes": 4 * broadcast,
+        "grid_bytes": 4 * grid,
+        "fused_bytes": 4 * fused,
+        "reuse": broadcast / grid,
+        "fused_reuse": broadcast / fused,
+        "fused_vs_grid": grid / fused,
+    }

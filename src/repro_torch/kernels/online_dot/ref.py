@@ -1,5 +1,6 @@
-"""Plain online adder tree of the inner-product array (port of
-`repro/kernels/online_dot/ref.py::tree_levels, adder_tree`).
+"""Plain online adder tree and batched inner product of the array (port
+of `repro/kernels/online_dot/ref.py::tree_levels, adder_tree,
+online_dot_batch_ref`).
 
 The balanced online-adder tree, position-parallel: with e_k the padded
 digit sums of a node's two input streams (e_0 = 0 for the /2 pre-scale,
@@ -16,7 +17,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["tree_levels", "adder_tree"]
+from repro_torch.kernels.online_mul.ref import online_mul_batch_ref
+
+__all__ = ["tree_levels", "adder_tree", "online_dot_batch_ref"]
 
 
 def tree_levels(k: int) -> int:
@@ -56,3 +59,18 @@ def adder_tree(streams: torch.Tensor) -> tuple[torch.Tensor, int]:
         streams = torch.cat([out, z1], dim=-1)
         levels += 1
     return streams[..., 0, :], levels
+
+
+def online_dot_batch_ref(x_digits: torch.Tensor, y_digits: torch.Tensor, *,
+                         n: int, delta: int = 3, t: int = 2,
+                         truncated: bool = True, tail_gating: bool = True,
+                         tail_guard: int = 2) -> torch.Tensor:
+    """Batched online inner product, plain version: (B, K, n) digit pairs
+    through K multiplier lanes (the int64 recurrence) and the adder tree.
+    Returns the (B, n + 2 ceil(log2 K)) int32 digit stream of
+    sum_i x_i y_i / 2^L."""
+    z, _ = online_mul_batch_ref(x_digits, y_digits, n=n, delta=delta, t=t,
+                                truncated=truncated, tail_gating=tail_gating,
+                                tail_guard=tail_guard)
+    out, _ = adder_tree(z)
+    return out

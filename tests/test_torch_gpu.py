@@ -1,5 +1,5 @@
-"""Card-only tests of the port: the hand-written Hopper kernel against its
-plain PyTorch version on the card. A CUDA kernel has no interpret mode, so
+"""Card-only tests of the port: each hand-written Hopper kernel against its
+plain PyTorch version on the card, bit for bit. A CUDA kernel has no interpret mode, so
 these skip where there is no card (the fixture decides, at run time).
 On the card: PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -10,8 +10,19 @@ import torch
 
 from repro_torch.configs import smoke_config
 from repro_torch.core.numerics import DotEngine
+from repro_torch.core.precision import OnlinePrecision
+from repro_torch.kernels.online_dot import kernel as dot_kernel
 from repro_torch.kernels.online_dot import matmul_kernel
 from repro_torch.kernels.online_dot.matmul import olm_matmul, olm_matmul_ref
+from repro_torch.kernels.online_dot.ops import online_dot
+from repro_torch.kernels.online_dot.ref import online_dot_batch_ref
+from repro_torch.kernels.online_mul import kernel as mul_kernel
+from repro_torch.kernels.online_mul.ops import online_mul
+from repro_torch.kernels.online_mul.ref import online_mul_batch_ref
+from repro_torch.kernels.tpmm import kernel as tpmm_kernel
+from repro_torch.kernels.tpmm.ops import tpmm
+from repro_torch.kernels.tpmm.quantize import plane_decompose
+from repro_torch.kernels.tpmm.ref import tpmm_ref
 from repro_torch.models.model import Model
 
 pytestmark = pytest.mark.gpu
@@ -52,14 +63,75 @@ def test_kernel_reads_transposed_weights(cuda):
 
 def test_launches_counted_once_per_gemm(cuda):
     x, w = _operands(cuda, 4, 32, 8)
-    before = matmul_kernel.launches
+    before = matmul_kernel.launches, tpmm_kernel.launches
     DotEngine(mode="olm16").dot(x, w)
-    assert matmul_kernel.launches == before + 1
+    DotEngine(mode="tpmm8").dot(x, w)
+    assert (matmul_kernel.launches, tpmm_kernel.launches) == (before[0] + 1,
+                                                              before[1] + 1)
 
 
-def test_model_prefill_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("n,p", [(8, None), (16, None), (16, 10), (32, None)])
+def test_host_quantize_kernel_bit_identical(cuda, n, p):
+    x, w = _operands(cuda, 5, 70, 37)
+    before = matmul_kernel.host_launches
+    got = olm_matmul(x, w, n_bits=n, trunc=p, quantize="host")
+    torch.cuda.synchronize()
+    assert matmul_kernel.host_launches == before + 1
+    for want in (olm_matmul_ref(x, w, n_bits=n, trunc=p),
+                 olm_matmul(x, w, n_bits=n, trunc=p)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _digits(cuda, shape, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randint(-1, 2, shape, device=cuda, generator=g,
+                          dtype=torch.int32),
+            torch.randint(-1, 2, shape, device=cuda, generator=g,
+                          dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n,truncated", [(4, True), (8, True), (17, True),
+                                         (32, True), (8, False), (24, False)])
+def test_online_mul_kernel_bit_identical(cuda, n, truncated):
+    cfg = OnlinePrecision(n=n, truncated=truncated, tail_gating=truncated)
+    x, y = _digits(cuda, (1000, n), n)
+    before = mul_kernel.launches
+    z, z_int = online_mul(x, y, cfg)
+    assert mul_kernel.launches == before + 1
+    want, want_int = online_mul_batch_ref(x, y, n=n, truncated=truncated,
+                                          tail_gating=truncated)
+    assert torch.equal(z, want) and torch.equal(z_int, want_int)
+
+
+@pytest.mark.parametrize("K", [1, 3, 16, 33, 64, 256, 1000])
+@pytest.mark.parametrize("n", [8, 32])
+def test_online_dot_kernel_bit_identical(cuda, K, n):
+    cfg = OnlinePrecision(n=n)
+    x, y = _digits(cuda, (37, K, n), K + n)
+    before = dot_kernel.launches
+    z, _ = online_dot(x, y, cfg)
+    assert dot_kernel.launches == before + 1
+    assert torch.equal(z, online_dot_batch_ref(x, y, n=n))
+
+
+@pytest.mark.parametrize("n_bits,mode", [(16, "nbit"), (8, "nbit"),
+                                         (16, "full"), (16, "eq8")])
+@pytest.mark.parametrize("shape", [(5, 70, 37), (40, 130, 70), (4, 2048, 512)])
+def test_tpmm_kernel_bit_identical(cuda, n_bits, mode, shape):
+    x, w = _operands(cuda, *shape)
+    before = tpmm_kernel.launches
+    got = tpmm(x, w, n_bits=n_bits, mode=mode)
+    assert tpmm_kernel.launches == before + 1
+    ap, sa = plane_decompose(x, num_planes=n_bits // 4, axis=1)
+    bp, sb = plane_decompose(w, num_planes=n_bits // 4, axis=0)
+    want = tpmm_ref(ap, bp, sa, sb, n_bits=n_bits, mode=mode)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["olm16", "tpmm16"])
+def test_model_prefill_on_card_matches_cpu(cuda, mode):
     cfg = dataclasses.replace(smoke_config("internlm2_1_8b"),
-                              compute_dtype="float32", dot_mode="olm16")
+                              compute_dtype="float32", dot_mode=mode)
     cpu = Model(cfg, device="cpu")
     params = cpu.init(seed=0)
     gpu = Model(cfg, device=cuda)
@@ -82,9 +154,10 @@ def test_bf16_activations_through_engine(cuda):
     x = torch.randn(2, 3, 40, generator=g).to(torch.bfloat16)
     w = torch.randn(40, 9, generator=g) * 0.1
     table = torch.randn(9, 40, generator=g).to(torch.bfloat16)
-    eng = DotEngine(mode="olm16")
-    for a, b in ((x, w), (x, table.T)):
-        want = eng.dot(a, b)
-        got = eng.dot(a.to(cuda), b.to(cuda))
-        assert got.dtype == torch.bfloat16
-        assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    for eng in (DotEngine(mode="olm16"), DotEngine(mode="tpmm16")):
+        for a, b in ((x, w), (x, table.T)):
+            want = eng.dot(a, b)
+            got = eng.dot(a.to(cuda), b.to(cuda))
+            assert got.dtype == torch.bfloat16
+            assert torch.equal(got.cpu().view(torch.int16),
+                               want.view(torch.int16))

@@ -49,8 +49,7 @@ def _bits(a):
 
 
 def test_registry_matches_reference():
-    ref = {m for m in JEngine.modes() if not m.startswith("tpmm")}
-    assert set(DotEngine.modes()) == ref
+    assert set(DotEngine.modes()) == set(JEngine.modes())
 
 
 @pytest.mark.parametrize("mode", OLM_MODES)
@@ -153,7 +152,9 @@ def test_layer_modes_route_roles():
     assert eng.for_role("mlp") is eng and eng.for_role("attn") is eng
     with pytest.raises(ValueError):
         eng.for_role("moe")
+    assert DotEngine(mode="olm16",
+                     layer_modes={"head": "tpmm8"}).for_role("head").mode == "tpmm8"
     with pytest.raises(ValueError):
-        DotEngine(mode="olm16", layer_modes={"head": "tpmm8"})
+        DotEngine(mode="olm16", layer_modes={"head": "tpmm12"})
     with pytest.raises(ValueError):
         DotEngine(mode="olm64")
