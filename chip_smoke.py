@@ -14,19 +14,25 @@ Phases, each printing its own lines:
                bit: olm_matmul_fused (K1) and olm_matmul_host (K2) at every
                olm width and tier on a ragged shape and at the serve path's
                GEMM shapes, online_mul (K4) and online_dot (K3) at a million
-               and four thousand rows, tpmm (K5) at tpmm16 and tpmm8 on a
-               ragged shape, every serve GEMM shape and an all-subnormal
-               row; plus the smoke-size model under olm16 and under tpmm16
-               on the card against the same model on the CPU;
-  4. time    - each kernel at those shapes (CUDA events) beside its bound,
-               its plain version and a PyTorch context call;
+               and four thousand rows, tpmm (K5) at tpmm16 and tpmm8 under
+               its three level cutoffs on a ragged shape, an all-subnormal
+               row, the tile and split edges, A planes at an odd address
+               and every serve GEMM shape; plus the smoke-size model under
+               olm16 and under tpmm16 on the card against the same model
+               on the CPU;
+  4. time    - each kernel at those shapes beside its bound, its plain
+               version and a PyTorch context call: the median of CUDA
+               event pairs, one per launch, with the L2 cache overwritten
+               before each; a time below its bound fails the run;
   5. serve   - ServeEngine at the full published InternLM2-1.8B width,
                4 seeded requests, once under dot_mode="olm16" (every GEMM
                through K1) and once under "tpmm16" (every GEMM through K5):
                the path's kernel launch count must equal the GEMMs the
                forward passes issued. Each is run a second time with the
-               kernel's launches between CUDA events, for its share of the
-               wall;
+               kernel's launches (and, under tpmm16, the plane
+               decompositions) between CUDA events, for their share of the
+               wall, and a third time under torch.profiler, for the
+               device's busy share;
   6. paths   - the other two paths a user calls: olm_matmul(quantize="host")
                over one decoder layer's GEMMs at decode (K2), and the
                digit-level API online_mul / online_dot (K4, K3), each with
@@ -68,6 +74,14 @@ CHECK_MODES = ("olm8", "olm16", "olm16t12", "olm24", "olm32")
 SERVE_KN = ((2048, 8192), (2048, 2048), (2048, 1024), (8192, 2048),
             (2048, 92544))
 TPMM_SHAPES = tuple((M, K, N) for M in (4, 64) for K, N in SERVE_KN)
+# K5's edges: M on both sides of the 16-row decode tile, K of 1, 31 and 33
+# bytes (not whole 16-byte copies) and one long enough to split, N not a
+# multiple of 8; and A planes starting at an odd address.
+TPMM_EDGES = ((1, 2048, 1003), (16, 2048, 1003), (17, 2048, 1003),
+              (4, 1, 37), (4, 31, 37), (4, 33, 37), (4, 8192, 1003),
+              (17, 8192, 1003))
+TPMM_ODD = (5, 2048, 1003)
+TPMM_MODES = ("nbit", "full", "eq8")
 MUL_B = 1 << 20
 MUL_CASES = ((8, True), (16, True), (24, True), (32, True), (8, False),
              (16, False), (24, False))
@@ -86,19 +100,67 @@ def smi(fields: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+FLUSH_BYTES = 256 << 20            # > 5x the H100's 50 MB L2
+SPIN_CYCLES = 1_000_000            # ~0.5 ms of the SM clock
+_flush = []
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds of fn() over reps launches, after warmup ones."""
+    """Median milliseconds of fn() over reps launches after warmup ones,
+    each between its own pair of CUDA events, with the L2 cache
+    overwritten before each (outside the events): every operand is read
+    from device memory, as the serve reads each weight once a pass. A
+    plain version that spends longer on the host than the spin kernel
+    lasts is timed with its host gaps."""
     import torch
+    if not _flush:
+        _flush.append(torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                                  device="cuda"))
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
+    spans = []
     for _ in range(reps):
+        _flush[0].zero_()
+        # a spin kernel keeps the stream busy while the host enqueues the
+        # events and fn's launches, so the pair times the device alone
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    stop.record()
+        stop.record()
+        spans.append((start, stop))
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    times = sorted(a.elapsed_time(b) for a, b in spans)
+    mid = len(times) // 2
+    return times[mid] if len(times) % 2 else (times[mid - 1] + times[mid]) / 2
+
+
+def device_busy(fn, name: str):
+    """Run fn() under torch.profiler: (seconds the device ran any kernel,
+    seconds in kernels whose name holds `name`, device kernels seen)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, lo, hi = 0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            busy += 0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += 0 if hi is None else hi - lo
+    own = sum(e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.name)
+    return busy / 1e6, own / 1e6, len(spans)
 
 
 def operands(shape, seed, device):
@@ -173,6 +235,7 @@ def main() -> int:
     from repro_torch.kernels.online_mul.ops import online_mul
     from repro_torch.kernels.online_mul.ref import online_mul_batch_ref
     from repro_torch.kernels.tpmm import kernel as k5
+    from repro_torch.kernels.tpmm import ops as tpmm_ops
     from repro_torch.kernels.tpmm.ops import (decompose_operands,
                                               tpmm_cost_model)
     from repro_torch.kernels.tpmm.ref import tpmm_ref
@@ -265,6 +328,10 @@ def main() -> int:
         hold("online_mul", f"B={MUL_B} n={n} "
              f"{'truncated' if truncated else 'full'}",
              k4.online_mul_kernel(xd, yd, cfg), want)
+    xd, yd = digits((MUL_B - 37, 16), 3, dev)   # a ragged last block
+    want, _ = online_mul_batch_ref(xd, yd, n=16)
+    hold("online_mul", f"B={MUL_B - 37} n=16 truncated",
+         k4.online_mul_kernel(xd, yd, OnlinePrecision(n=16)), want)
     for K, n in DOT_CASES:
         xd, yd = digits((DOT_B, K, n), K + n, dev)
         hold("online_dot", f"B={DOT_B} K={K} n={n}",
@@ -274,18 +341,31 @@ def main() -> int:
 
     subrow = x.clone()
     subrow[1] = 1e-40                        # an all-subnormal row
-    for n_bits in (16, 8):
-        for label, (xs, ws) in ((f"M,K,N={RAGGED}", (x, w)),
-                                (f"subnormal row M,K,N={RAGGED}", (subrow, w))):
-            ops = decompose_operands(xs, ws, n_bits=n_bits)
-            hold("tpmm", f"tpmm{n_bits} {label}",
-                 k5.tpmm_kernel(*ops, n_bits=n_bits),
-                 tpmm_ref(*ops, n_bits=n_bits))
+
+    def tpmm_cases(n_bits):
+        """(label, operands) of every K5 check at one width."""
+        yield (f"M,K,N={RAGGED}", decompose_operands(x, w, n_bits=n_bits))
+        yield (f"subnormal row M,K,N={RAGGED}",
+               decompose_operands(subrow, w, n_bits=n_bits))
+        for shape in TPMM_EDGES:
+            yield (f"M,K,N={shape}",
+                   decompose_operands(*operands(shape, 9, dev), n_bits=n_bits))
+        ap, *rest = decompose_operands(*operands(TPMM_ODD, 10, dev),
+                                       n_bits=n_bits)
+        odd = torch.empty(ap.numel() + 1, dtype=torch.int8,
+                          device=dev)[1:].view(ap.shape)
+        odd.copy_(ap)
+        yield (f"A planes at an odd address M,K,N={TPMM_ODD}", (odd, *rest))
         for shape in TPMM_SHAPES:
-            ops = decompose_operands(*operands(shape, 4, dev), n_bits=n_bits)
-            hold("tpmm", f"tpmm{n_bits} M,K,N={shape}",
-                 k5.tpmm_kernel(*ops, n_bits=n_bits),
-                 tpmm_ref(*ops, n_bits=n_bits))
+            yield (f"M,K,N={shape}",
+                   decompose_operands(*operands(shape, 4, dev), n_bits=n_bits))
+
+    for n_bits in (16, 8):
+        for label, ops in tpmm_cases(n_bits):
+            for mode in TPMM_MODES:
+                hold("tpmm", f"tpmm{n_bits} {mode} {label}",
+                     k5.tpmm_kernel(*ops, n_bits=n_bits, mode=mode),
+                     tpmm_ref(*ops, n_bits=n_bits, mode=mode))
     del ops
 
     scfg = dataclasses.replace(smoke_config(SERVE["arch"]),
@@ -318,6 +398,10 @@ def main() -> int:
     def record(kernel, label, ms, plain_ms, byte_count, ops, op_rate,
                context=None):
         b_ms, by, byte_ms, op_ms = bound(byte_count, ops, op_rate)
+        if ms < b_ms:
+            raise SystemExit(f"{kernel} {label} timed {ms:.4f} ms, below its "
+                             f"bound {b_ms:.4f} ms: the bound or the timing "
+                             "is wrong")
         row = dict(label=label, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=by, context=context)
         timed.setdefault(kernel, []).append(row)
@@ -384,7 +468,7 @@ def main() -> int:
                    f"decomposition of both operands {dec_ms:.4f} ms")
             record("tpmm", f"tpmm{n_bits} M={M} K={K} N={N}",
                    cuda_ms(lambda: k5.tpmm_kernel(*ops, n_bits=n_bits),
-                           reps=10, warmup=2),
+                           reps=21, warmup=2),
                    cuda_ms(lambda: tpmm_ref(*ops, n_bits=n_bits), reps=1),
                    D * (M * K + K * N) + 4 * (M + N) + 4 * M * N,
                    2 * M * N * K * pairs, INT8_OPS_PER_S, ctx)
@@ -392,6 +476,8 @@ def main() -> int:
     del x, w, ops, a8, b8
 
     # 5. serve ---------------------------------------------------------
+    _flush.clear()                           # keep the peak the serve's own
+    torch.cuda.empty_cache()
     cfg = get_config(SERVE["arch"])
     if SERVE_LAYERS is not None:
         cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
@@ -402,6 +488,9 @@ def main() -> int:
           f"vocab {cfg.vocab_size}; params {cfg.param_dtype}, compute "
           f"{cfg.compute_dtype}", flush=True)
     params = Model(cfg, device=dev).init(seed=SERVE["seed"])
+    kernel_name = {"olm16": "olm_matmul_kernel", "tpmm16": "tpmm_kernel"}
+    path_extra = {"olm16": [], "tpmm16": [("plane decomposition", tpmm_ops,
+                                           "decompose_operands")]}
     path_kernel = {"olm16": ("olm_matmul_fused", k12, "olm_matmul_fused"),
                    "tpmm16": ("tpmm", k5, "tpmm_kernel")}
     launches, outputs = {}, {}
@@ -469,39 +558,66 @@ def main() -> int:
                              f"{gemms} GEMMs under {mode}")
 
         # Where the serve time goes: the same requests again, every launch
-        # of the path's kernel bracketed by CUDA events on its stream (an
-        # upper bound on its device time: a gap while the host prepares a
-        # launch counts too).
+        # of the path's kernel (and, under tpmm, every plane decomposition
+        # of its operands) bracketed by CUDA events on its stream (an upper
+        # bound on the device time: a gap while the host prepares a launch
+        # counts too).
         engine = seeded_engine()
-        wrapped, spans = getattr(module, attr), []
+        parts = [(kernel, module, attr), *path_extra[mode]]
+        spans = {label: [] for label, _, _ in parts}
 
-        def bracketed(*a, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = wrapped(*a, **kw)
-            stop.record()
-            spans.append((start, stop))
-            return out
+        def bracketed(label, wrapped):
+            def run(*a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = wrapped(*a, **kw)
+                stop.record()
+                spans[label].append((start, stop))
+                return out
+            return run
 
-        setattr(module, attr, bracketed)
+        originals = [getattr(m, at) for _, m, at in parts]
+        for (label, m, at), fn in zip(parts, originals):
+            setattr(m, at, bracketed(label, fn))
         t0 = time.monotonic()
         again = engine.run()
         torch.cuda.synchronize()
         wall2 = time.monotonic() - t0
-        setattr(module, attr, wrapped)
-        k_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+        for (_, m, at), fn in zip(parts, originals):
+            setattr(m, at, fn)
+        secs = {label: sum(a.elapsed_time(b) for a, b in sp) / 1e3
+                for label, sp in spans.items()}
         outputs[mode] = [r.output for r in sorted(done, key=lambda r: r.rid)]
         same = [r.output for r in sorted(again, key=lambda r: r.rid)] == \
             outputs[mode]
+        shares = ", ".join(f"{label} {secs[label]:.3f} s over "
+                           f"{len(spans[label])} calls "
+                           f"({100 * secs[label] / wall2:.1f}%)"
+                           for label in spans)
         print(f"[serve] {mode}: breakdown, second run of the same requests: "
-              f"wall {wall2:.3f} s, {kernel} {k_s:.3f} s over {len(spans)} "
-              f"launches ({100 * k_s / wall2:.1f}%), everything else "
-              f"{wall2 - k_s:.3f} s; same tokens as the first run: {same}",
-              flush=True)
+              f"wall {wall2:.3f} s, {shares}, everything else "
+              f"{wall2 - sum(secs.values()):.3f} s; same tokens as the first "
+              f"run: {same}", flush=True)
         if not same:
             raise SystemExit("a second serve of the same requests gave other "
                              "tokens")
+
+        # The device's busy share: the same requests a third time under
+        # torch.profiler, the union of the device's kernel intervals over
+        # the first run's (unprofiled) wall, and the path kernel's own
+        # device time from the trace.
+        engine = seeded_engine()
+        busy, kernel_s, n_events = device_busy(engine.run, kernel_name[mode])
+        if n_events:
+            print(f"[serve] {mode}: profiled run: {n_events} device kernels "
+                  f"({n_events / gemms:.1f} a GEMM), device busy {busy:.3f} s"
+                  f", {100 * busy / wall:.1f}% of the first run's wall (idle "
+                  f"{100 * (1 - busy / wall):.1f}%); {kernel} device time "
+                  f"{kernel_s:.4f} s", flush=True)
+        else:
+            print(f"[serve] {mode}: device busy share not measured (the "
+                  "profiler saw no device kernels)", flush=True)
         del model, engine
     agree = sum(a == b for r1, r2 in zip(*outputs.values())
                 for a, b in zip(r1, r2))

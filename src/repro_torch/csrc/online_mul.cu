@@ -13,48 +13,86 @@
 //
 // What bounds it on an H100: bytes. A row reads 8n bytes of digits and
 // writes 4n, against ~40 int32 operations a step, so the int32 issue
-// bound sits below the HBM bound at every n. The design reads each digit
-// once and keeps the whole recurrence in registers; the digits move as
-// int32 because that is the layout the reference hands over.
+// bound sits below the HBM bound at every n. One thread still runs one
+// row's whole recurrence in registers, but a row's digits are n
+// consecutive int32 words, so a warp reading its own rows touches 32
+// rows 4n bytes apart with every load. The design moves the digits
+// coalesced instead: a block's 128 rows of x and y are one contiguous
+// stretch of memory, which the block reads word by word, neighbouring
+// threads on neighbouring words, into shared memory with an odd row
+// stride (n, or n + 1 when n is even, so 32 threads reading one digit of
+// 32 rows hit 32 banks). Each thread packs its row from there, runs the
+// recurrence, writes its product digits back over its x row, and the
+// block stores z the way it loaded x. A ragged last block masks its
+// rows.
 #include "olm_digits.cuh"
 
 namespace {
 
 using olm::Sched;
 
-constexpr int kThreads = 256;
+constexpr int kRows = 128;                 // rows (= threads) of a block
+
+// Copy `rows` rows of n words from global memory into shared rows of
+// `stride` words, neighbouring threads on neighbouring words.
+template <int N, int kStride>
+__device__ __forceinline__ void rows_in(const int* __restrict__ g, int* s,
+                                        int rows) {
+  const int count = rows * N;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int e = j * kRows + threadIdx.x;
+    if (e < count) s[(e / N) * kStride + e % N] = g[e];
+  }
+}
 
 template <int N>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRows)
 online_mul_kernel(const int* __restrict__ x, const int* __restrict__ y,
                   int* __restrict__ z, long long B, int S, Sched sc) {
-  const long long b = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  const int* xr = x + b * N;
-  const int* yr = y + b * N;
-  uint32_t xp = 0, xn = 0, yp = 0, yn = 0;
+  constexpr int kStride = N | 1;
+  __shared__ int sx[kRows * kStride];
+  __shared__ int sy[kRows * kStride];
+  const long long b0 = (long long)blockIdx.x * kRows;
+  const int rows = (int)min((long long)kRows, B - b0);
+  rows_in<N, kStride>(x + b0 * N, sx, rows);
+  rows_in<N, kStride>(y + b0 * N, sy, rows);
+  __syncthreads();
+  const int r = threadIdx.x;
+  int* row = sx + r * kStride;
+  if (r < rows) {
+    const int* yr = sy + r * kStride;
+    uint32_t xp = 0, xn = 0, yp = 0, yn = 0;
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int xv = xr[i], yv = yr[i];
-    xp |= (uint32_t)(xv > 0) << (N - 1 - i);
-    xn |= (uint32_t)(xv < 0) << (N - 1 - i);
-    yp |= (uint32_t)(yv > 0) << (N - 1 - i);
-    yn |= (uint32_t)(yv < 0) << (N - 1 - i);
+    for (int i = 0; i < N; ++i) {
+      const int xv = row[i], yv = yr[i];
+      xp |= (uint32_t)(xv > 0) << (N - 1 - i);
+      xn |= (uint32_t)(xv < 0) << (N - 1 - i);
+      yp |= (uint32_t)(yv > 0) << (N - 1 - i);
+      yn |= (uint32_t)(yv < 0) << (N - 1 - i);
+    }
+    uint64_t zp, zn;
+    olm::mul_digit_loop<N>(xp, xn, yp, yn, sc, S, zp, zn);
+#pragma unroll
+    for (int j = 0; j < N; ++j)            // row r of sx is only this
+      row[j] = (int)((zp >> j) & 1u) - (int)((zn >> j) & 1u);  // thread's
   }
-  uint64_t zp, zn;
-  olm::mul_digit_loop<N>(xp, xn, yp, yn, sc, S, zp, zn);
-  int* zr = z + b * N;
+  __syncthreads();
+  int* zb = z + b0 * N;
+  const int count = rows * N;
 #pragma unroll
-  for (int j = 0; j < N; ++j)
-    zr[j] = (int)((zp >> j) & 1u) - (int)((zn >> j) & 1u);
+  for (int j = 0; j < N; ++j) {
+    const int e = j * kRows + threadIdx.x;
+    if (e < count) zb[e] = sx[(e / N) * kStride + e % N];
+  }
 }
 
 template <int N>
 cudaError_t launch(const int* x, const int* y, int* z, long long B, int S,
                    const Sched& sc, cudaStream_t stream) {
-  const long long blocks = (B + kThreads - 1) / kThreads;
-  online_mul_kernel<N><<<(unsigned)blocks, kThreads, 0, stream>>>(x, y, z, B,
-                                                                  S, sc);
+  const long long blocks = (B + kRows - 1) / kRows;
+  online_mul_kernel<N><<<(unsigned)blocks, kRows, 0, stream>>>(x, y, z, B, S,
+                                                               sc);
   return cudaGetLastError();
 }
 
@@ -66,7 +104,7 @@ cudaError_t launch(const int* x, const int* y, int* z, long long B, int S,
 extern "C" int online_mul(const int* x, const int* y, int* z, long long B,
                           int n, int S, const int* sched, int nsteps,
                           void* stream) {
-  if (B < 1 || B > (long long)kThreads * 0x7FFFFFFFLL ||
+  if (B < 1 || B > (long long)kRows * 0x7FFFFFFFLL ||
       n <= olm::kDelta || n > olm::kMaxDigits ||
       nsteps != n + olm::kDelta || S + 3 > 31 || S < olm::kEst)
     return (int)cudaErrorInvalidValue;

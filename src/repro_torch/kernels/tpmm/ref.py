@@ -8,7 +8,8 @@ bit. The pair products run as float64 matmuls of the integer-valued
 planes: every partial sum is an integer far below 2^53, so they are exact
 in any order on any device (a CUDA card has no integer matmul in
 PyTorch), and the float64 -> float32 rounding of the level sum is the
-reference's int32 -> float32 one.
+reference's int32 -> float32 one (with a zero sum's sign made +, as an
+integer zero has no sign).
 """
 from __future__ import annotations
 
@@ -58,6 +59,9 @@ def tpmm_ref(a_planes: torch.Tensor, b_planes: torch.Tensor,
             prod = a_planes[da].to(torch.float64) @ b_planes[L - da].to(
                 torch.float64)
             acc = prod if acc is None else acc + prod
-        term = acc.to(torch.float32) * (2.0 ** (-plane_bits * (L + 2)))
+        # + 0.0 turns a -0.0 sum (K = 1: a zero digit times a negative one)
+        # into the +0 an integer sum has
+        term = (acc + 0.0).to(torch.float32) * (
+            2.0 ** (-plane_bits * (L + 2)))
         out = term if out is None else out + term
     return out * a_scale * b_scale

@@ -92,9 +92,11 @@ def _digits(cuda, shape, seed):
 
 @pytest.mark.parametrize("n,truncated", [(4, True), (8, True), (17, True),
                                          (32, True), (8, False), (24, False)])
-def test_online_mul_kernel_bit_identical(cuda, n, truncated):
+@pytest.mark.parametrize("B", [1000, 4096, 4096 + 77])
+def test_online_mul_kernel_bit_identical(cuda, n, truncated, B):
+    # 1000 and 4096 + 77 end in a part-filled block of the kernel's 128 rows
     cfg = OnlinePrecision(n=n, truncated=truncated, tail_gating=truncated)
-    x, y = _digits(cuda, (1000, n), n)
+    x, y = _digits(cuda, (B, n), n)
     before = mul_kernel.launches
     z, z_int = online_mul(x, y, cfg)
     assert mul_kernel.launches == before + 1
@@ -116,7 +118,12 @@ def test_online_dot_kernel_bit_identical(cuda, K, n):
 
 @pytest.mark.parametrize("n_bits,mode", [(16, "nbit"), (8, "nbit"),
                                          (16, "full"), (16, "eq8")])
-@pytest.mark.parametrize("shape", [(5, 70, 37), (40, 130, 70), (4, 2048, 512)])
+@pytest.mark.parametrize("shape", [
+    (5, 70, 37), (40, 130, 70), (4, 2048, 512),
+    (1, 70, 37), (16, 70, 37), (17, 70, 37),     # around the 16-row tile
+    (4, 1, 37), (4, 31, 37), (4, 33, 37),        # K not whole 16-byte copies
+    (4, 8192, 300), (33, 8192, 300),             # K split across blocks
+    (5, 256, 13)])                               # N not a multiple of 8
 def test_tpmm_kernel_bit_identical(cuda, n_bits, mode, shape):
     x, w = _operands(cuda, *shape)
     before = tpmm_kernel.launches
@@ -125,6 +132,39 @@ def test_tpmm_kernel_bit_identical(cuda, n_bits, mode, shape):
     ap, sa = plane_decompose(x, num_planes=n_bits // 4, axis=1)
     bp, sb = plane_decompose(w, num_planes=n_bits // 4, axis=0)
     want = tpmm_ref(ap, bp, sa, sb, n_bits=n_bits, mode=mode)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_tpmm_split_plan_knows_the_kernels_tile(cuda):
+    # split_plan counts output tiles with kernel.tile_shape, a copy of the
+    # kernel's geometry the CPU can run; the kernel reports its own
+    import ctypes
+    lib = tpmm_kernel._lib()
+    rows, cols = ctypes.c_int(), ctypes.c_int()
+    for D in range(1, 16):
+        for M in (1, 4, 16, 17, 64):
+            for levels in range(1, 2 * D):
+                lib.tpmm_tile(D, M, levels, ctypes.byref(rows),
+                              ctypes.byref(cols))
+                assert (rows.value, cols.value) == tpmm_kernel.tile_shape(
+                    M, D, levels), (D, M, levels)
+
+
+@pytest.mark.parametrize("n_bits,mode", [(16, "nbit"), (16, "full"),
+                                         (8, "eq8")])
+def test_tpmm_kernel_reads_a_planes_at_an_odd_address(cuda, n_bits, mode):
+    x, w = _operands(cuda, 5, 2048, 300)
+    D = n_bits // 4
+    ap, sa = plane_decompose(x, num_planes=D, axis=1)
+    bp, sb = plane_decompose(w.t(), num_planes=D, axis=1)
+    odd = torch.empty(ap.numel() + 1, dtype=torch.int8,
+                      device=cuda)[1:].view(ap.shape)
+    odd.copy_(ap)
+    assert odd.data_ptr() % 2 == 1
+    bt = bp.transpose(1, 2)
+    got = tpmm_kernel.tpmm_kernel(odd, bt, sa, sb.reshape(1, -1),
+                                  n_bits=n_bits, mode=mode)
+    want = tpmm_ref(ap, bt, sa, sb.reshape(1, -1), n_bits=n_bits, mode=mode)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 

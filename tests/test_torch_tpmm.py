@@ -5,8 +5,12 @@ bit for bit and against the TPU kernel `tpmm_pallas` in interpret mode
 (atol = rtol = 1e-5: that kernel adds its 128-wide K blocks in float32, a
 tiling artefact the reference's own tests allow), the tpmm16 / tpmm8
 DotEngine modes with bf16 activations, and the smoke InternLM2 model under
-tpmm16 against the JAX model on the same weights. Inputs are made from a
-seed with numpy; float32 results are compared through int32 bit views."""
+tpmm16 against the JAX model on the same weights. The Hopper kernel's
+split of K is checked here as far as the CPU can: its plan covers K and
+keeps the int32 guard, and int32 level partials over any K slices, added
+in any order and then folded, give `tpmm_ref`'s bits. Inputs are made
+from a seed with numpy; float32 results are compared through int32 bit
+views."""
 import dataclasses
 
 import jax
@@ -14,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.configs import smoke_config as jax_smoke_config
 from repro.core.numerics import DotEngine as JEngine
@@ -190,6 +195,133 @@ def test_engine_modes_with_bf16_activations(mode):
     got = DotEngine(mode=mode).dot(xb, table.T)
     assert np.array_equal(np.asarray(want.astype(jnp.float32)),
                           got.to(torch.float32).numpy())
+
+
+def test_zero_level_sums_are_positive_zero():
+    # K = 1 with a zero row: each level sum is a zero digit times a
+    # negative one. The reference sums in int32, whose zero has no sign, so
+    # the output is +0; a float64 product would give -0.
+    a = np.zeros((2, 1), np.float32)
+    a[1, 0] = 1.0
+    b = np.array([[-1.0, 2.0, -0.5]], np.float32)
+    for n_bits in (8, 16):
+        want = jops.tpmm(jnp.asarray(a), jnp.asarray(b), n_bits=n_bits,
+                         use_pallas=False)
+        got = tops.tpmm(torch.from_numpy(a), torch.from_numpy(b),
+                        n_bits=n_bits)
+        assert np.array_equal(_bits(want), _bits(got.numpy()))
+        assert not np.signbit(got.numpy()[0]).any()
+
+
+# --- the kernel's split of K --------------------------------------------------
+
+SERVE_SHAPES = [(M, K, N) for M in (4, 64)
+                for K, N in ((2048, 8192), (2048, 2048), (2048, 1024),
+                             (8192, 2048), (2048, 92544))]
+EDGE_SHAPES = [(1, 1, 1), (4, 1, 37), (4, 31, 37), (4, 33, 37), (17, 70, 37),
+               (16, 8192, 1003), (4, 65, 9), (3, 1 << 20, 5)]
+CUTOFFS = [(16, "nbit"), (16, "full"), (16, "eq8"), (8, "nbit"), (8, "full"),
+           (8, "eq8")]
+
+
+def _levels(n_bits, mode, plane_bits=4):
+    D = tref.num_planes_for(n_bits, plane_bits)
+    return D, min(tref.kept_levels(n_bits, plane_bits, mode=mode), 2 * D - 1)
+
+
+@pytest.mark.parametrize("n_bits,mode", CUTOFFS)
+@pytest.mark.parametrize("shape", SERVE_SHAPES + EDGE_SHAPES)
+def test_split_plan_covers_k_exactly(shape, n_bits, mode):
+    M, K, N = shape
+    D, levels = _levels(n_bits, mode)
+    splits, k_split = tkernel.split_plan(M, N, K, D, levels, 4, sms=132)
+    assert k_split % tkernel.BK == 0 and 1 <= splits <= tkernel.MAX_SPLITS
+    # every slice [s * k_split, min(K, (s + 1) * k_split)) is non-empty and
+    # together they are K
+    assert (splits - 1) * k_split < K <= splits * k_split
+    # the int32 guard holds for the whole K, so for every partial sum
+    assert (1 << 6) * D * K < 2 ** 31
+
+
+@pytest.mark.parametrize("n_bits,mode", CUTOFFS)
+@pytest.mark.parametrize("shape", SERVE_SHAPES)
+def test_split_plan_fills_the_card_at_serve_shapes(shape, n_bits, mode):
+    M, K, N = shape
+    D, levels = _levels(n_bits, mode)
+    bm, bn = tkernel.tile_shape(M, D, levels)
+    splits, _ = tkernel.split_plan(M, N, K, D, levels, 4, sms=132)
+    blocks = -(-M // bm) * -(-N // bn) * splits
+    assert blocks >= 132
+    assert splits == 1 or blocks <= 2 * tkernel.WAVES * 132
+
+
+def test_split_plan_keeps_the_int32_guard():
+    # 2^(2b-2) * D * K must stay below 2^31: K = 2^23 at b = 4, D = 4 is
+    # the first K past it, and the plan refuses it as the kernel did
+    assert tkernel.split_plan(4, 8, (1 << 23) - 1, 4, 4, 4)[0] >= 1
+    with pytest.raises(ValueError, match="overflows the int32 level sum"):
+        tkernel.split_plan(4, 8, 1 << 23, 4, 4, 4)
+    with pytest.raises(ValueError, match="overflows the int32 level sum"):
+        tkernel.split_plan(4, 8, 1 << 21, 4, 4, 6)
+
+
+@pytest.mark.parametrize("shape", [(1, 16), (4, 16), (17, 16), (64, 16),
+                                   (4, 8), (64, 4), (4, 2), (64, 2)])
+def test_tile_shape_holds_every_row_of_a_decode(shape):
+    M, D = shape
+    for levels in (1, D, 2 * D - 1):
+        bm, bn = tkernel.tile_shape(M, D, levels)
+        # the counters of the workspace are sized for 16 x 8 tiles
+        assert bm % 16 == 0 and bn % 8 == 0
+        if M <= tkernel.GEMV_ROWS:
+            assert bm == 16
+
+
+def _fold(level_sums, sa, sb, plane_bits):
+    """tpmm_ref's fold of int32 level sums, in float32."""
+    out = None
+    for L, acc in enumerate(level_sums):
+        term = acc.to(torch.float32) * (2.0 ** (-plane_bits * (L + 2)))
+        out = term if out is None else out + term
+    return out * sa * sb
+
+
+@pytest.mark.parametrize("n_bits,mode", CUTOFFS)
+@settings(max_examples=12, deadline=None)
+@given(data=st.data())
+def test_split_k_int32_partials_fold_to_tpmm_ref(n_bits, mode, data):
+    # The premise of the kernel's split K: int32 level partials over any
+    # slices of K, added in any order, then folded, are tpmm_ref's bits.
+    M = data.draw(st.integers(1, 5), label="M")
+    K = data.draw(st.integers(1, 160), label="K")
+    N = data.draw(st.integers(1, 6), label="N")
+    a, b = _operands(data.draw(st.integers(0, 2 ** 32 - 1), label="seed"),
+                     M, K, N)
+    ap, bp, sa, sb = tops.decompose_operands(
+        torch.from_numpy(a), torch.from_numpy(b), n_bits=n_bits)
+    D, levels = _levels(n_bits, mode)
+    cuts = data.draw(st.sets(st.integers(1, K - 1), max_size=7)
+                     if K > 1 else st.just(set()), label="cuts")
+    bounds = [0, *sorted(cuts), K]
+    partials = []
+    for lo, hi in zip(bounds, bounds[1:]):
+        for L in range(levels):
+            part = torch.zeros((M, N), dtype=torch.int64)
+            for da in range(max(0, L - D + 1), min(L, D - 1) + 1):
+                part += (ap[da][:, lo:hi].to(torch.int64)
+                         @ bp[L - da][lo:hi].to(torch.int64))
+            partials.append((L, part.to(torch.int32)))
+    order = data.draw(st.permutations(range(len(partials))), label="order")
+    sums = torch.zeros((levels, M, N), dtype=torch.int32)
+    for i in order:
+        L, part = partials[i]
+        sums[L] += part
+    got = _fold(sums, sa, sb, 4)
+    want = tref.tpmm_ref(ap, bp, sa, sb, n_bits=n_bits, mode=mode)
+    assert np.array_equal(_bits(want.numpy()), _bits(got.numpy()))
+    jwant = jops.tpmm(jnp.asarray(a), jnp.asarray(b), n_bits=n_bits,
+                      mode=mode, use_pallas=False)
+    assert np.array_equal(_bits(jwant), _bits(got.numpy()))
 
 
 def test_cpu_tensors_run_the_plain_version():
