@@ -17,9 +17,11 @@ Phases, each printing its own lines:
                and four thousand rows, tpmm (K5) at tpmm16 and tpmm8 under
                its three level cutoffs on a ragged shape, an all-subnormal
                row, the tile and split edges, A planes at an odd address
-               and every serve GEMM shape; plus the smoke-size model under
-               olm16 and under tpmm16 on the card against the same model
-               on the CPU;
+               and every serve GEMM shape; K3 also at a ragged B with K
+               of 1, 3, 33 and 1024 lanes, an odd n, full working
+               precision and operands at a 4-byte offset; plus the
+               smoke-size model under olm16 and under tpmm16 on the card
+               against the same model on the CPU;
   4. time    - each kernel at those shapes beside its bound, its plain
                version and a PyTorch context call: the median of CUDA
                event pairs, one per launch, with the L2 cache overwritten
@@ -87,6 +89,16 @@ MUL_CASES = ((8, True), (16, True), (24, True), (32, True), (8, False),
              (16, False), (24, False))
 DOT_B = 4096
 DOT_CASES = tuple((K, n) for K in (16, 64, 256) for n in (8, 16, 32))
+# K3's edges: a ragged B (a part-filled last group, persistent blocks with
+# a group fewer than others), K of one lane, an odd tree, one lane past a
+# power of two and the most lanes, an odd n (4-byte copies, a row stride
+# that does not divide 32), full working precision, and operands at a
+# 4-byte offset (4-byte copies at n = 16). (B, K, n, truncated)
+DOT_RAGGED_B = DOT_B - 37
+DOT_EDGES = (tuple((DOT_RAGGED_B, K, n, True) for K in (1, 3, 33, 1024)
+                   for n in (8, 13, 16, 32))
+             + ((DOT_RAGGED_B, 256, 16, False), (DOT_RAGGED_B, 33, 16, False)))
+DOT_OFFSET = (1000, 33, 16)
 SERVE = dict(arch="internlm2_1_8b", modes=("olm16", "tpmm16"), requests=4,
              prompt=(4, 12), max_new=6, slots=4, max_len=128, block=16,
              seed=0)
@@ -332,11 +344,21 @@ def main() -> int:
     want, _ = online_mul_batch_ref(xd, yd, n=16)
     hold("online_mul", f"B={MUL_B - 37} n=16 truncated",
          k4.online_mul_kernel(xd, yd, OnlinePrecision(n=16)), want)
-    for K, n in DOT_CASES:
-        xd, yd = digits((DOT_B, K, n), K + n, dev)
-        hold("online_dot", f"B={DOT_B} K={K} n={n}",
-             k3.online_dot_kernel(xd, yd, OnlinePrecision(n=n)),
-             online_dot_batch_ref(xd, yd, n=n))
+    for B, K, n, truncated in (tuple((DOT_B, K, n, True) for K, n in DOT_CASES)
+                               + DOT_EDGES):
+        cfg = OnlinePrecision(n=n, truncated=truncated, tail_gating=truncated)
+        xd, yd = digits((B, K, n), K + n, dev)
+        hold("online_dot", f"B={B} K={K} n={n} "
+             f"{'truncated' if truncated else 'full'}",
+             k3.online_dot_kernel(xd, yd, cfg),
+             online_dot_batch_ref(xd, yd, n=n, truncated=truncated,
+                                  tail_gating=truncated))
+    B, K, n = DOT_OFFSET
+    xd, yd = digits((B * K * n + 1,), 11, dev)
+    xd, yd = xd[1:].view(B, K, n), yd[:-1].view(B, K, n)
+    hold("online_dot", f"operands at a 4-byte offset B={B} K={K} n={n}",
+         k3.online_dot_kernel(xd, yd, OnlinePrecision(n=n)),
+         online_dot_batch_ref(xd, yd, n=n))
     del xd, yd, want
 
     subrow = x.clone()

@@ -2,10 +2,11 @@
 reference, bit for bit: `online_mul` (K4) and `online_dot` (K3) against the
 TPU kernels `online_mul_pallas` / `online_dot_pallas` in interpret mode and
 against the int64 references, including full working precision, the int32
-guard and K in {1, 3, 16, 64}; `olm_matmul(quantize="host")` (K2) against
-the reference's host-quantize grid kernel at every olm mode; and
-`digit_traffic` against the exact-int columns of the committed baselines.
-Inputs are made from a seed with numpy."""
+guard, K in {1, 3, 16, 33, 64} and n in {8, 16, 32};
+`olm_matmul(quantize="host")` (K2) against the reference's host-quantize
+grid kernel at every olm mode; and `digit_traffic` against the exact-int
+columns of the committed baselines. Inputs are made from a seed with
+numpy."""
 import json
 import pathlib
 import re
@@ -114,8 +115,8 @@ def test_decode_digits_matches_reference():
 
 # --- online_dot (K3) --------------------------------------------------------
 
-@pytest.mark.parametrize("K", [1, 3, 16, 64])
-@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("K", [1, 3, 16, 33, 64])
+@pytest.mark.parametrize("n", [8, 16, 32])
 def test_online_dot_matches_tpu_kernel_and_reference(K, n):
     cfg = OnlinePrecision(n=n)
     xd, yd = _digits(K * n, (6, K, n))
@@ -124,9 +125,12 @@ def test_online_dot_matches_tpu_kernel_and_reference(K, n):
     want = online_dot_pallas(xd, yd, n=n, block_b=6, interpret=True)
     assert np.array_equal(z.numpy(), np.asarray(want))
     ref = online_dot_batch_ref(torch.from_numpy(xd), torch.from_numpy(yd), n=n)
-    assert np.array_equal(ref.numpy(), np.asarray(j_dot_ref(xd, yd, n=n)))
+    with enable_x64(True):   # the int64 recurrence of n = 32 needs 38 bits
+        jref = np.asarray(j_dot_ref(xd, yd, n=n))
+        _, jval = jdot.online_dot(xd, yd, cfg, use_pallas=False)
+        jval = np.asarray(jval)
+    assert np.array_equal(ref.numpy(), jref)
     assert np.array_equal(z.numpy(), ref.numpy())
-    _, jval = jdot.online_dot(xd, yd, cfg, use_pallas=False)
     assert dot.dtype == torch.float64 and np.array_equal(dot.numpy(), jval)
 
 

@@ -15,7 +15,8 @@ from repro_torch.kernels.online_dot import kernel as dot_kernel
 from repro_torch.kernels.online_dot import matmul_kernel
 from repro_torch.kernels.online_dot.matmul import olm_matmul, olm_matmul_ref
 from repro_torch.kernels.online_dot.ops import online_dot
-from repro_torch.kernels.online_dot.ref import online_dot_batch_ref
+from repro_torch.kernels.online_dot.ref import (online_dot_batch_ref,
+                                                tree_levels)
 from repro_torch.kernels.online_mul import kernel as mul_kernel
 from repro_torch.kernels.online_mul.ops import online_mul
 from repro_torch.kernels.online_mul.ref import online_mul_batch_ref
@@ -105,15 +106,50 @@ def test_online_mul_kernel_bit_identical(cuda, n, truncated, B):
     assert torch.equal(z, want) and torch.equal(z_int, want_int)
 
 
-@pytest.mark.parametrize("K", [1, 3, 16, 33, 64, 256, 1000])
-@pytest.mark.parametrize("n", [8, 32])
-def test_online_dot_kernel_bit_identical(cuda, K, n):
+@pytest.mark.parametrize("K", [1, 3, 16, 33, 64, 256, 1000, 1024])
+@pytest.mark.parametrize("n", [8, 13, 32])
+@pytest.mark.parametrize("B", [37, 4096 - 37])
+def test_online_dot_kernel_bit_identical(cuda, K, n, B):
+    # 37 and 4096 - 37 rows end in a part-filled group and leave some
+    # persistent blocks a group fewer than others
     cfg = OnlinePrecision(n=n)
-    x, y = _digits(cuda, (37, K, n), K + n)
+    x, y = _digits(cuda, (B, K, n), K + n)
     before = dot_kernel.launches
     z, _ = online_dot(x, y, cfg)
     assert dot_kernel.launches == before + 1
     assert torch.equal(z, online_dot_batch_ref(x, y, n=n))
+
+
+@pytest.mark.parametrize("K", [33, 256])
+def test_online_dot_kernel_full_working_precision(cuda, K):
+    cfg = OnlinePrecision(n=16, truncated=False, tail_gating=False)
+    x, y = _digits(cuda, (4096 - 37, K, 16), K)
+    z = dot_kernel.online_dot_kernel(x, y, cfg)
+    assert torch.equal(z, online_dot_batch_ref(x, y, n=16, truncated=False,
+                                               tail_gating=False))
+
+
+@pytest.mark.parametrize("n", [16, 32])
+def test_online_dot_kernel_reads_operands_at_a_4_byte_offset(cuda, n):
+    # a base that is not 16-byte aligned takes the 4-byte copies
+    x, y = _digits(cuda, (1000 * 33 * n + 1,), n)
+    xo, yo = x[1:].view(1000, 33, n), y[:-1].view(1000, 33, n)
+    assert xo.data_ptr() % 16 == 4
+    z = dot_kernel.online_dot_kernel(xo, yo, OnlinePrecision(n=n))
+    assert torch.equal(z, online_dot_batch_ref(xo, yo, n=n))
+
+
+def test_online_dot_plan_knows_the_kernels_shared_memory(cuda):
+    # launch_plan counts shared memory the way csrc/online_dot.cu does; the
+    # kernel reports its own, and an SM holds at least one such block
+    for n in range(4, 33):
+        for vec in ((False, True) if n % 4 == 0 else (False,)):
+            for K in (1, 2, 3, 16, 33, 64, 200, 256, 257, 1024):
+                plan = dot_kernel.launch_plan(4096, K, n, vec)
+                smem, blocks = dot_kernel.geometry(n, vec, plan.rows,
+                                                   tree_levels(K))
+                assert smem == plan.smem, (n, vec, K)
+                assert blocks >= 1, (n, vec, K)
 
 
 @pytest.mark.parametrize("n_bits,mode", [(16, "nbit"), (8, "nbit"),

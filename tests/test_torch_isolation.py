@@ -1,6 +1,6 @@
-"""The port stands alone: no module of `src/repro_torch/` and not
-`chip_smoke.py` imports JAX or the JAX package, and its entry points run
-on the CUDA card unless the caller asks for the CPU."""
+"""The port stands alone: no module of `src/repro_torch/`, no script of
+`probes/` and not `chip_smoke.py` imports JAX or the JAX package, and its
+entry points run on the CUDA card unless the caller asks for the CPU."""
 import ast
 import dataclasses
 import pathlib
@@ -13,7 +13,8 @@ from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+         + sorted((ROOT / "probes").glob("*.py")) + [ROOT / "chip_smoke.py"])
 BANNED = ("jax", "jaxlib", "repro")
 
 
