@@ -11,9 +11,13 @@ Phases, each printing its own lines:
   2. build   - every kernel, compiled with nvcc for sm_90a from the sources
                in the checkout, all sources at once (ptxas summary, seconds);
   3. check   - each kernel against its plain version on the card, bit for
-               bit: olm_matmul_fused (K1) and olm_matmul_host (K2) at every
-               olm width and tier on a ragged shape and at the serve path's
-               GEMM shapes, online_mul (K4) and online_dot (K3) at a million
+               bit: olm_matmul_fused (K1) and olm_matmul_host (K2), against
+               it and against each other, at every olm width and tier on a
+               ragged shape, at K of 1, 3, 15, 17 and 33 lanes, M of 1, 5
+               and 17 rows with a ragged N, w transposed (olm16, olm24 and
+               olm32 at each), an all-subnormal tile, every GEMM shape of
+               the serve path (its LM head included, at decode and
+               prefill), online_mul (K4) and online_dot (K3) at a million
                and four thousand rows, tpmm (K5) at tpmm16 and tpmm8 under
                its three level cutoffs on a ragged shape, an all-subnormal
                row, the tile and split edges, A planes at an odd address
@@ -62,20 +66,32 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 INT8_OPS_PER_S = 1.979e15          # H100 SXM int8 tensor cores, dense
 # Integer operations an SM can retire per clock: its 4 schedulers issue
 # one 32-thread instruction each (the same 128 lanes the guide's 67 TFLOP/s
-# float32 peak counts). Hopper's 64 INT32 units per SM are not the limit:
-# IMAD issues to the FMA pipe and LOP3 folds three logic operations into
-# one, and olm_matmul_fused runs faster than a 64-lane figure on an H100
-# SXM at 700 W (PERF.md).
+# float32 peak counts). The integer ALU pipe (LOP3, SHF, ISETP, SEL) takes
+# only 64 lanes a clock, but IMAD issues to the FMA pipe, so a mix of the
+# two issues up to 128: the issue rate is the bound (PERF.md).
 INT_OPS_PER_SM_CLOCK = 128
 RAGGED = (5, 70, 37)               # (M, K, N)
 DECODE_GEMV = (4, 2048, 8192)      # an MLP up-projection at decode
 PREFILL_GEMM = (64, 2048, 2048)    # a q/o projection of the 4 x 16 prefill
-CHECK_MODES = ("olm8", "olm16", "olm16t12", "olm24", "olm32")
+# K1/K2's edges: K of one lane, a two-level tree, a short tile, one and 17
+# lanes past a tile; M on both sides of the 4- and 8-row blocks with N not a
+# power of two; one row and three columns of a long K (blocks of more than
+# 32 K tiles); each at olm16, olm24 (the 32-bit stream's limit) and olm32
+# (64-bit streams)
+K12_EDGES = (tuple((5, K, 37) for K in (1, 3, 15, 17, 33))
+             + tuple((M, 70, 1003) for M in (1, 5, 17)) + ((1, 8192, 3),))
+K12_EDGE_MODES = ("olm16", "olm24", "olm32")
 # Every weight-bearing GEMM shape of the serve path: (K, N) of q/o, k/v,
 # gate/up, down and the LM head, at the 4-lane decode and the 64-row prefill.
+# K1, K2 and K5 are checked at each: K1/K2's launch plan differs by shape.
 SERVE_KN = ((2048, 8192), (2048, 2048), (2048, 1024), (8192, 2048),
             (2048, 92544))
-TPMM_SHAPES = tuple((M, K, N) for M in (4, 64) for K, N in SERVE_KN)
+SERVE_SHAPES = tuple((M, K, N) for M in (4, 64) for K, N in SERVE_KN)
+# Outputs of one call of the plain olm_matmul_ref in K1/K2's checks: wider
+# GEMMs are checked against it a slice of columns at a time (an output's
+# bits depend on its own column of w alone), to bound its int64
+# temporaries at the 64-row LM head.
+PLAIN_OUTPUTS = 1 << 17
 # K5's edges: M on both sides of the 16-row decode tile, K of 1, 31 and 33
 # bytes (not whole 16-byte copies) and one long enough to split, N not a
 # multiple of 8; and A planes starting at an odd address.
@@ -302,35 +318,48 @@ def main() -> int:
             raise SystemExit(f"{kernel} disagrees with its plain version at "
                              f"{label}")
 
+    def hold_both(label, xs, ws, n, p=None, transposed=False):
+        """K1 and K2 against the plain version and K2 against K1; K1 also
+        reading w through the transpose of an (N, K) row-major copy."""
+        cols = max(1, PLAIN_OUTPUTS // xs.shape[0])
+        want = torch.cat([olm_matmul_ref(xs, ws[:, c:c + cols], n_bits=n,
+                                         trunc=p)
+                          for c in range(0, ws.shape[1], cols)], dim=1)
+        fused = olm_matmul(xs, ws, n_bits=n, trunc=p)
+        hold("olm_matmul_fused", label, fused, want)
+        if transposed:
+            hold("olm_matmul_fused", f"{label} w transposed",
+                 olm_matmul(xs, ws.t().contiguous().t(), n_bits=n, trunc=p),
+                 want)
+        host = olm_matmul(xs, ws, n_bits=n, trunc=p, quantize="host")
+        hold("olm_matmul_host", label, host, want)
+        hold("olm_matmul_host", f"{label} against olm_matmul_fused", host,
+             fused)
+
     x, w = operands(RAGGED, 1, dev)
     olm_modes = sorted(m for m in DotEngine.modes() if m.startswith("olm"))
     for mode in olm_modes:
-        n, p = mode_bits(mode)
-        want = olm_matmul_ref(x, w, n_bits=n, trunc=p)
-        if mode in CHECK_MODES:
-            hold("olm_matmul_fused", f"{mode} M,K,N={RAGGED}",
-                 olm_matmul(x, w, n_bits=n, trunc=p), want)
-        got = olm_matmul(x, w, n_bits=n, trunc=p, quantize="host")
-        hold("olm_matmul_host", f"{mode} M,K,N={RAGGED}", got, want)
-        hold("olm_matmul_host", f"{mode} against olm_matmul_fused", got,
-             olm_matmul(x, w, n_bits=n, trunc=p))
+        hold_both(f"{mode} M,K,N={RAGGED}", x, w, *mode_bits(mode))
+    for shape in K12_EDGES:
+        xs, ws = operands(shape, 12, dev)
+        for mode in K12_EDGE_MODES:
+            hold_both(f"{mode} M,K,N={shape}", xs, ws, *mode_bits(mode),
+                      transposed=True)
     sub = x.clone()
     sub[0, :16] = 1e-40                      # an all-subnormal K tile
     zeroed = sub.clone()
     zeroed[0, :16] = 0.0
-    hold("olm_matmul_fused", f"olm16 subnormal tile M,K,N={RAGGED}",
-         olm_matmul(sub, w), olm_matmul_ref(sub, w))
-    if not bits_equal(olm_matmul(sub, w), olm_matmul(zeroed, w)):
-        raise SystemExit("an all-subnormal tile did not contribute exactly 0")
-    print("[check] all-subnormal tile contributes exactly 0: True")
-    for shape in (DECODE_GEMV, PREFILL_GEMM):
-        xs, ws = operands(shape, 2, dev)
-        want = olm_matmul_ref(xs, ws)
-        hold("olm_matmul_fused", f"olm16 M,K,N={shape}", olm_matmul(xs, ws),
-             want)
-        hold("olm_matmul_host", f"olm16 M,K,N={shape}",
-             olm_matmul(xs, ws, quantize="host"), want)
-    del xs, ws, want
+    hold_both(f"olm16 subnormal tile M,K,N={RAGGED}", sub, w, 16)
+    for quantize in ("kernel", "host"):
+        if not bits_equal(olm_matmul(sub, w, quantize=quantize),
+                          olm_matmul(zeroed, w, quantize=quantize)):
+            raise SystemExit("an all-subnormal tile did not contribute "
+                             f"exactly 0 (quantize={quantize!r})")
+    print("[check] all-subnormal tile contributes exactly 0 in K1 and K2: "
+          "True")
+    for shape in SERVE_SHAPES:
+        hold_both(f"olm16 M,K,N={shape}", *operands(shape, 2, dev), 16)
+        torch.cuda.empty_cache()
 
     for n, truncated in MUL_CASES:
         cfg = OnlinePrecision(n=n, truncated=truncated, tail_gating=truncated)
@@ -378,7 +407,7 @@ def main() -> int:
                           device=dev)[1:].view(ap.shape)
         odd.copy_(ap)
         yield (f"A planes at an odd address M,K,N={TPMM_ODD}", (odd, *rest))
-        for shape in TPMM_SHAPES:
+        for shape in SERVE_SHAPES:
             yield (f"M,K,N={shape}",
                    decompose_operands(*operands(shape, 4, dev), n_bits=n_bits))
 
@@ -439,10 +468,14 @@ def main() -> int:
         mm_ms = cuda_ms(lambda: torch.matmul(x, w), reps=20, warmup=3)
         plain_ms = cuda_ms(lambda: olm_matmul_ref(x, w, n_bits=16), reps=1)
         ctx = f"torch.matmul f32 (not the same function) {mm_ms:.4f} ms"
+        plans = [k12.launch_plan(M, N, K, 16, host=host, vec=host)
+                 for host in (False, True)]
+        planned = [f"{ctx}; plan bm x bn x tb {p.bm} x {p.bn} x {p.tb}"
+                   for p in plans]
         record("olm_matmul_fused", f"olm16 {label} M={M} K={K} N={N}",
                cuda_ms(lambda: k12.olm_matmul_fused(x, w, n=16), reps=10,
                        warmup=2), plain_ms, (M * K + K * N + M * N) * 4,
-               k12.int_ops(M, N, K, n=16), rate, ctx)
+               k12.int_ops(M, N, K, n=16), rate, planned[0])
         kt, T, xp, wpT = _tile_plan(x, w, 16)
         xd, sx = (t.contiguous() for t in _quantize_tiles(xp, kt, T, 16))
         wd, sw = (t.contiguous() for t in _quantize_tiles(wpT, kt, T, 16))
@@ -450,7 +483,8 @@ def main() -> int:
         record("olm_matmul_host", f"olm16 {label} M={M} K={K} N={N}",
                cuda_ms(lambda: k12.olm_matmul_host(xd, sx, wd, sw, n=16),
                        reps=10, warmup=2), plain_ms, grids + M * N * 4,
-               k12.int_ops(M, N, K, n=16, quantize=False), rate, ctx)
+               k12.int_ops(M, N, K, n=16, quantize=False), rate,
+               planned[1])
         del xd, wd
     for n, truncated in MUL_CASES[:4]:
         cfg = OnlinePrecision(n=n)
@@ -471,7 +505,7 @@ def main() -> int:
                (2 * DOT_B * K * n + DOT_B * m) * 4,
                k3.int_ops(DOT_B, K, cfg), rate)
     del xd, yd
-    for n_bits, shapes in ((16, TPMM_SHAPES), (8, (DECODE_GEMV, PREFILL_GEMM))):
+    for n_bits, shapes in ((16, SERVE_SHAPES), (8, (DECODE_GEMV, PREFILL_GEMM))):
         for shape in shapes:
             M, K, N = shape
             x, w = operands(shape, 5, dev)

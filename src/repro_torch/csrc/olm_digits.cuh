@@ -1,9 +1,11 @@
 // Digit arithmetic shared by the port's digit-serial kernels: the radix-2
 // online multiplier recurrence (Fig. 7, truncated or full working
-// precision), the position-parallel online adder, and the exact powers of
-// two the scales are built from. olm_matmul.cu (K1, K2), online_mul.cu
-// (K4) and online_dot.cu (K3) all include this one copy, as the reference's
-// Pallas kernels all call one `mul_digit_loop` and one `adder_tree`.
+// precision) with the schedule T(j) read in every step, as online_mul.cu
+// (K4) runs it, and the exact powers of two the scales are built from.
+// olm_lane.cuh builds the array kernels' recurrence and online adder on
+// these constants and rules; online_mul.cu includes this file, and
+// olm_matmul.cu (K1, K2) and online_dot.cu (K3) include it through
+// olm_lane.cuh.
 //
 // Bit-identity rules this file keeps: arithmetic right shifts on signed
 // int32, floors by masking, powers of two built by writing the exponent
@@ -82,32 +84,6 @@ __device__ __forceinline__ void mul_digit_loop(uint32_t xp, uint32_t xn,
   }
   zp = op;
   zn = on;
-}
-
-// One online adder of the tree, position-parallel on packed streams (digit
-// i at bit i). With e_k the digit sums (e_0 = 0, then the sums, then zeros):
-//   t_k = +1 if e_k >= 2 or (e_k == 1 and e_{k+1} >= 0)
-//   t_k = -1 if e_k <= -2 or (e_k == -1 and e_{k+1} < 0)
-//   w_k = e_k - 2 t_k,  out_k = w_k + t_{k+1}  (in {-1, 0, 1})
-// giving the stream of (a + b) / 2, two digits longer. Streams of up to 62
-// digits fit: the result's last digit lands at bit 63.
-__device__ __forceinline__ void online_add(uint64_t ap, uint64_t an,
-                                           uint64_t bp, uint64_t bn,
-                                           uint64_t& op, uint64_t& on) {
-  ap <<= 1; an <<= 1; bp <<= 1; bn <<= 1;  // digit i is e index i + 1
-  const uint64_t a0 = ~(ap | an), b0 = ~(bp | bn);
-  const uint64_t e2 = ap & bp, em2 = an & bn;
-  const uint64_t e1 = (ap & b0) | (bp & a0);
-  const uint64_t em1 = (an & b0) | (bn & a0);
-  const uint64_t neg_next = (em1 | em2) >> 1;          // e_{k+1} < 0
-  const uint64_t tp = e2 | (e1 & ~neg_next);
-  const uint64_t tn = em2 | (em1 & neg_next);
-  const uint64_t odd = e1 | em1;
-  const uint64_t wp = odd & neg_next, wn = odd & ~neg_next;
-  const uint64_t tpn = tp >> 1, tnn = tn >> 1;         // t_{k+1}
-  const uint64_t wz = ~(wp | wn);
-  op = (wp & ~tnn) | (wz & tpn);
-  on = (wn & ~tpn) | (wz & tnn);
 }
 
 // Copy a host schedule of nsteps values into the by-value launch argument.

@@ -25,7 +25,7 @@ import torch
 from repro_torch.core.precision import OnlinePrecision
 from repro_torch.kernels import build
 from repro_torch.kernels.online_mul.kernel import OPS_PACK, check_config
-from .matmul_kernel import OPS_ADDER, OPS_DIGIT, OPS_STEP
+from .matmul_kernel import OPS_ADDER, OPS_DIGIT, OPS_STEP, row_words
 from .ref import tree_levels
 
 __all__ = ["online_dot_kernel", "launches", "SOURCE", "MAX_LANES",
@@ -45,17 +45,6 @@ BLOCKS_PER_SM = 2048 // THREADS
 
 # Launches of the kernel since the count was last set to 0.
 launches = 0
-
-
-def row_words(n: int, vec: bool) -> int:
-    """Words of one lane's row in a stage: with 16-byte copies, n / 4
-    chunks (swizzled when a power of two, else padded to an odd count);
-    with 4-byte copies, n padded to an odd count. Either way the threads
-    of a warp reading their lanes hit distinct banks."""
-    if not vec:
-        return n | 1
-    q = n // 4
-    return 4 * (q | 1 if q & (q - 1) else q)
 
 
 @dataclasses.dataclass(frozen=True)

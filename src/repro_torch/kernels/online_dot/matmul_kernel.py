@@ -5,7 +5,10 @@ the TPU kernels `olm_matmul_fused_pallas` (K1, quantize in the kernel) and
 
 The kernels themselves are CUDA C++ (`csrc/olm_matmul.cu`, one tile body
 for both operand formats; its header note says what bounds them and how
-the design answers that). This module binds them with ctypes:
+the design answers that): one thread per (output, K tile), a block of
+bm x bn outputs x tb K tiles walking K in chunks of tb tiles.
+`launch_plan` is the host's part of that geometry, plain Python the CPU
+tests reach. This module binds the kernels with ctypes:
 `olm_matmul_fused` and `olm_matmul_host` check their operands, allocate
 the output, launch on the current stream, raise on a refused launch and
 count the launch in `launches` and `host_launches`. They take CUDA tensors
@@ -14,6 +17,8 @@ only; the plain PyTorch version of both is `matmul.olm_matmul_ref`.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -23,10 +28,21 @@ from repro_torch.kernels.common import checked_schedule, decode_policy
 from .ref import tree_levels
 
 __all__ = ["olm_matmul_fused", "olm_matmul_host", "launches",
-           "host_launches", "SOURCE", "MAX_K_TILE", "int_ops"]
+           "host_launches", "SOURCE", "MAX_K_TILE", "Plan", "launch_plan",
+           "smem_bytes", "geometry", "int_ops"]
 
 SOURCE = "olm_matmul.cu"
-MAX_K_TILE = 16            # lanes of one output = threads of a half-warp
+MAX_K_TILE = 16            # lanes of one tile: L <= 4 tree levels
+
+# The kernel's geometry (csrc/olm_matmul.cu): a block of bm x bn outputs
+# x tb K tiles, one thread each, at most 256 threads and a multiple of 32;
+# a slice's 16 lanes sit at a stride of 17 in shared memory.
+MAX_THREADS = 256
+SLICE = 17
+SMEM_PER_BLOCK = 232448    # 227 KB: the most a block may ask for
+# Blocks an SM should have to run before the plan stops trading columns
+# of a block for K tiles of it.
+FILL_BLOCKS_PER_SM = 3
 
 # Launches of each kernel since its count was last set to 0 (a run that
 # must show it went through a kernel sets the count to 0, runs, and reads
@@ -35,17 +51,140 @@ launches = 0
 host_launches = 0
 
 
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def row_words(n: int, vec: bool) -> int:
+    """Words of one staged digit row of K2 and K3 (csrc/olm_lane.cuh): with
+    16-byte copies n / 4 chunks (swizzled when a power of two, else padded
+    to an odd count); with 4-byte copies n padded to an odd count. Either
+    way the threads of a warp reading their rows hit distinct banks."""
+    if not vec:
+        return n | 1
+    q = n // 4
+    return 4 * (q | 1 if q & (q - 1) else q)
+
+
+def smem_bytes(n: int, host: bool, vec: bool, bm: int, bn: int,
+               tb: int) -> int:
+    """Shared memory of one block, as csrc/olm_matmul.cu's `layout` counts
+    it: the stage of a chunk's raw operands (K1: 17 floats a slice; K2: 16
+    digit rows and a scale a slice), the slices' +1/-1 masks (17 lanes of 8 bytes),
+    their scales and the chunk's tile values, each rounded up to 16
+    bytes."""
+    slices = (bm + bn) * tb
+    stage = (slices * 16 * row_words(n, vec) * 4 if host
+             else slices * SLICE * 4)
+
+    def r16(b):
+        return (b + 15) & ~15
+    return (r16(stage) + (r16(slices * 4) if host else 0)
+            + r16(slices * SLICE * 8) + r16(slices * 4)
+            + r16(bm * bn * tb * 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch: blocks of bm rows x bn columns x tb K tiles (one thread
+    each) on a grid of grid_x column blocks by grid_y row blocks; every
+    block walks the T tiles in `chunks` chunks of tb."""
+    bm: int
+    bn: int
+    tb: int
+    T: int
+    kt: int
+    grid_x: int
+    grid_y: int
+    chunks: int
+    smem: int
+
+    @property
+    def threads(self) -> int:
+        return self.bm * self.bn * self.tb
+
+    def rows_of(self, by: int, M: int) -> range:
+        return range(by * self.bm, min(M, (by + 1) * self.bm))
+
+    def cols_of(self, bx: int, N: int) -> range:
+        return range(bx * self.bn, min(N, (bx + 1) * self.bn))
+
+    def tiles_of(self, chunk: int) -> range:
+        return range(chunk * self.tb, min(self.T, (chunk + 1) * self.tb))
+
+    def role(self, t: int) -> tuple:
+        """(row offset, column offset, tile offset) thread t of a block
+        computes in every chunk (csrc/olm_matmul.cu: o = t % (bm * bn))."""
+        P = self.bm * self.bn
+        o = t % P
+        return o // self.bn, o % self.bn, t // P
+
+
+def launch_plan(M: int, N: int, K: int, n: int, *, k_tile: int = MAX_K_TILE,
+                host: bool = False, vec: bool = False,
+                sms: int = 132) -> Plan:
+    """The launch geometry of an (M, K) @ (K, N) call at n digits, kt =
+    min(k_tile, K) lanes a tile: bm = M's power of two up to 8 rows, then
+    the most threads (256 down to 32) whose shared memory fits a block.
+    Columns a block holds are traded for K tiles it runs at once while
+    the block is wider than N, or the grid gives fewer than
+    FILL_BLOCKS_PER_SM blocks an SM, as long as the tiles are there."""
+    if min(M, N, K) < 1 or not 1 <= k_tile:
+        raise ValueError(f"need M, N, K, k_tile >= 1, got M={M} N={N} K={K}"
+                         f" k_tile={k_tile}")
+    kt = min(k_tile, K)
+    if kt > MAX_K_TILE:
+        raise ValueError(f"k_tile {kt} > {MAX_K_TILE}: a tile's tree has at "
+                         "most 4 levels")
+    T = -(-K // kt)
+    bm = min(_pow2_at_least(M), 8)
+    for threads in (256, 128, 64, 32):
+        bn, tb = threads // bm, 1
+
+        def blocks(bn):
+            return -(-M // bm) * -(-N // bn)
+        while (bn > 1 and tb < _pow2_at_least(T)
+               and (bn > _pow2_at_least(N)
+                    or blocks(bn) < FILL_BLOCKS_PER_SM * sms)):
+            bn, tb = bn // 2, tb * 2
+        while bn > 1 and bn > _pow2_at_least(N):
+            bn //= 2                      # no more tiles: fewer threads
+        while bm * bn * tb < 32:
+            tb *= 2                       # a whole warp, tiles past T idle
+        smem = smem_bytes(n, host, vec, bm, bn, tb)
+        if smem <= SMEM_PER_BLOCK:
+            return Plan(bm, bn, tb, T, kt, -(-N // bn), -(-M // bm),
+                        -(-T // tb), smem)
+    raise ValueError(f"n={n} M={M} N={N} K={K}: no block fits shared memory")
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if lib.olm_matmul_fused.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.olm_matmul_fused.argtypes = [p, p, p, i, i, i, ll, ll, i, i, i,
-                                         i, p, i, p]
+                                         i, p, i, i, i, i, p]
         lib.olm_matmul_host.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                        p, i, p]
-        for fn in (lib.olm_matmul_fused, lib.olm_matmul_host):
+                                        p, i, i, i, i, i, p]
+        lib.olm_matmul_geometry.argtypes = [i, i, i, i, i, i, i, p, p]
+        for fn in (lib.olm_matmul_fused, lib.olm_matmul_host,
+                   lib.olm_matmul_geometry):
             fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def geometry(n: int, host: bool, vec: bool, bm: int, bn: int, tb: int,
+             L: int) -> tuple:
+    """(shared memory bytes, blocks an SM holds) of a block of the plan,
+    as the card reports them."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    err = _lib().olm_matmul_geometry(n, int(host), int(vec), bm, bn, tb, L,
+                                     ctypes.byref(smem), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"olm_matmul_geometry failed: cudaError {err} "
+                           f"(n={n} host={host} bm={bm} bn={bn} tb={tb})")
+    return smem.value, blocks.value
 
 
 def _schedule(n: int, kt: int):
@@ -55,6 +194,10 @@ def _schedule(n: int, kt: int):
     L = tree_levels(kt)
     decode_policy(n + 2 * L)                 # raises past 48 digits
     return (ctypes.c_int * len(sched))(*(int(v) for v in sched)), S, L
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def olm_matmul_fused(x: torch.Tensor, w: torch.Tensor, *, n: int,
@@ -86,15 +229,17 @@ def olm_matmul_fused(x: torch.Tensor, w: torch.Tensor, *, n: int,
                          "(N, K) row-major tensor")
     kt = min(k_tile, K)
     if kt > MAX_K_TILE:
-        raise ValueError(f"k_tile {kt} > {MAX_K_TILE}: one output's lanes "
-                         "live in one half-warp")
+        raise ValueError(f"k_tile {kt} > {MAX_K_TILE}: a tile's tree has at "
+                         "most 4 levels")
     arr, S, L = _schedule(n, kt)
+    plan = launch_plan(M, N, K, n, k_tile=kt, sms=_sms(x.device))
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().olm_matmul_fused(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
-            w.stride(0), w.stride(1), n, kt, L, S, arr, len(arr), stream)
+            w.stride(0), w.stride(1), n, kt, L, S, arr, len(arr), plan.bm,
+            plan.bn, plan.tb, stream)
     if err != 0:
         raise RuntimeError(f"olm_matmul_fused launch failed: cudaError {err} "
                            f"(M={M} K={K} N={N} n={n} kt={kt})")
@@ -134,15 +279,20 @@ def olm_matmul_host(xd: torch.Tensor, sx: torch.Tensor, wd: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("digit grids and scales must be contiguous")
     if kt > MAX_K_TILE:
-        raise ValueError(f"k_tile {kt} > {MAX_K_TILE}: one output's lanes "
-                         "live in one half-warp")
+        raise ValueError(f"k_tile {kt} > {MAX_K_TILE}: a tile's tree has at "
+                         "most 4 levels")
     arr, S, L = _schedule(n, kt)
+    vec = (n % 4 == 0 and xd.data_ptr() % 16 == 0
+           and wd.data_ptr() % 16 == 0)
+    plan = launch_plan(M, N, T * kt, n, k_tile=kt, host=True, vec=vec,
+                       sms=_sms(xd.device))
     out = torch.empty((M, N), dtype=torch.float32, device=xd.device)
     with torch.cuda.device(xd.device):
         stream = torch.cuda.current_stream(xd.device).cuda_stream
         err = _lib().olm_matmul_host(
             xd.data_ptr(), sx.data_ptr(), wd.data_ptr(), sw.data_ptr(),
-            out.data_ptr(), M, N, T, n, kt, L, S, arr, len(arr), stream)
+            out.data_ptr(), M, N, T, n, kt, L, S, arr, len(arr), plan.bm,
+            plan.bn, plan.tb, int(vec), stream)
     if err != 0:
         raise RuntimeError(f"olm_matmul_host launch failed: cudaError {err} "
                            f"(M={M} T={T} kt={kt} N={N} n={n})")
@@ -150,9 +300,11 @@ def olm_matmul_host(xd: torch.Tensor, sx: torch.Tensor, wd: torch.Tensor,
     return out
 
 
-# int32 operations the kernels' source issues, per unit of work (counted
-# from csrc/olm_matmul.cu and csrc/olm_digits.cuh; a 64-bit logic op or
-# shift counts 2):
+# int32 operation counts of the first K1/K2 design (one thread a lane,
+# the schedule recomputed in every lane, a shuffle tree), by source
+# operations (of csrc/olm_digits.cuh's `mul_digit_loop` and the 64-bit
+# `online_add`, now olm_lane.cuh's; a 64-bit logic op or shift counts 2).
+# K3's and K4's `int_ops` count their own work with them:
 #  - per lane and recurrence step: digit reads 10, Yf 2, term 3,
 #    append 2, X 3, Y 1, V 2;
 #  - per lane and digit-producing step: estimate 1, selection 4,
@@ -163,20 +315,38 @@ def olm_matmul_host(xd: torch.Tensor, sx: torch.Tensor, wd: torch.Tensor,
 #  - per output and K tile: decode 12.
 OPS_STEP, OPS_DIGIT, OPS_ADDER, OPS_QUANT, OPS_DECODE = 23, 14, 78, 24, 12
 
+# K1's and K2's own counts since their redesign: the instructions the
+# device functions of csrc/olm_matmul.cu issue, from the SASS that
+# probes/digit_sass.py counts (sm_90a, as olm_matmul.cu compiles them):
+#  - per lane, LANE_DIGIT an operand digit: `lane_top` issues 218, 442 and
+#    912 at n = 8, 16 and 32 (27.25, 27.6 and 28.5 a digit);
+#  - per adder, ADDER_BITS at the stream's width: on 32-bit streams the
+#    152 instructions a 16-lane tile spends beyond its 16 lanes for its 15
+#    adders (the compiler folds the first level into the lanes' ends; one
+#    adder alone is 30); on 64-bit streams one adder alone, 58;
+#  - per output tile, TILE for its decode and scale fold (10), and
+#    OPS_QUANT (the first design's source count) for quantizing an
+#    element.
+# A 16-lane tile so counts 7072 at n = 16 against the 7224 it issues.
+LANE_DIGIT = 27
+ADDER_BITS = {32: 10, 64: 58}
+TILE = 10
 
 def int_ops(M: int, N: int, K: int, *, n: int, k_tile: int = MAX_K_TILE,
             quantize: bool = True) -> int:
-    """int32 operations one (M, K) @ (K, N) call needs: the recurrence of
-    every lane, one adder tree per output and K tile, the quantization of
-    every row and column slice once (K1 only: quantize=False counts K2,
-    whose operands arrive quantized), and the decode. The count of work
-    the function needs, not of what the kernels repeat (they load a slice
-    once per block and run the tree on all 16 threads)."""
+    """Integer instructions one (M, K) @ (K, N) call needs at the datapath
+    the kernels run: the recurrence of every real lane, kt - 1 adders per
+    output and K tile at the stream's width, the quantization of every row
+    and column slice once (K1 only: quantize=False counts K2, whose
+    operands arrive quantized), and a decode per output tile. The count of
+    work the function needs, not of what the kernels repeat (padded lanes
+    and tiles past K)."""
     kt = min(k_tile, K)
     T = -(-K // kt)
-    steps = OnlinePrecision(n=n).steps
-    per_lane = steps * OPS_STEP + n * OPS_DIGIT
+    L = tree_levels(kt)
+    adder = ADDER_BITS[32 if n + 2 * L <= 32 else 64]
     outs = M * N * T
     quant = (M + N) * T * kt * OPS_QUANT if quantize else 0
-    return (outs * kt * per_lane + outs * (kt - 1) * OPS_ADDER + quant
-            + outs * OPS_DECODE)
+    return (outs * kt * n * LANE_DIGIT + outs * (kt - 1) * adder + quant
+            + outs * TILE)
+

@@ -83,6 +83,109 @@ def test_host_quantize_kernel_bit_identical(cuda, n, p):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _mode_bits(mode):
+    n, _, p = mode[len("olm"):].partition("t")
+    return int(n), (int(p) if p else None)
+
+
+@pytest.mark.parametrize("mode", sorted(m for m in DotEngine.modes()
+                                        if m.startswith("olm")))
+def test_both_kernels_at_every_olm_mode_and_tier(cuda, mode):
+    # K1 and K2 at every width and truncated tier on a ragged shape, against
+    # the plain version and against each other, bit for bit
+    n, p = _mode_bits(mode)
+    x, w = _operands(cuda, 5, 70, 37)
+    fused = olm_matmul(x, w, n_bits=n, trunc=p)
+    host = olm_matmul(x, w, n_bits=n, trunc=p, quantize="host")
+    want = olm_matmul_ref(x, w, n_bits=n, trunc=p)
+    assert _bits_equal(fused, want) and _bits_equal(host, want)
+
+
+# K of one lane, a two-level tree, a short tile, one and 17 lanes past a
+# tile; M on both sides of the 4- and 8-row blocks with N not a power of
+# two; one row and three columns of a long K (blocks of more than 32 K
+# tiles); at olm16, olm24 (the 32-bit stream's limit) and olm32 (64-bit)
+K12_EDGES = ([(5, K, 37) for K in (1, 3, 15, 17, 33)]
+             + [(M, 70, 1003) for M in (1, 5, 17)] + [(1, 8192, 3)])
+
+
+@pytest.mark.parametrize("shape", K12_EDGES)
+@pytest.mark.parametrize("n", [16, 24, 32])
+def test_both_kernels_at_their_edges(cuda, shape, n):
+    x, w = _operands(cuda, *shape, seed=sum(shape) + n)
+    want = olm_matmul_ref(x, w, n_bits=n)
+    fused = matmul_kernel.olm_matmul_fused(x, w, n=n)
+    transposed = matmul_kernel.olm_matmul_fused(x, w.t().contiguous().t(),
+                                                n=n)
+    host = olm_matmul(x, w, n_bits=n, quantize="host")
+    for got in (fused, transposed, host):
+        assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("k_tile", [5, 8])
+def test_both_kernels_at_a_narrower_k_tile(cuda, k_tile):
+    x, w = _operands(cuda, 5, 70, 37)
+    want = olm_matmul_ref(x, w, n_bits=16, k_tile=k_tile)
+    for quantize in ("kernel", "host"):
+        assert _bits_equal(olm_matmul(x, w, n_bits=16, k_tile=k_tile,
+                                      quantize=quantize), want)
+
+
+def test_both_kernels_at_the_lm_head(cuda):
+    # M = 4 N = 92544: 1446 column blocks of the plan
+    x, w = _operands(cuda, 4, 2048, 92544)
+    want = olm_matmul_ref(x, w)
+    assert _bits_equal(olm_matmul(x, w), want)
+    assert _bits_equal(olm_matmul(x, w, quantize="host"), want)
+
+
+@pytest.mark.parametrize("shape", [(M, K, N) for M in (4, 64)
+                                   for K, N in ((2048, 8192), (2048, 2048),
+                                                (2048, 1024), (8192, 2048))])
+def test_both_kernels_at_the_serve_shapes(cuda, shape):
+    # the olm16 serve's q/o, k/v, gate/up and down GEMMs at decode and
+    # prefill, each under its own launch plan
+    x, w = _operands(cuda, *shape, seed=sum(shape))
+    want = olm_matmul_ref(x, w)
+    assert _bits_equal(olm_matmul(x, w), want)
+    assert _bits_equal(olm_matmul(x, w, quantize="host"), want)
+
+
+def test_host_kernel_flushes_a_subnormal_tile(cuda):
+    # _operands puts 1e-40 in x[0, :16]: that tile contributes exactly 0
+    x, w = _operands(cuda, 5, 70, 37)
+    zeroed = x.clone()
+    zeroed[0, :16] = 0.0
+    got = olm_matmul(x, w, quantize="host")
+    assert _bits_equal(got, olm_matmul_ref(x, w))
+    assert _bits_equal(got, olm_matmul(zeroed, w, quantize="host"))
+
+
+def test_olm_matmul_plan_knows_the_kernels_shared_memory(cuda):
+    # launch_plan counts shared memory the way csrc/olm_matmul.cu's layout
+    # does; the kernel reports its own, and an SM holds such a block
+    for n in (8, 10, 12, 16, 20, 24, 32):
+        for host, vec in ((False, False), (True, False), (True, True)):
+            if vec and n % 4:
+                continue
+            for M, N, K in ((4, 8192, 2048), (64, 2048, 2048),
+                            (4, 92544, 2048), (1, 1, 8192), (5, 37, 70),
+                            (17, 1003, 3)):
+                plan = matmul_kernel.launch_plan(M, N, K, n, host=host,
+                                                 vec=vec)
+                L = tree_levels(plan.kt)
+                if n + 2 * L > 48:
+                    continue
+                smem, blocks = matmul_kernel.geometry(n, host, vec, plan.bm,
+                                                      plan.bn, plan.tb, L)
+                assert smem == plan.smem, (n, host, vec, M, N, K)
+                assert blocks >= 1, (n, host, vec, M, N, K)
+
+
 def _digits(cuda, shape, seed):
     g = torch.Generator(device=cuda).manual_seed(seed)
     return (torch.randint(-1, 2, shape, device=cuda, generator=g,
