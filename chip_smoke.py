@@ -23,10 +23,18 @@ Phases, each printing its own lines:
                row, the tile and split edges, A planes at an odd address
                and every serve GEMM shape; K3 also at a ragged B with K
                of 1, 3, 33 and 1024 lanes, an odd n, full working
-               precision and operands at a 4-byte offset; plus the
-               smoke-size model under olm16 and under tpmm16 on the card
-               against the same model on the CPU;
-  4. time    - each kernel at those shapes beside its bound, its plain
+               precision and operands at a 4-byte offset; the general
+               kernel (`online_dot_any`, K4's too at one lane a row)
+               through the public online_mul / online_dot at other
+               delays (a negative one too) and estimate widths (wider
+               than the datapath too), in its int64 lane, n of 36 and
+               40, and K past 1024 lanes (streams of 64 and 128 bits),
+               one launch each, and a configuration no kernel holds
+               raising before any launch; plus the smoke-size model under olm16
+               and under tpmm16 on the card against the same model on
+               the CPU;
+  4. time    - each kernel at those shapes (and the general K3/K4
+               kernels at one shape each) beside its bound, its plain
                version and a PyTorch context call: the median of CUDA
                event pairs, one per launch, with the L2 cache overwritten
                before each; a time below its bound fails the run;
@@ -42,7 +50,17 @@ Phases, each printing its own lines:
   6. paths   - the other two paths a user calls: olm_matmul(quantize="host")
                over one decoder layer's GEMMs at decode (K2), and the
                digit-level API online_mul / online_dot (K4, K3), each with
-               the launch counts set to 0 just before and read just after.
+               the launch counts set to 0 just before and read just after;
+  7. replay  - the fault-tolerant serving path at the full published
+               InternLM2-1.8B width: the serve_faults bench's seed-0
+               workload and fault plan (results/baseline/
+               BENCH_serve_faults.json) through ServeEngine under olm16
+               with the degrade ladder olm16 / olm16t12 / olm16t10 (every
+               GEMM of every tier through K1), preemption, the numerics
+               guard and the integrity audit; once fault-free, once
+               faulted, and once fault-free with chunked prefill. Its 14
+               step-counted rows must equal the baseline's and K1's
+               launches the GEMMs of the forward passes run.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -115,10 +133,54 @@ DOT_EDGES = (tuple((DOT_RAGGED_B, K, n, True) for K in (1, 3, 33, 1024)
                    for n in (8, 13, 16, 32))
              + ((DOT_RAGGED_B, 256, 16, False), (DOT_RAGGED_B, 33, 16, False)))
 DOT_OFFSET = (1000, 33, 16)
+# Configurations past the unrolled K3/K4 (another online delay or estimate
+# width, full working precision at another delay, n past 32, a negative
+# delay, an estimate wider than the datapath, the int64 lane) and K3 past
+# 1024 lanes (streams of 64 and 128 bits): the public online_mul /
+# online_dot must send each to a kernel (one launch) with the plain
+# version's digits. (K, OnlinePrecision keywords); K4 takes the keywords
+# alone at GENERAL_MUL_B rows.
+GENERAL_CONFIGS = (dict(n=16, delta=4), dict(n=16, t=3),
+                   dict(n=16, delta=2, t=1),
+                   dict(n=16, delta=4, truncated=False, tail_gating=False),
+                   dict(n=8, delta=0), dict(n=36), dict(n=8, delta=-1),
+                   dict(n=2, delta=0, t=5, truncated=False), dict(n=5, t=8),
+                   dict(n=24, t=1))
+GENERAL_MUL_B = (1 << 16) + 37
+GENERAL_DOT = (tuple((K, kw) for K in (33, 2048) for kw in GENERAL_CONFIGS)
+               + tuple((K, dict(n=16)) for K in (300, 1025, 2048, 5000))
+               + ((1500, dict(n=32)), ((1 << 16) + 1, dict(n=32))))
+# A configuration no kernel holds (the residual's bound leaves int64): a
+# CUDA operand must raise before any launch.
+UNHELD = dict(n=36, delta=1)
+GENERAL_DOT_B = 61
+# one time each: K4 at delay 4 and in the int64 lane, K3 at delay 4 and
+# K3 past 1024 lanes
+GENERAL_TIMED = ((None, dict(n=16, delta=4), MUL_B),
+                 (None, dict(n=24, t=1), MUL_B),          # the int64 lane
+                 (256, dict(n=16, delta=4), DOT_B),
+                 (2048, dict(n=16), 512))
 SERVE = dict(arch="internlm2_1_8b", modes=("olm16", "tpmm16"), requests=4,
              prompt=(4, 12), max_new=6, slots=4, max_len=128, block=16,
              seed=0)
 SERVE_LAYERS = None                # None = the full published depth
+# The replay phase: benchmarks/run.py::serve_faults_bench's engine with
+# its ladder's rungs replaced by olm16 ones, and its seed-0 workload and
+# fault plan. vocab=512 keeps the baseline's arrival schedule and prompt
+# lengths (and ids below 512 are tokens of the 92544-token vocabulary).
+REPLAY_ENGINE = dict(slots=4, max_len=64, kv_layout="paged", kv_block_size=8,
+                     kv_blocks=21, max_queue=8, preempt=True,
+                     numerics_check=True, integrity_audit=True,
+                     degrade_ladder=["olm16", "olm16t12", "olm16t10"])
+REPLAY_WORKLOAD = dict(seed=0, n_requests=20, mean_interarrival_steps=2.0,
+                       prompt_len_range=(4, 16), max_new_range=(4, 10),
+                       vocab=512, deadline_every=6, deadline_steps=30,
+                       priority_levels=2)
+# Chunks of 8 tokens: the workload's prompts are 4-16 tokens, and a
+# prompt is chunked only where it is longer than a chunk.
+REPLAY_CHUNK = 8
+REPLAY_REASONS = {"eos", "length", "max_len", "cache_full", "deadline",
+                  "rejected", "numerics", "failed"}
 
 
 def smi(fields: str) -> str:
@@ -389,6 +451,48 @@ def main() -> int:
          k3.online_dot_kernel(xd, yd, OnlinePrecision(n=n)),
          online_dot_batch_ref(xd, yd, n=n))
     del xd, yd, want
+    for kw in GENERAL_CONFIGS + (dict(n=40),):
+        cfg = OnlinePrecision(**kw)
+        xd, yd = digits((GENERAL_MUL_B, cfg.n), cfg.n + cfg.delta, dev)
+        before = k4.launches
+        got, _ = online_mul(xd, yd, cfg)
+        if k4.launches != before + 1:
+            raise SystemExit(f"online_mul {kw} did not launch its kernel")
+        want, _ = online_mul_batch_ref(
+            xd, yd, n=cfg.n, delta=cfg.delta, t=cfg.t,
+            truncated=cfg.truncated, tail_gating=cfg.tail_gating)
+        hold("online_mul", f"B={GENERAL_MUL_B} {kw} ({k4.route(cfg)} kernel)",
+             got, want)
+    for K, kw in GENERAL_DOT:
+        cfg = OnlinePrecision(**kw)
+        B = GENERAL_DOT_B if K <= 5000 else 3
+        xd, yd = digits((B, K, cfg.n), K + cfg.delta, dev)
+        before = k3.launches
+        got, _ = online_dot(xd, yd, cfg)
+        if k3.launches != before + 1:
+            raise SystemExit(f"online_dot K={K} {kw} did not launch its "
+                             "kernel")
+        hold("online_dot", f"B={B} K={K} {kw} "
+             f"({k3.route(cfg, K)} kernel)", got,
+             online_dot_batch_ref(xd, yd, n=cfg.n, delta=cfg.delta, t=cfg.t,
+                                  truncated=cfg.truncated,
+                                  tail_gating=cfg.tail_gating))
+    cfg = OnlinePrecision(**UNHELD)
+    xd, yd = digits((GENERAL_DOT_B, 4, cfg.n), 5, dev)
+    before = (k3.launches, k4.launches)
+    for api, call in (("online_mul", lambda: online_mul(
+            xd[:, 0].contiguous(), yd[:, 0].contiguous(), cfg)),
+                      ("online_dot", lambda: online_dot(xd, yd, cfg))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"[check] {api} {UNHELD}: raises before any launch "
+                  f"({str(e)[:60]}...)", flush=True)
+        else:
+            raise SystemExit(f"{api} {UNHELD} did not raise")
+    if (k3.launches, k4.launches) != before:
+        raise SystemExit(f"{UNHELD} launched a kernel")
+    del xd, yd, got, want
 
     subrow = x.clone()
     subrow[1] = 1e-40                        # an all-subnormal row
@@ -504,6 +608,29 @@ def main() -> int:
                cuda_ms(lambda: online_dot_batch_ref(xd, yd, n=n), reps=1),
                (2 * DOT_B * K * n + DOT_B * m) * 4,
                k3.int_ops(DOT_B, K, cfg), rate)
+    for K, kw, B in GENERAL_TIMED:
+        cfg = OnlinePrecision(**kw)
+        n = cfg.n
+        kw_ref = dict(n=n, delta=cfg.delta, t=cfg.t)
+        if K is None:
+            xd, yd = digits((B, n), n, dev)
+            record("online_mul",
+                   f"general B={B} {kw} ({k4.route(cfg)} kernel)",
+                   cuda_ms(lambda: k4.online_mul_kernel(xd, yd, cfg),
+                           reps=20, warmup=2),
+                   cuda_ms(lambda: online_mul_batch_ref(xd, yd, **kw_ref),
+                           reps=1),
+                   3 * B * n * 4, k4.int_ops(B, cfg), rate)
+            continue
+        xd, yd = digits((B, K, n), K + n, dev)
+        m = n + 2 * tree_levels(K)
+        record("online_dot", f"general B={B} K={K} {kw} ({k3.route(cfg, K)} "
+               "kernel)",
+               cuda_ms(lambda: k3.online_dot_kernel(xd, yd, cfg), reps=20,
+                       warmup=2),
+               cuda_ms(lambda: online_dot_batch_ref(xd, yd, **kw_ref),
+                       reps=1),
+               (2 * B * K * n + B * m) * 4, k3.int_ops(B, K, cfg), rate)
     del xd, yd
     for n_bits, shapes in ((16, SERVE_SHAPES), (8, (DECODE_GEMV, PREFILL_GEMM))):
         for shape in shapes:
@@ -728,6 +855,160 @@ def main() -> int:
           f"(documented <= 1.1 per lane: {1.1 * K:.1f})", flush=True)
     if not (mul_ulp <= 1.1 and dot_ulp <= 1.1 * K):
         raise SystemExit("the digit-level API exceeds its documented error")
+
+    # 7. the fault-tolerant serving path: a faulted replay ---------------
+    from repro_torch.serving import (FaultConfig, FaultInjector,
+                                     ReplayConfig, build_fault_plan,
+                                     build_workload, run_replay)
+    cfg = get_config(SERVE["arch"])
+    if SERVE_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
+    per_pass = 7 * cfg.n_layers + 1
+    params = Model(cfg, device=dev).init(seed=SERVE["seed"])
+    model = Model(cfg, DotEngine(mode="olm16"), device=dev)
+    workload = build_workload(ReplayConfig(**REPLAY_WORKLOAD))
+    baseline = {r["op"]: r["derived"] for r in json.loads(
+        (ROOT / "results" / "baseline" / "BENCH_serve_faults.json")
+        .read_text())["rows"] if r["op"].startswith("serve_faults/s0/")}
+    print(f"[replay] {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}), params "
+          f"{cfg.param_dtype} from seed {SERVE['seed']}, compute "
+          f"{cfg.compute_dtype}; engine {REPLAY_ENGINE}; workload "
+          f"{REPLAY_WORKLOAD}: vocab=512 keeps the baseline's arrival "
+          "schedule and prompt lengths, and ids below 512 are tokens of "
+          f"the {cfg.vocab_size}-token vocabulary", flush=True)
+
+    def replay(label, faults=None, **extra):
+        """One run of the workload: (done, report, engine, passes, K1
+        launches by tier mode, wall seconds, peak bytes)."""
+        engine = ServeEngine(model, params, device=dev, **REPLAY_ENGINE,
+                             **extra)
+        passes = {"prefill": 0, "prefill_chunk": 0, "decode_step": 0}
+        by_mode, finite = {}, []
+        for m in {id(m): m for m in engine._tier_models.values()}.values():
+            for kind in passes:
+                def run(*a, _fn=getattr(m, kind), _kind=kind,
+                        _mode=m.eng.mode, **kw):
+                    before = k12.launches
+                    out = _fn(*a, **kw)
+                    passes[_kind] += 1
+                    by_mode[_mode] = (by_mode.get(_mode, 0) + k12.launches
+                                      - before)
+                    finite.append(bool(torch.isfinite(out[0]).all()))
+                    return out
+                setattr(m, kind, run)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.monotonic()
+        done, rep = run_replay(engine, workload, faults=faults)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = read_counts()
+        for m in engine._tier_models.values():
+            for kind in passes:
+                m.__dict__.pop(kind, None)
+        peak = torch.cuda.max_memory_allocated()
+        tokens = sum(len(r.output) for r in done)
+        n_pass = sum(passes.values())
+        print(f"[replay] {label}: {rep['n']} requests, {tokens} tokens, "
+              f"{rep['steps_total']} scheduler steps, wall {wall:.3f} s (ends "
+              f"in torch.cuda.synchronize), {tokens / wall:.3f} tokens/s, "
+              f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB); forward "
+              f"passes {passes}; K1 launches {counts['olm_matmul_fused']} for "
+              f"{n_pass * per_pass} GEMMs, by tier {by_mode}; finish reasons "
+              f"{rep['finish_reasons']}", flush=True)
+        if counts["olm_matmul_fused"] != n_pass * per_pass or n_pass == 0:
+            raise SystemExit(f"replay {label}: K1 launched "
+                             f"{counts['olm_matmul_fused']} times for "
+                             f"{n_pass * per_pass} GEMMs")
+        if any(v for k, v in counts.items() if k != "olm_matmul_fused"):
+            raise SystemExit(f"replay {label}: other kernels launched "
+                             f"{counts}")
+        if not all(finite):
+            raise SystemExit(f"replay {label}: non-finite logits on the card")
+        if rep["n"] != len(workload) or any(
+                r.finish_reason not in REPLAY_REASONS for r in done):
+            raise SystemExit(f"replay {label}: a request without a known "
+                             "finish reason")
+        return done, rep, engine
+
+    ref_done, ref_rep, _ = replay("fault-free")
+    ref = {r.rid: (tuple(r.output), r.finish_reason) for r in ref_done}
+    fc = FaultConfig(seed=0, horizon_steps=max(
+        10, int(ref_rep["steps_total"]) * 2 // 3), exhaust_blocks=16,
+        exhaust_hold_steps=6)
+    inj = FaultInjector(build_fault_plan(fc))
+    done, rep, engine = replay("faulted", faults=inj)
+    stats, ctr = inj.summary(), engine.counters
+    identical = 0
+    for r in done:
+        out, reason = tuple(r.output), r.finish_reason
+        if (out, reason) == ref[r.rid]:
+            identical += 1
+            continue
+        if not (r.n_preempts or r.n_retries or r.degrade_rung
+                or reason in ("numerics", "deadline", "rejected",
+                              "cache_full", "failed")):
+            raise SystemExit(f"replay: rid {r.rid} diverged with no recorded "
+                             "fault or recovery")
+        if r.n_preempts and not r.degrade_rung and reason == ref[r.rid][1] \
+                and out != ref[r.rid][0]:
+            raise SystemExit(f"replay: rid {r.rid} was preempted and "
+                             "recomputed into other tokens")
+        if reason == "deadline" and not r.degrade_rung \
+                and out != ref[r.rid][0][:len(out)]:
+            raise SystemExit(f"replay: rid {r.rid}'s deadline stream is not "
+                             "a clean prefix")
+    rows = {"completed": rep["n"], "steps_total": rep["steps_total"],
+            "injected_exhaust": stats.get("exhaust", 0),
+            "injected_corrupt": stats.get("corrupt", 0),
+            "injected_nan": stats.get("nan", 0),
+            "injected_prefill_fail": stats.get("prefill_fail", 0),
+            "preempted": int(ctr["preempted"]),
+            "table_repairs": int(ctr["table_repairs"]),
+            "prefill_retries": int(ctr["prefill_retries"]),
+            "degraded": int(ctr["degraded"]),
+            "n_deadline": rep["n_deadline"], "n_rejected": rep["n_rejected"],
+            "n_numerics": rep["n_numerics"],
+            "n_cache_full": rep["n_cache_full"]}
+    kvr = engine.kv_report()
+    print(f"[replay] faulted: injected {stats}; counters "
+          f"{dict(sorted(ctr.items()))}; identical_to_ref {identical} of "
+          f"{len(done)} (the baseline's bench, with its own ladder, "
+          f"{baseline['serve_faults/s0/identical_to_ref']}); post-run "
+          f"integrity_ok {kvr['integrity_ok']}, blocks held "
+          f"{kvr['kv_blocks_held']}", flush=True)
+    print(f"[replay] step-counted rows against the baseline: " + ", ".join(
+        f"{k} {v} ({baseline['serve_faults/s0/' + k]})"
+        for k, v in rows.items()), flush=True)
+    for fam in ("exhaust", "corrupt", "nan", "prefill_fail"):
+        if stats.get(fam, 0) < 1:
+            raise SystemExit(f"replay: fault family {fam!r} never fired")
+    if (rep["n_numerics"] != stats["nan"]
+            or ctr["table_repairs"] != stats["corrupt"]
+            or ctr["prefill_retries"] != stats["prefill_fail"]
+            or ctr["preempted"] < 1):
+        raise SystemExit("replay: an injected fault did not resolve to its "
+                         "finish reason or recovery")
+    if not kvr["integrity_ok"] or kvr["kv_blocks_held"] != 0:
+        raise SystemExit("replay: post-run block accounting does not balance")
+    if any(v != baseline["serve_faults/s0/" + k] for k, v in rows.items()):
+        raise SystemExit("replay: a step-counted row differs from "
+                         "results/baseline/BENCH_serve_faults.json")
+    chunked, _, _ = replay(f"fault-free, prefill_chunk={REPLAY_CHUNK}",
+                           prefill_chunk=REPLAY_CHUNK)
+    outs = {r.rid: r.output for r in chunked}
+    agree = sum(a == b for r in ref_done for a, b in zip(r.output,
+                                                         outs[r.rid]))
+    print(f"[replay] chunked prefill answered {len(chunked)} requests; "
+          f"{agree} of {sum(len(r.output) for r in ref_done)} generated "
+          "tokens agree with the unchunked fault-free run (chunks stretch "
+          "the schedule, so requests wait, degrade or expire otherwise; the "
+          "equality of chunked and unchunked prefill is held on the CPU)",
+          flush=True)
+    del params, model, engine
+    torch.cuda.empty_cache()
 
     # the kernels line --------------------------------------------------
     src = "src/repro_torch/csrc/"

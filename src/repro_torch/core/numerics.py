@@ -19,16 +19,23 @@ The digit modes dispatch on the device of their operands: a CUDA tensor
 runs a Hopper kernel, a CPU tensor the plain version. Weights go to the
 kernel in f32 from their stored dtype, never rounded through the
 activation dtype first; the output returns in the activation dtype.
+
+`EngineSpec` is the one declarative description of an engine, and
+`resolve_engine(spec, base=)` turns it into a DotEngine; `DotEngine.spec()`
+is the inverse. The mesh-sharded fields (`mesh`, `shard`, `shard_axis`)
+are kept for the reference's signature and refused until the sharded
+GEMMs are ported (ROADMAP section 1, item 8).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
-__all__ = ["DotEngine", "DotMode", "register_mode", "TRUNCATED_SPECS"]
+__all__ = ["DotEngine", "DotMode", "register_mode", "TRUNCATED_SPECS",
+           "EngineSpec", "resolve_engine"]
 
 # The registered truncated tiers as (n, p) pairs: mode `olm{n}t{p}` is
 # the n-digit array run at p working digits.
@@ -213,6 +220,137 @@ class DotEngine:
         """Names of all registered modes."""
         return tuple(sorted(_MODES))
 
+    def spec(self) -> "EngineSpec":
+        """This engine as an EngineSpec: every field pinned, so
+        ``resolve_engine(eng.spec()) == eng`` (round-trip contract)."""
+        return EngineSpec(
+            mode=self.mode, k_tile=self.k_tile, block_m=self.block_m,
+            block_n=self.block_n, tiling=self.tiling,
+            layer_modes=self.layer_modes)
+
     def dot(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """x (..., K) @ w (K, N) -> (..., N), in this engine's numerics."""
         return _MODES[self.mode].fn(self, x, w)
+
+
+class _Unset:
+    """Sentinel distinguishing "leave this field to the base engine"
+    from an explicit None/value in EngineSpec (e.g. k_tile=None means
+    CLEAR the pin back to the kernel default; k_tile=_UNSET means
+    inherit whatever the base engine had)."""
+    _instance = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self):
+        return "<unset>"
+
+
+_UNSET = _Unset()
+
+# The sharded GEMMs are not ported yet: a spec that asks for them raises
+# instead of silently serving on one device.
+_SHARD_FIELDS = ("mesh", "shard", "shard_axis")
+_NO_SHARDING = ("the port runs on one device: mesh/shard/shard_axis wait "
+                "for the sharded GEMMs (ROADMAP section 1, item 8)")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineSpec:
+    """One declarative description of a numerics engine (port of
+    `repro.core.numerics.EngineSpec`).
+
+    ``resolve_engine(spec)`` turns it into a concrete DotEngine. Name the
+    mode either directly (``mode="olm32t16"``) or structurally
+    (``n_bits=32, trunc=16``), never both. Every other field defaults to
+    the _UNSET sentinel, meaning "inherit from the base engine" when
+    resolving against one (``resolve_engine(spec, base=model.eng)``); an
+    explicit None overrides the base (clears a pin). The serving-only
+    fields (quality_tiers, degrade_ladder) ride the spec unchanged and are
+    consumed by ServeEngine, not by resolve_engine.
+
+    Frozen and hashable: dict-valued fields are normalized to sorted
+    tuples at construction, as DotEngine.layer_modes is. The reference's
+    TPU deployment knobs (interpret, use_pallas) have no counterpart: the
+    port dispatches on the operands' device.
+    """
+    mode: Optional[str] = None
+    n_bits: Optional[int] = None
+    trunc: Optional[int] = None
+    k_tile: Any = _UNSET
+    block_m: Any = _UNSET
+    block_n: Any = _UNSET
+    tiling: Any = _UNSET
+    layer_modes: Any = _UNSET
+    # Distributed front-end: refused (see _NO_SHARDING) unless unset.
+    mesh: Any = _UNSET
+    shard: Any = _UNSET
+    shard_axis: Any = _UNSET
+    # Serving-only: per-request quality tiers {tier: mode} and the degrade
+    # ladder (see serving/engine.py). None = unset.
+    quality_tiers: Any = None
+    degrade_ladder: Any = None
+
+    def __post_init__(self):
+        if self.mode is not None and self.n_bits is not None:
+            raise ValueError(
+                "EngineSpec: give mode= or n_bits= (structural), not both")
+        if self.trunc is not None and self.n_bits is None:
+            raise ValueError(
+                "EngineSpec: trunc= requires n_bits= (structural naming)")
+        if bad := [f for f in _SHARD_FIELDS
+                   if getattr(self, f) is not _UNSET]:
+            raise NotImplementedError(f"EngineSpec({', '.join(bad)}=...): "
+                                      f"{_NO_SHARDING}")
+        if isinstance(self.layer_modes, Mapping):
+            object.__setattr__(self, "layer_modes",
+                               tuple(sorted(self.layer_modes.items())))
+        if isinstance(self.quality_tiers, Mapping):
+            object.__setattr__(self, "quality_tiers",
+                               tuple(sorted(self.quality_tiers.items())))
+        if isinstance(self.degrade_ladder, list):
+            object.__setattr__(self, "degrade_ladder",
+                               tuple(self.degrade_ladder))
+
+
+# DotEngine fields an EngineSpec can override (same names on both).
+_SPEC_ENGINE_FIELDS = ("k_tile", "block_m", "block_n", "tiling",
+                       "layer_modes")
+
+
+def resolve_engine(spec: EngineSpec, base: Optional[DotEngine] = None,
+                   mesh=None) -> DotEngine:
+    """Resolve an EngineSpec into a concrete DotEngine.
+
+    Field resolution order: explicit spec field > ``base`` engine field >
+    DotEngine default. The mode comes from ``spec.mode``, or is derived
+    from ``spec.n_bits`` / ``spec.trunc`` (``olm{n}`` / ``olm{n}t{p}``) and
+    validated against the registry; with neither set, the base engine's
+    mode (or the DotEngine default) stands. ``mesh=`` is refused until the
+    sharded GEMMs are ported.
+    """
+    if mesh is not None:
+        raise NotImplementedError(f"resolve_engine(mesh=...): {_NO_SHARDING}")
+    if base is not None and not isinstance(base, DotEngine):
+        raise TypeError(f"base must be a DotEngine, got {type(base).__name__}")
+    kw = ({} if base is None else
+          {f.name: getattr(base, f.name) for f in dataclasses.fields(DotEngine)})
+    if spec.mode is not None:
+        kw["mode"] = spec.mode
+    elif spec.n_bits is not None:
+        name = (f"olm{spec.n_bits}t{spec.trunc}" if spec.trunc is not None
+                else f"olm{spec.n_bits}")
+        if name not in _MODES:
+            raise ValueError(
+                f"EngineSpec(n_bits={spec.n_bits}, trunc={spec.trunc}) "
+                f"resolves to unregistered mode {name!r}; registered: "
+                f"{', '.join(sorted(_MODES))}")
+        kw["mode"] = name
+    for name in _SPEC_ENGINE_FIELDS:
+        v = getattr(spec, name)
+        if v is not _UNSET:
+            kw[name] = v
+    return DotEngine(**kw)

@@ -13,27 +13,12 @@
 
 namespace olm {
 
-// The schedule's per-step constants at datapath scale 2^S (olm_digits.cuh's
-// `mul_digit_loop` derives the same from T(j) in every lane and step).
-struct Steps {
-  int keep[kMaxSteps];                     // floor mask below 2^-T(j)
-  int wq[kMaxSteps];                       // the arriving digit's bit, or 0
-  int shift;                               // S - t: the estimate's shift
-  int unit;                                // 2^S
-};
+// The schedule's per-step constants for the unrolled lanes (K1/K2 run
+// t = 2, K3 the estimate width it is given).
+using Steps = StepConsts<kMaxSteps>;
 
-inline Steps make_steps(const int* sched, int nsteps, int S) {
-  Steps st{};
-  for (int s = 0; s < nsteps; ++s) {
-    const int T = sched[s], q = s + 1;
-    const int dead = S - T > 0 ? S - T : 0;
-    st.keep[s] = (int)(0xFFFFFFFFu << dead);
-    const int live = T < S ? T : S;
-    st.wq[s] = q <= live ? (1 << (S - q > 0 ? S - q : 0)) : 0;
-  }
-  st.shift = S - kEst;
-  st.unit = 1 << S;
-  return st;
+inline Steps make_steps(const int* sched, int nsteps, int S, int t = kEst) {
+  return step_consts<kMaxSteps>(sched, nsteps, S, t);
 }
 
 // One lane of the radix-2 online multiplier: `mul_digit_loop`'s Fig. 7
@@ -65,7 +50,7 @@ __device__ __forceinline__ void lane_loop(uint32_t xp, uint32_t xn,
     Y = Yf & keep;
     const int V = 2 * W + append;
     if (j >= 0) {
-      const int vq = V >> st.shift;        // selection estimate, in quarters
+      const int vq = V >> st.shift;        // selection estimate
       const int z = vq >= 2 ? 1 : (vq >= -2 ? 0 : -1);
       W = (V - z * st.unit) & keep;
       op |= (uint32_t)(z > 0) << j;

@@ -48,6 +48,26 @@
 //    bits (K <= 1024 keeps n + 2L <= 52).
 //  * The block stores its group's rows of z, neighbouring threads on
 //    neighbouring words.
+//
+// That kernel runs the paper's online delay of 3 at 4 <= n <= 32 and
+// K <= 1024, any estimate width the 32-bit datapath holds. Every other
+// configuration a kernel holds (another delay or estimate width, n up to
+// 64, any K) runs `online_dot_any`, which K4 (online_mul) also runs at
+// K = 1 for its configurations past the paper's: a block of 256 threads
+// takes whole rows where a row's padded width 2^L is at most 256 lanes,
+// else one row in chunks of 256 lanes, each an aligned subtree of the
+// reference's tree (node i of a level pairs children 2i and 2i + 1, so
+// lanes [256c, 256c + 256) reduce to node c of level 8). It stages a
+// chunk's digit rows coalesced, runs each lane's recurrence with
+// olm_digits.cuh's `lane_any` (in int32, or in int64 where the selection
+// does not bound the residual), reduces the chunk in shared memory (lanes
+// past K are zero streams, which is the reference's padding of an odd
+// level: the zero stream plus the zero stream is the zero stream), and
+// merges the chunks' streams as a binary counter carries, which pairs
+// level-8 nodes 2i and 2i + 1 as the reference does; what is left at the
+// end pairs with zero streams up to level L. Its streams are 32, 64 or
+// 128 bits wide, so a stream of n + 2L <= 128 digits covers every K a
+// card's memory holds.
 #include "olm_lane.cuh"
 
 namespace {
@@ -276,6 +296,121 @@ online_dot_kernel(const int* __restrict__ x, const int* __restrict__ y,
   }
 }
 
+
+constexpr int kChunkLevels = 8;            // a chunk: 2^8 = kThreads lanes
+constexpr int kMaxLevels = 62;             // K <= 2^62
+
+// Shared memory of `online_dot_any`: a chunk of x and y (rows of n | 1
+// words), the chunk's node arrays and the row's carry stack.
+long long any_smem_bytes(int n, int word) {
+  return 8LL * kThreads * (n | 1) + 2LL * word * (kThreads + kMaxLevels + 1);
+}
+
+// W: a stream's word (32, 64 or 128 bits); D: the lanes' datapath.
+template <typename W, typename D>
+__global__ void __launch_bounds__(kThreads)
+online_dot_any(const int* __restrict__ x, const int* __restrict__ y,
+               int* __restrict__ z, long long B, long long K, int L, int n,
+               int delta, olm::StepsAny st, int lift) {
+  extern __shared__ __align__(16) int smem[];
+  const int stride = n | 1;
+  int* sx = smem;
+  int* sy = smem + kThreads * stride;
+  // node arrays start 16-byte aligned: 8 * kThreads * stride bytes above
+  W* np = reinterpret_cast<W*>(sy + kThreads * stride);  // chunk nodes
+  W* nq = np + kThreads;
+  W* cp = nq + kThreads;                   // carry stack, levels 8 .. L
+  W* cq = cp + kMaxLevels + 1;
+
+  const int t = threadIdx.x;
+  // C lanes a row's unit: 2^L up to a chunk; R = kThreads / C rows a
+  // block where a row is one unit, else one row of G chunks.
+  const int lc = min(L, kChunkLevels);
+  const int C = 1 << lc;
+  const int R = kThreads / C;
+  const long long row0 = (long long)blockIdx.x * R;
+  const int rows = (int)min((long long)R, B - row0);
+  const long long chunks = L > kChunkLevels ? (K + kThreads - 1) / kThreads
+                                            : 1;
+  const int m = n + 2 * L;
+  uint64_t occupied = 0;                   // carry stack levels in use
+  for (long long c = 0; c < chunks; ++c) {
+    const long long first = row0 * K + c * kThreads;
+    const long long count = L > kChunkLevels ? min((long long)kThreads,
+                                                   K - c * kThreads)
+                                             : rows * K;
+    auto slot = [&](int e) { return (int)(e / K) * C + (int)(e % K); };
+    __syncthreads();                       // the last chunk's reads done
+    olm::stage_rows(x + first * n, sx, count * n, n, stride, kThreads, slot);
+    olm::stage_rows(y + first * n, sy, count * n, n, stride, kThreads, slot);
+    __syncthreads();
+    const int r = t / C, k = t - r * C;
+    const bool live = r < rows && (L > kChunkLevels
+                                       ? k < count
+                                       : k < K);
+    W p = 0, q = 0;
+    if (live) {
+      uint64_t zp, zn;
+      olm::lane_any<D>(sx + t * stride, sy + t * stride, n, delta, st, lift,
+                       zp, zn);
+      p = (W)zp;
+      q = (W)zn;
+    }
+    np[t] = p;
+    nq[t] = q;
+    for (int l = 0; l < lc; ++l) {         // node k of level l + 1 pairs
+      __syncthreads();                     // children 2k and 2k + 1
+      if ((k & ((2 << l) - 1)) == 0) {
+        W op, oq;
+        olm::online_add<W>(np[t], nq[t], np[t + (1 << l)],
+                           nq[t + (1 << l)], op, oq);
+        np[t] = op;
+        nq[t] = oq;
+      }
+    }
+    __syncthreads();
+    if (L > kChunkLevels && t == 0) {      // chunk c is node c of level 8
+      W vp = np[0], vq = nq[0];
+      int lv = kChunkLevels;
+      while (occupied >> lv & 1) {
+        olm::online_add<W>(cp[lv], cq[lv], vp, vq, vp, vq);
+        occupied &= ~(1ull << lv);
+        ++lv;
+      }
+      cp[lv] = vp;
+      cq[lv] = vq;
+      occupied |= 1ull << lv;
+    }
+  }
+  if (L > kChunkLevels) {
+    if (t == 0) {                          // chunks past the last: zeros
+      W vp = 0, vq = 0;
+      bool have = false;
+      for (int lv = kChunkLevels; lv < L; ++lv) {
+        const bool occ = occupied >> lv & 1;
+        if (have)
+          olm::online_add<W>(occ ? cp[lv] : 0, occ ? cq[lv] : 0, vp, vq, vp,
+                             vq);
+        else if (occ)
+          olm::online_add<W>(cp[lv], cq[lv], 0, 0, vp, vq);
+        have = have || occ;
+      }
+      if (!have) {                         // every chunk was real
+        vp = cp[L];
+        vq = cq[L];
+      }
+      np[0] = vp;
+      nq[0] = vq;
+    }
+    __syncthreads();
+  }
+  for (int e = t; e < rows * m; e += kThreads) {
+    const int r = e / m, j = e - r * m;
+    z[row0 * m + e] = (int)((np[r * C] >> j) & 1u) -
+                      (int)((nq[r * C] >> j) & 1u);
+  }
+}
+
 struct Args {
   const int* x;
   const int* y;
@@ -342,28 +477,91 @@ cudaError_t dispatch(int n, const Args& a) {
 // Plain C entry points (loaded with ctypes).
 //
 // online_dot: x, y are (B, K, n) int32 row-major, z is (B, n + 2L) int32
-// row-major with L = ceil(log2 K); sched holds the n + 3 values of T(j)
-// and S their maximum. The plan (kernel.launch_plan): groups of `rows`
-// rows in `subs` stages of at most 256 lanes, a grid of `grid` persistent
-// blocks, 16-byte copies where vec (n a multiple of 4, x and y 16-byte
-// aligned). Returns a cudaError_t: 0 on a successful launch.
+// row-major with L = ceil(log2 K); sched holds the n + 3 values of T(j),
+// S their maximum and t the estimate's fractional digits (0 <= t <= S).
+// The plan (kernel.launch_plan): groups of `rows` rows in `subs` stages
+// of at most 256 lanes, a grid of `grid` persistent blocks, 16-byte copies
+// where vec (n a multiple of 4, x and y 16-byte aligned). Returns a
+// cudaError_t: 0 on a successful launch.
 extern "C" int online_dot(const int* x, const int* y, int* z, int B, int K,
-                          int L, int n, int S, const int* sched, int nsteps,
-                          int rows, int subs, int grid, int vec,
+                          int L, int n, int S, int t, const int* sched,
+                          int nsteps, int rows, int subs, int grid, int vec,
                           void* stream) {
   if (B < 1 || K < 1 || K > kMaxLanes || L < 0 || (1 << L) < K ||
       (L > 0 && (1 << (L - 1)) >= K) || n <= olm::kDelta ||
       n > olm::kMaxDigits || n + 2 * L > 64 || nsteps != n + olm::kDelta ||
-      S + 3 > 31 || S < olm::kEst || rows < 1 || rows > B ||
+      S + 3 > 31 || t < 0 || S < t || rows < 1 || rows > B ||
       ((long long)rows << L) > 32LL * 64 || (subs > 1 && rows > 1) ||
       subs != (int)(((long long)rows * K + kThreads - 1) / kThreads) ||
       grid < 1 || grid > (B + rows - 1) / rows ||
       (vec && (n % 4 != 0 || ((uintptr_t)x | (uintptr_t)y) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   Args a{x, y, z, B, K, L, rows, subs, grid, vec != 0,
-         make_steps(sched, nsteps, S), static_cast<cudaStream_t>(stream),
+         make_steps(sched, nsteps, S, t), static_cast<cudaStream_t>(stream),
          nullptr, nullptr};
   return (int)dispatch(n, a);
+}
+
+template <typename W, typename D>
+cudaError_t launch_any(const int* x, const int* y, int* z, long long B,
+                       long long K, int L, int n, int delta,
+                       const olm::StepsAny& st, int lift, long long blocks,
+                       cudaStream_t s) {
+  const long long smem = any_smem_bytes(n, (int)sizeof(W));
+  const cudaError_t err = cudaFuncSetAttribute(
+      online_dot_any<W, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  online_dot_any<W, D><<<(unsigned)blocks, kThreads, smem, s>>>(
+      x, y, z, B, K, L, n, delta, st, lift);
+  return cudaGetLastError();
+}
+
+template <typename W>
+cudaError_t launch_any(bool wide_lane, const int* x, const int* y, int* z,
+                       long long B, long long K, int L, int n, int delta,
+                       const olm::StepsAny& st, int lift, long long blocks,
+                       cudaStream_t s) {
+  return wide_lane
+             ? launch_any<W, long long>(x, y, z, B, K, L, n, delta, st, lift,
+                                        blocks, s)
+             : launch_any<W, int>(x, y, z, B, K, L, n, delta, st, lift,
+                                  blocks, s);
+}
+
+// online_dot_any: the same function for any configuration a kernel holds
+// (kernels/online_mul/kernel.py `check_config`): n <= 64 output digits,
+// 1 <= n + delta <= 64 steps, the schedule of n + delta values, a stream
+// of n + 2L <= 128 digits; `lift` is the estimate's factor where t > S
+// (olm_digits.cuh `lane_any`), `wide_lane` runs the lanes in int64. One
+// block of 256 threads per 256 >> min(L, 8) rows. Returns a cudaError_t.
+extern "C" int online_dot_any(const int* x, const int* y, int* z,
+                              long long B, long long K, int L, int n,
+                              int delta, int S, int t, int lift,
+                              int wide_lane, const int* sched, int nsteps,
+                              void* stream) {
+  if (B < 1 || K < 1 || L < 0 || L > kMaxLevels || (1LL << L) < K ||
+      (L > 0 && (1LL << (L - 1)) >= K) || n < 1 || n > 64 ||
+      n + 2 * L > 128 || delta > 30 || n + delta < 1 ||
+      n + delta > olm::kAnySteps || nsteps != n + delta || S < 0 ||
+      S + 3 > 31 || lift < 0 || lift > 4)
+    return (int)cudaErrorInvalidValue;
+  const int R = kThreads >> (L < kChunkLevels ? L : kChunkLevels);
+  const long long blocks = (B + R - 1) / R;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const olm::StepsAny st = olm::step_consts<olm::kAnySteps>(sched, nsteps, S,
+                                                             t);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wl = wide_lane != 0;
+  const int m = n + 2 * L;
+  const cudaError_t err =
+      m <= 32   ? launch_any<uint32_t>(wl, x, y, z, B, K, L, n, delta, st,
+                                       lift, blocks, s)
+      : m <= 64 ? launch_any<uint64_t>(wl, x, y, z, B, K, L, n, delta, st,
+                                       lift, blocks, s)
+                : launch_any<unsigned __int128>(wl, x, y, z, B, K, L, n,
+                                                delta, st, lift, blocks, s);
+  return (int)err;
 }
 
 // online_dot_geometry: the shared memory a block of the plan (n, vec,

@@ -7,9 +7,11 @@
 // multiplication: it packs the row's operand digits into +1/-1 bit masks,
 // runs the n + 3 steps of the Fig. 7 recurrence (olm_digits.cuh, the loop
 // K1-K3 share) in registers at datapath scale 2^S under the schedule T(j),
-// and writes the n product digits back. Every configuration whose
-// schedule fits the int32 datapath (max T(j) + 3 <= 31) runs here:
-// truncated n <= 32, full working precision n <= 24.
+// and writes the n product digits back. The paper's configuration
+// (delay 3, estimate t = 2) at 4 <= n <= 32 runs this unrolled kernel;
+// every other configuration runs online_dot.cu's general kernel at K = 1
+// lane a row (kernels/online_mul/kernel.py), whose product digits are the
+// same function.
 //
 // What bounds it on an H100: bytes. A row reads 8n bytes of digits and
 // writes 4n, against ~40 int32 operations a step, so the int32 issue
@@ -98,9 +100,10 @@ cudaError_t launch(const int* x, const int* y, int* z, long long B, int S,
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). x, y, z are (B, n) int32
-// row-major; sched holds the n + 3 values of T(j) and S their maximum.
-// Returns a cudaError_t: 0 on a successful launch.
+// Plain C entry point (loaded with ctypes): the paper's delay of 3 and
+// estimate t = 2, 4 <= n <= 32. x, y, z are (B, n) int32 row-major; sched
+// holds the n + 3 values of T(j) and S their maximum. Returns a
+// cudaError_t: 0 on a successful launch.
 extern "C" int online_mul(const int* x, const int* y, int* z, long long B,
                           int n, int S, const int* sched, int nsteps,
                           void* stream) {

@@ -7,7 +7,11 @@ each moving groups of rows through a cp.async stage of at most 256 lanes,
 one lane a thread, refilled as soon as it is packed, and reducing each
 row's streams in an adder tree that issues each adder once.
 `launch_plan` is the host's part of that geometry, plain Python the CPU
-tests reach.
+tests reach. That kernel runs the paper's online delay at 4 <= n <= 32
+and K <= MAX_LANES; `online_dot_any` (the same source) runs every other
+configuration a kernel holds (`holds`), in aligned subtrees of 256 lanes
+merged as a binary counter carries. `route` decides between them from
+the configuration and K.
 
 `online_dot_kernel` checks its operands, allocates the output, launches on
 the current stream, raises on a refused launch and counts the launch in
@@ -24,16 +28,18 @@ import torch
 
 from repro_torch.core.precision import OnlinePrecision
 from repro_torch.kernels import build
-from repro_torch.kernels.online_mul.kernel import OPS_PACK, check_config
+from repro_torch.kernels.online_mul.kernel import (DELTA, MAX_DIGITS,
+                                                   OPS_PACK, check_config)
 from .matmul_kernel import OPS_ADDER, OPS_DIGIT, OPS_STEP, row_words
 from .ref import tree_levels
 
 __all__ = ["online_dot_kernel", "launches", "SOURCE", "MAX_LANES",
-           "THREADS", "Plan", "launch_plan", "geometry", "tree_adders",
-           "int_ops"]
+           "MAX_STREAM", "THREADS", "Plan", "launch_plan", "geometry",
+           "holds", "route", "launch_any", "tree_adders", "int_ops"]
 
 SOURCE = "online_dot.cu"
-MAX_LANES = 1024           # K <= 1024 keeps a row's stream in 64 bits
+MAX_LANES = 1024           # the unrolled kernel's K (node arrays a block)
+MAX_STREAM = 128           # digits of a row's stream, n + 2L, in a word
 
 # The kernel's geometry (csrc/online_dot.cu): 256 threads a block, one
 # lane a thread, so a stage holds 256 lanes; one stage a block.
@@ -94,13 +100,41 @@ def launch_plan(B: int, K: int, n: int, vec: bool, sms: int = 132,
     return Plan(rows, subs, groups, min(groups, sms * per_sm), smem, vec)
 
 
+def holds(cfg: OnlinePrecision, K: int) -> bool:
+    """Whether a CUDA kernel runs K lanes under `cfg` (decided before any
+    launch): the multiplier's configuration (online_mul's `check_config`)
+    and a stream of n + 2L digits that fits the general kernel's widest
+    word, 128 bits (K up to 2^56 at n = 16: more lanes than a card
+    holds). A CUDA operand under a case none holds raises."""
+    try:
+        check_config(cfg)
+    except ValueError:
+        return False
+    return K >= 1 and cfg.n + 2 * tree_levels(K) <= MAX_STREAM
+
+
+def route(cfg: OnlinePrecision, K: int) -> str:
+    """Which kernel runs K lanes under `cfg`: "unrolled" for the paper's
+    delay at 4 <= n <= 32 and K <= MAX_LANES, where the estimate fits the
+    32-bit datapath (t <= S) and the selection bounds the residual in it
+    (`lane_bits`), else "any"."""
+    if not (cfg.delta == DELTA and DELTA < cfg.n <= MAX_DIGITS
+            and K <= MAX_LANES):
+        return "any"
+    _, S, bits = check_config(cfg)
+    return "unrolled" if bits == 32 and cfg.t <= S else "any"
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     fn = lib.online_dot
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, p, i, i, i, i, i, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.online_dot_any.argtypes = [p, p, p, ll, ll, i, i, i, i, i, i, i,
+                                       p, i, p]
+        lib.online_dot_any.restype = ctypes.c_int
         lib.online_dot_geometry.argtypes = [i, i, i, i, p, p]
         lib.online_dot_geometry.restype = ctypes.c_int
     return lib
@@ -117,6 +151,33 @@ def geometry(n: int, vec: bool, rows: int, L: int) -> tuple:
         raise RuntimeError(f"online_dot_geometry failed: cudaError {err} "
                            f"(n={n} vec={vec} rows={rows} L={L})")
     return smem.value, blocks.value
+
+
+def launch_any(x_digits: torch.Tensor, y_digits: torch.Tensor,
+               cfg: OnlinePrecision) -> torch.Tensor:
+    """Launch `online_dot_any` on checked (B, K, n) CUDA operands -> the
+    (B, n + 2L) stream; ValueError, before any launch, for a case no
+    kernel holds. Counts nothing: each wrapper counts its own launches."""
+    B, K, n = x_digits.shape
+    arr, S, bits = check_config(cfg)
+    L = tree_levels(K)
+    if n + 2 * L > MAX_STREAM:
+        raise ValueError(f"K={K} at n={n}: a row's stream of {n + 2 * L} "
+                         f"digits must fit {MAX_STREAM} bits")
+    # the estimate where t > S (olm_digits.cuh `lane_any`)
+    lift = 0 if cfg.t > n + cfg.delta else 1 << min(max(cfg.t - S, 0), 2)
+    dev = x_digits.device
+    z = torch.empty((B, n + 2 * L), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().online_dot_any(
+            x_digits.data_ptr(), y_digits.data_ptr(), z.data_ptr(), B, K, L,
+            n, cfg.delta, S, cfg.t, lift, int(bits == 64), arr, len(arr),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"online_dot_any launch failed: cudaError {err} "
+                           f"(B={B} K={K} n={n} delta={cfg.delta} t={cfg.t})")
+    return z
 
 
 def online_dot_kernel(x_digits: torch.Tensor, y_digits: torch.Tensor,
@@ -140,12 +201,13 @@ def online_dot_kernel(x_digits: torch.Tensor, y_digits: torch.Tensor,
     B, K, n = x_digits.shape
     if min(B, K) < 1:
         raise ValueError(f"empty operand: B={B} K={K}")
-    if K > MAX_LANES:
-        raise ValueError(f"K={K} > {MAX_LANES}: a row's stream must fit "
-                         "64 bits")
     if not (x_digits.is_contiguous() and y_digits.is_contiguous()):
         raise ValueError("digit operands must be contiguous")
-    arr, S = check_config(cfg)
+    if route(cfg, K) == "any":
+        z = launch_any(x_digits, y_digits, cfg)
+        launches += 1
+        return z
+    arr, S, _ = check_config(cfg)
     L = tree_levels(K)
     dev = x_digits.device
     vec = (n % 4 == 0 and x_digits.data_ptr() % 16 == 0
@@ -161,9 +223,9 @@ def online_dot_kernel(x_digits: torch.Tensor, y_digits: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().online_dot(x_digits.data_ptr(), y_digits.data_ptr(),
-                                z.data_ptr(), B, K, L, n, S, arr, len(arr),
-                                plan.rows, plan.subs, plan.grid, int(vec),
-                                stream)
+                                z.data_ptr(), B, K, L, n, S, cfg.t, arr,
+                                len(arr), plan.rows, plan.subs, plan.grid,
+                                int(vec), stream)
     if err != 0:
         raise RuntimeError(f"online_dot launch failed: cudaError {err} "
                            f"(B={B} K={K} n={n})")

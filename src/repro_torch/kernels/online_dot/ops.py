@@ -3,9 +3,13 @@
 
 `online_dot` dispatches like `online_mul`: a CUDA tensor runs the Hopper
 kernel (kernel.online_dot_kernel) when `resolve_use_pallas` allows it,
-decided from the configuration before any launch; a configuration past
-the int32 datapath, an explicit use_pallas=False, or a CPU tensor runs the
-int64 plain version. Both give the same digits.
+decided from the configuration before any launch, as the reference
+dispatches to its Pallas kernel; a configuration past the int32 datapath's
+schedule, an explicit use_pallas=False, or a CPU tensor runs the int64
+plain version. Both give the same digits. Where the kernel is allowed but
+no kernel holds the configuration at this K (`kernel.holds`: a residual
+the selection does not bound and whose bound leaves int64), the call
+raises before any launch.
 """
 from __future__ import annotations
 
@@ -16,7 +20,18 @@ from repro_torch.core.precision import OnlinePrecision
 from repro_torch.kernels.common import resolve_use_pallas
 from .ref import online_dot_batch_ref, tree_levels
 
-__all__ = ["online_dot", "dot_scale_log2", "dot_stream_length"]
+__all__ = ["online_dot", "dot_scale_log2", "dot_stream_length",
+           "runs_kernel"]
+
+
+def runs_kernel(cfg: OnlinePrecision, K: int,
+                use_pallas: bool | None = None) -> bool:
+    """Whether CUDA operands of K lanes under `cfg` launch a kernel: the
+    caller allows it and the schedule fits (`resolve_use_pallas`), and a
+    kernel holds the configuration (`kernel.holds`); where only the
+    first holds, `online_dot` raises."""
+    from .kernel import holds
+    return resolve_use_pallas(cfg, use_pallas) and holds(cfg, K)
 
 
 def dot_scale_log2(k: int) -> int:
@@ -47,7 +62,7 @@ def online_dot(x_digits: torch.Tensor, y_digits: torch.Tensor,
     if cfg.n != n:
         raise ValueError(f"operand digit count {n} != cfg n {cfg.n}")
     if x_digits.is_cuda and resolve_use_pallas(cfg, use_pallas):
-        from .kernel import online_dot_kernel
+        from .kernel import online_dot_kernel   # raises where none holds
         z = online_dot_kernel(x_digits.to(torch.int32).contiguous(),
                               y_digits.to(torch.int32).contiguous(), cfg)
     else:

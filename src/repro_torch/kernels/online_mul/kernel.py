@@ -2,15 +2,20 @@
 TPU kernel `online_mul_pallas` (`repro/kernels/online_mul/kernel.py`).
 
 The kernel is CUDA C++ (`csrc/online_mul.cu`, its header note says what
-bounds it and how the design answers that). `online_mul_kernel` checks
-its operands, allocates the output, launches on the current stream, raises
-on a refused launch and counts the launch in `launches`. It takes CUDA
-tensors only; the plain PyTorch version of the same function is
-`ref.online_mul_batch_ref`.
+bounds it and how the design answers that): an unrolled kernel for the
+paper's configuration (delay 3, estimate t = 2) at 4 <= n <= 32. Every
+other configuration a kernel holds (`check_config`) runs the general
+kernel of `csrc/online_dot.cu` at one lane a row, the same function;
+`route` decides between them from the configuration. `online_mul_kernel`
+checks its operands, allocates the output, launches on the current
+stream, raises on a refused launch and counts the launch in `launches`.
+It takes CUDA tensors only; the plain PyTorch version of the same function
+is `ref.online_mul_batch_ref`.
 """
 from __future__ import annotations
 
 import ctypes
+from fractions import Fraction
 
 import torch
 
@@ -20,33 +25,135 @@ from repro_torch.kernels.common import checked_schedule
 from repro_torch.kernels.online_dot.matmul_kernel import OPS_DIGIT, OPS_STEP
 
 __all__ = ["online_mul_kernel", "launches", "SOURCE", "check_config",
-           "int_ops", "OPS_PACK"]
+           "holds", "route", "lane_bits", "recurrence_peak", "int_ops",
+           "OPS_PACK"]
 
 SOURCE = "online_mul.cu"
 
 # Launches of the kernel since the count was last set to 0.
 launches = 0
 
-# The CUDA recurrence is compiled for the paper's online delay and
-# estimate width; other values are refused before any launch.
+# The unrolled recurrence is compiled for the paper's online delay and
+# estimate width at 4 <= n <= 32 digits; the general kernel takes up to
+# ANY_STEPS steps (n + delta) and output digits.
 DELTA, EST = 3, 2
+MAX_DIGITS = 32
+ANY_STEPS = 64
 
 # int32 operations per operand digit to pack both operands into masks and
 # to unpack the product digit (counted from csrc/online_mul.cu).
 OPS_PACK = 10
 
 
+def recurrence_peak(cfg: OnlinePrecision, sched, scale: int) -> int:
+    """A bound on every value the recurrence computes (X, Y, term, V, W and
+    2W) at datapath scale 2^scale, over all operand digits: each step's
+    term bounded by the partial operands, the residual by interval
+    arithmetic through the selection, every floor's loss counted. Sound
+    and loose: it does not know that the appends telescope to the
+    product."""
+    n, delta, t = cfg.n, cfg.delta, cfg.t
+    unit = 1 << scale
+    if t > n + delta:                 # the estimate fills with V's sign
+        hi = lo = None
+    elif scale >= t:
+        hi, lo = 2 << (scale - t), -(2 << (scale - t))
+    else:                             # the estimate is V * 2^(t - scale)
+        hi, lo = 1, (-1 if t - scale == 1 else 0)
+    bx = by = wlo = whi = top = 0
+    for s in range(n + delta):
+        T, q, j = int(sched[s]), s + 1, s - delta
+        wq = 1 << max(scale - q, 0) if q <= min(T, scale) else 0
+        loss = (1 << max(scale - T, 0)) - 1
+        d = 1 if s < n else 0
+        byf = by + d * wq
+        bt = (bx + byf) * d
+        ba = -(-bt >> delta) if delta >= 0 else 1
+        bx, by = bx + d * wq + loss, byf + loss
+        vlo, vhi = 2 * wlo - ba - loss, 2 * whi + ba
+        top = max(top, byf, bt, bx, by, -2 * wlo, 2 * whi, -vlo, vhi)
+        if j >= 0 and hi is not None:
+            lows, highs = [], []
+            if vhi >= hi:
+                lows.append(max(vlo, hi) - unit)
+                highs.append(vhi - unit)
+            if max(vlo, lo) <= min(vhi, hi - 1):
+                lows.append(max(vlo, lo))
+                highs.append(min(vhi, hi - 1))
+            if vlo < lo:
+                lows.append(vlo + unit)
+                highs.append(min(vhi, lo - 1) + unit)
+            wlo, whi = min(lows) - loss, max(highs)
+        else:
+            wlo, whi = vlo - loss, vhi
+        top = max(top, -wlo, whi)
+    return top
+
+
+def lane_bits(cfg: OnlinePrecision, sched, S: int) -> int | None:
+    """The datapath the general lane (olm_digits.cuh `lane_any`) runs
+    `cfg` in: 32 bits where the selection bounds the residual, 64 where it
+    may not but no value of the plain version (at scale 2^(n + delta),
+    so none of the kernel's either) can leave int64 (`recurrence_peak`),
+    else None: no kernel holds it.
+
+    The selection bounds the residual when 3 * 2^-t + 2^(1 - delta) <= 1
+    and t <= n + delta: the estimate's truncation (2^-t), its thresholds
+    (+-2^(1 - t)) and the largest append (2^(1 - delta)) then keep
+    |V| < (2 + 2^(1 - delta)) 2^S, inside the 8 * 2^S that
+    `checked_schedule`'s three bits of headroom give int32, and the Eq. 8
+    working precision keeps the truncation inside that slack. The paper's
+    (3, 2) sits on that boundary. Delays below 2 and estimates of one
+    digit do not meet it, and their residual does leave int32 at large n
+    (probes/int32_headroom.py counts such lanes); the int64 lane gives
+    the plain version's digits there."""
+    n, delta, t = cfg.n, cfg.delta, cfg.t
+    if (t <= n + delta
+            and 3 * Fraction(1, 2) ** t + Fraction(2) ** (1 - delta) <= 1):
+        return 32
+    if recurrence_peak(cfg, sched, n + delta) < 1 << 63:
+        return 64
+    return None
+
+
 def check_config(cfg: OnlinePrecision) -> tuple:
-    """(T(j) as a ctypes array, S) for a configuration the CUDA recurrence
-    runs; ValueError for one it does not (delta/t other than 3/2, or a
-    schedule past the int32 datapath)."""
-    if (cfg.delta, cfg.t) != (DELTA, EST):
-        raise ValueError(
-            f"the CUDA online multiplier runs delta={DELTA}, t={EST}; got "
-            f"delta={cfg.delta}, t={cfg.t} (use_pallas=False runs the plain "
-            "version)")
+    """(T(j) as a ctypes array, S, lane bits) for a configuration the CUDA
+    recurrence runs; ValueError, naming the case, for one it does not (see
+    `holds`)."""
     sched, S = checked_schedule(cfg)
-    return (ctypes.c_int * len(sched))(*(int(v) for v in sched)), S
+    # The general lane holds n output digits and n + delta steps in 64.
+    if not (1 <= cfg.n + cfg.delta and cfg.n <= ANY_STEPS
+            and cfg.n + cfg.delta <= ANY_STEPS):
+        raise ValueError(
+            f"the CUDA online multiplier runs n <= {ANY_STEPS} digits and "
+            f"1 <= n + delta <= {ANY_STEPS} steps; got n={cfg.n} "
+            f"delta={cfg.delta}")
+    bits = lane_bits(cfg, sched, S)
+    if bits is None:
+        raise ValueError(
+            f"n={cfg.n} delta={cfg.delta} t={cfg.t}: the selection does not "
+            "bound the residual (3 * 2^-t + 2^(1 - delta) > 1) and its "
+            "bound leaves int64 at the plain version's scale 2^(n + delta); "
+            "no CUDA kernel runs it")
+    return (ctypes.c_int * len(sched))(*(int(v) for v in sched)), S, bits
+
+
+def holds(cfg: OnlinePrecision) -> bool:
+    """Whether a CUDA kernel runs `cfg` (decided before any launch); a CUDA
+    operand under a configuration none holds raises."""
+    try:
+        check_config(cfg)
+    except ValueError:
+        return False
+    return True
+
+
+def route(cfg: OnlinePrecision) -> str:
+    """Which kernel runs `cfg`: "unrolled" for the paper's delay and
+    estimate width at 4 <= n <= 32, else "any" (online_dot.cu's general
+    kernel)."""
+    return ("unrolled" if (cfg.delta, cfg.t) == (DELTA, EST)
+            and DELTA < cfg.n <= MAX_DIGITS else "any")
 
 
 def _lib() -> ctypes.CDLL:
@@ -81,7 +188,13 @@ def online_mul_kernel(x_digits: torch.Tensor, y_digits: torch.Tensor,
         raise ValueError("empty batch")
     if not (x_digits.is_contiguous() and y_digits.is_contiguous()):
         raise ValueError("digit operands must be contiguous")
-    arr, S = check_config(cfg)
+    if route(cfg) == "any":
+        from repro_torch.kernels.online_dot.kernel import launch_any
+        z = launch_any(x_digits.view(B, 1, cfg.n), y_digits.view(B, 1, cfg.n),
+                       cfg).view(B, cfg.n)
+        launches += 1
+        return z
+    arr, S, _ = check_config(cfg)
     z = torch.empty_like(x_digits)
     with torch.cuda.device(x_digits.device):
         stream = torch.cuda.current_stream(x_digits.device).cuda_stream

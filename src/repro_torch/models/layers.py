@@ -174,7 +174,7 @@ def _attn_core(q, k, v, qpos, kpos, *, causal: bool) -> torch.Tensor:
 def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, eng: DotEngine, *,
                     kv_cache: Optional[Dict[str, Any]] = None,
-                    causal: bool = True
+                    causal: bool = True, chunked: bool = False
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Self-attention with an optional KV cache.
 
@@ -182,8 +182,11 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     the paged one (decode steps only: prefill goes through
     a contiguous row cache that the serving engine scatters into the
     pool). An S == 1 call with a cache is a decode step that writes at
-    each lane's own position; an S > 1 call is a fresh prefill that fills
-    slots 0..S-1. Returns (output (B,S,d), the updated cache or None)."""
+    each lane's own position; `chunked=True` treats an S > 1 call the
+    same way (chunked prefill: each lane writes S entries from its own
+    position and attends over the whole cache, so earlier chunks stay
+    visible); any other S > 1 call is a fresh prefill that fills slots
+    0..S-1. Returns (output (B,S,d), the updated cache or None)."""
     B, S, d = x.shape
     Dh = cfg.head_dim
     q = eng.dot(x, p["wq"])
@@ -209,17 +212,19 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
         cv = paged_pool_view(kv_cache["vpool"], table)
         kpos = torch.arange(ck.shape[1], device=x.device)
         out = _attn_core(q, ck, cv, positions, kpos, causal=causal)
-    elif kv_cache is not None and S == 1:
-        # decode: per-lane write at each lane's own position (lanes in a
-        # serving pool sit at different depths), then attend over the
-        # whole cache; slot index == absolute position.
+    elif kv_cache is not None and (S == 1 or chunked):
+        # decode / chunked prefill: per-lane write of S entries at each
+        # lane's own position (lanes in a serving pool sit at different
+        # depths), then attend over the whole cache; slot index ==
+        # absolute position.
         ck, cv = kv_cache["k"], kv_cache["v"]
         T = ck.shape[1]
         lane_pos = positions[:, 0]
         idx = torch.clamp(lane_pos, max=T - S).to(torch.int64)
-        lanes = torch.arange(B, device=x.device)
-        ck[lanes, idx] = k[:, 0].to(ck.dtype)
-        cv[lanes, idx] = v[:, 0].to(cv.dtype)
+        lanes = torch.arange(B, device=x.device)[:, None]
+        slots = idx[:, None] + torch.arange(S, device=x.device)
+        ck[lanes, slots] = k.to(ck.dtype)
+        cv[lanes, slots] = v.to(cv.dtype)
         kpos = torch.arange(T, device=x.device)
         out = _attn_core(q, ck, cv, positions, kpos, causal=causal)
     else:

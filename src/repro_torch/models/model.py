@@ -3,6 +3,8 @@
   init(seed)                                   -> params
   init_cache(batch, max_len, paged=)           -> per-layer caches
   prefill(params, batch, cache, last_index=)   -> (last logits, cache, None)
+  prefill_chunk(params, batch, cache, start, last_index=)
+                                               -> (logits, cache)
   decode_step(params, token, pos, cache)       -> (logits, cache)
 
 The model lives on one device, the CUDA card unless the caller passes
@@ -93,12 +95,35 @@ class Model:
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
         x = embed(params["embed"], tokens, cfg)
         x = stack_apply(params["layers"], cfg, x, pos, self.eng, caches=cache)
+        return self._head(params, self._take_last(x, last_index)), cache, None
+
+    @torch.no_grad()
+    def prefill_chunk(self, params: Params, batch: Dict[str, torch.Tensor],
+                      cache: List[Params], start,
+                      last_index: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, List[Params]]:
+        """Chunked prefill: run S prompt tokens starting at absolute
+        position `start` (an int), attending over the contiguous cache's
+        whole view so earlier chunks stay visible (the serving engine runs
+        it on a fresh contiguous row cache). Returns (logits at
+        `last_index` within the chunk (or S-1), cache)."""
+        cfg = self.cfg
+        tokens = batch["tokens"].to(self.device)
+        B, S = tokens.shape
+        pos = (int(start) + torch.arange(S, device=self.device))[None]
+        pos = pos.expand(B, S)
+        x = embed(params["embed"], tokens, cfg)
+        x = stack_apply(params["layers"], cfg, x, pos, self.eng, caches=cache,
+                        chunked=True)
+        return self._head(params, self._take_last(x, last_index)), cache
+
+    def _take_last(self, x: torch.Tensor,
+                   last_index: Optional[torch.Tensor]) -> torch.Tensor:
+        """Each lane's row at `last_index` (or the last), as (B, 1, d)."""
         if last_index is None:
-            x = x[:, -1:]
-        else:
-            idx = last_index.to(self.device, torch.int64)
-            x = x[torch.arange(B, device=self.device), idx][:, None]
-        return self._head(params, x), cache, None
+            return x[:, -1:]
+        idx = last_index.to(self.device, torch.int64)
+        return x[torch.arange(x.shape[0], device=self.device), idx][:, None]
 
     @torch.no_grad()
     def decode_step(self, params: Params, token: torch.Tensor,

@@ -44,12 +44,13 @@ def block_cache_init(cfg: ModelConfig, batch: int, max_len: int, device,
 
 def block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, eng: DotEngine, *,
-                cache: Optional[Params] = None) -> torch.Tensor:
+                cache: Optional[Params] = None,
+                chunked: bool = False) -> torch.Tensor:
     """Pre-norm self-attention + MLP. Attention GEMMs run under
     eng.for_role("attn"), the MLP under eng.for_role("mlp")."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     o, _ = attention_apply(p["attn"], cfg, h, positions, eng.for_role("attn"),
-                           kv_cache=cache)
+                           kv_cache=cache, chunked=chunked)
     x = x + o
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + mlp_apply(p["mlp"], cfg, h2, eng.for_role("mlp"))
@@ -57,9 +58,12 @@ def block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def stack_apply(layers: List[Params], cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, eng: DotEngine, *,
-                caches: Optional[List[Params]] = None) -> torch.Tensor:
-    """Run every layer in order (caches updated in place)."""
+                caches: Optional[List[Params]] = None,
+                chunked: bool = False) -> torch.Tensor:
+    """Run every layer in order (caches updated in place; `chunked`
+    makes an S > 1 call a chunked-prefill write, see attention_apply)."""
     for i, p in enumerate(layers):
         x = block_apply(p, cfg, x, positions, eng,
-                        cache=None if caches is None else caches[i])
+                        cache=None if caches is None else caches[i],
+                        chunked=chunked)
     return x

@@ -4,16 +4,24 @@
 Canonical keys (producers set the subset that applies):
 
   n                 finished requests
-  finish_reasons    {reason: count}
+  finish_reasons    {reason: count}: eos / length / max_len / cache_full /
+                    deadline / rejected / numerics / failed
+  preempts          total preempt-with-recompute events (sum over done)
+  retries           total transient prefill retries
+  degrades          requests served below their requested tier
+  ttft_steps_p50/99, e2e_steps_p50/99, steps_total, tokens_per_step
+                    virtual-clock replay metrics (deterministic)
   ttft_*_s, e2e_*_s, queue_wait_mean_s, tokens_per_s
                     wall-clock latency metrics
   new_tokens, wall_s
   kv                nested kv_report mapping (collect())
   counters          nested engine event counters (collect())
 
-The legacy `n_<finish reason>` keys (e.g. `n_cache_full`) stay readable
-as aliases of `finish_reasons[<reason>]` with a 0 default; iteration and
-JSON expose canonical keys only. An empty report equals `{}`.
+The legacy keys stay readable as aliases: `n_preempts` / `n_retries` /
+`n_degraded` resolve to the renamed counters, and `n_<finish reason>`
+(e.g. `n_cache_full`) to `finish_reasons[<reason>]` with a 0 default;
+iteration and JSON expose canonical keys only. An empty report equals
+`{}`.
 """
 from __future__ import annotations
 
@@ -23,11 +31,17 @@ __all__ = ["ServeReport"]
 
 
 class ServeReport(dict):
+    # Counters that were renamed (old n_* key -> canonical key).
+    _RENAMED = {"n_preempts": "preempts",
+                "n_retries": "retries",
+                "n_degraded": "degrades"}
     _REASONS = frozenset({"eos", "length", "max_len", "cache_full",
                           "deadline", "rejected", "numerics", "failed"})
 
     def _resolve(self, key: str):
         """Canonical value for a legacy alias, or raise KeyError."""
+        if key in self._RENAMED and dict.__contains__(self, self._RENAMED[key]):
+            return dict.__getitem__(self, self._RENAMED[key])
         if (isinstance(key, str) and key.startswith("n_")
                 and key[2:] in self._REASONS
                 and dict.__contains__(self, "finish_reasons")):

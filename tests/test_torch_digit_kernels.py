@@ -182,9 +182,25 @@ def test_cpu_tensors_never_launch_and_wrappers_refuse_them():
 
 
 def test_kernels_refuse_other_delay_or_estimate():
-    for cfg in (OnlinePrecision(n=8, delta=4), OnlinePrecision(n=8, t=3)):
-        with pytest.raises(ValueError, match="delta=3, t=2"):
-            mul_kernel.check_config(cfg)
+    # Another delay or estimate width runs on a kernel (the general one;
+    # the unrolled one runs the paper's delta 3, t 2), a negative delay and
+    # an estimate wider than the datapath (S < t) too; what stays refused,
+    # before any launch, is a residual the selection does not bound whose
+    # bound leaves int64 (a delay of 1 at n = 36).
+    for cfg, route in ((OnlinePrecision(n=8, delta=4), "any"),
+                       (OnlinePrecision(n=8, t=3), "any"),
+                       (OnlinePrecision(n=8), "unrolled"),
+                       (OnlinePrecision(n=8, delta=0), "any"),
+                       (OnlinePrecision(n=8, delta=-1), "any"),
+                       (OnlinePrecision(n=2, delta=0, t=5, truncated=False),
+                        "any")):
+        mul_kernel.check_config(cfg)
+        assert mul_kernel.holds(cfg) and mul_kernel.route(cfg) == route
+        assert dot_kernel.holds(cfg, 8)
+    cfg = OnlinePrecision(n=36, delta=1)
+    with pytest.raises(ValueError, match="does not bound the residual"):
+        mul_kernel.check_config(cfg)
+    assert not mul_kernel.holds(cfg) and not dot_kernel.holds(cfg, 8)
 
 
 # --- olm_matmul(quantize="host") (K2) ----------------------------------------

@@ -242,6 +242,86 @@ def test_online_dot_kernel_reads_operands_at_a_4_byte_offset(cuda, n):
     assert torch.equal(z, online_dot_batch_ref(xo, yo, n=n))
 
 
+# Configurations past the unrolled kernels (delay other than 3, another
+# estimate width, n past 32, a negative delay, an estimate wider than the
+# datapath, the int64 lane) and K past 1024 lanes: the dispatch sends each
+# to a kernel, which must give the plain version's digits.
+GENERAL_CONFIGS = [dict(n=16, delta=4), dict(n=16, t=3),
+                   dict(n=16, delta=2, t=1),
+                   dict(n=16, delta=4, truncated=False, tail_gating=False),
+                   dict(n=8, delta=0), dict(n=36), dict(n=40),
+                   dict(n=8, delta=-1), dict(n=12, delta=-3, t=1),
+                   dict(n=2, delta=0, t=5, truncated=False), dict(n=4, t=7),
+                   dict(n=5, t=8), dict(n=16, t=-40), dict(n=24, t=1),
+                   dict(n=16, t=1)]
+DOT_CONFIGS = GENERAL_CONFIGS[:5] + GENERAL_CONFIGS[7:]
+
+
+def _ids(kw):
+    return "-".join(f"{k}{v}" for k, v in kw.items())
+
+
+@pytest.mark.parametrize("kw", GENERAL_CONFIGS, ids=_ids)
+@pytest.mark.parametrize("B", [37, 4096 + 77])
+def test_online_mul_kernel_at_every_configuration(cuda, kw, B):
+    cfg = OnlinePrecision(**kw)
+    x, y = _digits(cuda, (B, cfg.n), cfg.n)
+    before = mul_kernel.launches
+    z, z_int = online_mul(x, y, cfg)
+    assert mul_kernel.launches == before + 1
+    want, want_int = online_mul_batch_ref(
+        x, y, n=cfg.n, delta=cfg.delta, t=cfg.t, truncated=cfg.truncated,
+        tail_gating=cfg.tail_gating)
+    assert torch.equal(z, want) and torch.equal(z_int, want_int)
+
+
+@pytest.mark.parametrize("kw", DOT_CONFIGS, ids=_ids)
+@pytest.mark.parametrize("K", [1, 3, 33, 256, 300, 2048])
+def test_online_dot_kernel_at_every_configuration(cuda, kw, K):
+    cfg = OnlinePrecision(**kw)
+    x, y = _digits(cuda, (37, K, cfg.n), K)
+    before = dot_kernel.launches
+    z, _ = online_dot(x, y, cfg)
+    assert dot_kernel.launches == before + 1
+    assert torch.equal(z, online_dot_batch_ref(
+        x, y, n=cfg.n, delta=cfg.delta, t=cfg.t, truncated=cfg.truncated,
+        tail_gating=cfg.tail_gating))
+
+
+@pytest.mark.parametrize("K,n", [(1025, 16), (2048, 16), (5000, 8),
+                                 (70000, 8), (1500, 32), (300, 36),
+                                 ((1 << 16) + 1, 32), (5000, 40)])
+def test_online_dot_kernel_past_1024_lanes(cuda, K, n):
+    # aligned subtrees of 256 lanes merged as a binary counter carries:
+    # ragged last chunks, every chunk real (2^L lanes) and streams in 32,
+    # 64 and 128 bits (n = 32 at K = 1500: 32 + 2 * 11 = 54 digits; at
+    # K = 2^16 + 1: 66; n = 40 at K = 5000: 66)
+    cfg = OnlinePrecision(n=n)
+    B = 3 if K > 4096 else 21
+    x, y = _digits(cuda, (B, K, n), K)
+    before = dot_kernel.launches
+    z, _ = online_dot(x, y, cfg)
+    assert dot_kernel.launches == before + 1
+    assert torch.equal(z, online_dot_batch_ref(x, y, n=n, delta=cfg.delta,
+                                               t=cfg.t))
+
+
+@pytest.mark.parametrize("kw", [dict(n=36, delta=1), dict(n=32, t=1)],
+                         ids=_ids)
+def test_a_configuration_no_kernel_holds_raises(cuda, kw):
+    # the selection does not bound the residual and its bound leaves
+    # int64: a CUDA operand raises before any launch, with no plain
+    # version on the card
+    cfg = OnlinePrecision(**kw)
+    x, y = _digits(cuda, (37, 4, cfg.n), 4)
+    before = (mul_kernel.launches, dot_kernel.launches)
+    with pytest.raises(ValueError, match="does not bound the residual"):
+        online_mul(x[:, 0].contiguous(), y[:, 0].contiguous(), cfg)
+    with pytest.raises(ValueError, match="does not bound the residual"):
+        online_dot(x, y, cfg)
+    assert (mul_kernel.launches, dot_kernel.launches) == before
+
+
 def test_online_dot_plan_knows_the_kernels_shared_memory(cuda):
     # launch_plan counts shared memory the way csrc/online_dot.cu does; the
     # kernel reports its own, and an SM holds at least one such block

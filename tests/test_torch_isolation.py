@@ -45,7 +45,21 @@ def test_no_jax_or_reference_import(path):
 
 def test_port_modules_found():
     names = {p.name for p in FILES}
-    assert {"matmul_kernel.py", "engine.py", "chip_smoke.py"} <= names
+    assert {"matmul_kernel.py", "engine.py", "chip_smoke.py", "degrade.py",
+            "faults.py", "replay.py"} <= names
+
+
+def test_degrade_ladder_resolves_modes_from_the_port_registry(monkeypatch):
+    # the ladder checks its rungs against the port's own DotEngine
+    # registry, never the reference's
+    from repro_torch.core import numerics
+    from repro_torch.serving.degrade import DegradeLadder
+    lad = DegradeLadder.build(["olm16", "olm16t12"], base_mode="olm16")
+    assert lad.ladder == ("olm16", "olm16t12")
+    monkeypatch.setattr(numerics.DotEngine, "modes",
+                        staticmethod(lambda: ("olm16",)))
+    with pytest.raises(ValueError, match="not registered"):
+        DegradeLadder.build(["olm16", "olm16t12"], base_mode="olm16")
 
 
 def test_entry_points_refuse_to_drift_onto_the_cpu():
