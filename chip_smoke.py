@@ -30,11 +30,17 @@ Phases, each printing its own lines:
                than the datapath too), in its int64 lane, n of 36 and
                40, and K past 1024 lanes (streams of 64 and 128 bits),
                one launch each, and a configuration no kernel holds
-               raising before any launch; plus the smoke-size model under olm16
-               and under tpmm16 on the card against the same model on
-               the CPU;
+               raising before any launch; K1 at the weight-bearing GEMM
+               shapes of ChatGLM3-6B (M of 4 and 64), Yi-34B and
+               Qwen1.5-110B (M of 4; wide outputs on their first and last
+               2048 columns); K3 and K4 against the paper's scalar model
+               (core/inner_product.online_dot, core/online_mul.
+               online_multiply) row by row; plus the smoke-size model
+               under olm16 and under tpmm16 on the card against the same
+               model on the CPU;
   4. time    - each kernel at those shapes (and the general K3/K4
-               kernels at one shape each) beside its bound, its plain
+               kernels at one shape each, K1 at ChatGLM3-6B's decode and
+               prefill GEMMs) beside its bound, its plain
                version and a PyTorch context call: the median of CUDA
                event pairs, one per launch, with the L2 cache overwritten
                before each; a time below its bound fails the run;
@@ -60,7 +66,19 @@ Phases, each printing its own lines:
                guard and the integrity audit; once fault-free, once
                faulted, and once fault-free with chunked prefill. Its 14
                step-counted rows must equal the baseline's and K1's
-               launches the GEMMs of the forward passes run.
+               launches the GEMMs of the forward passes run;
+  8. dense   - the rest of the dense family: ChatGLM3-6B (QKV bias, half
+               RoPE, 2 KV heads) at its full published width and depth,
+               served like phase 5 under olm16 (launches == passes x 197,
+               the same tokens twice); Model.forward and lm_loss on one
+               (1, 32) batch under olm16 (the last position bit-identical
+               to prefill's logits, the loss equal to a plain NLL to 1e-6);
+               a native forward at (1, 1024), where attention runs the
+               flash path, against the same forward with the plain path
+               forced (within 3e-2 of the largest |logit|); Yi-34B (2
+               layers) and Qwen1.5-110B (1 layer) at full published width:
+               a 64-row prefill and two 4-lane decode steps under olm16,
+               K1 launches == GEMMs.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -70,6 +88,7 @@ directory holding this script without the rest of the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -160,6 +179,28 @@ GENERAL_TIMED = ((None, dict(n=16, delta=4), MUL_B),
                  (None, dict(n=24, t=1), MUL_B),          # the int64 lane
                  (256, dict(n=16, delta=4), DOT_B),
                  (2048, dict(n=16), 512))
+# The rest of the dense family. K1 at ChatGLM3-6B's weight-bearing (K, N):
+# q/o, k/v (2 KV heads of 128), gate/up, down and the 65024-wide head; at
+# Yi-34B's and Qwen1.5-110B's k/v, down and heads. At M = 4 ChatGLM3's
+# outputs are held whole, elsewhere the first and the last K1_SLICE
+# columns of each (an output's bits depend on its own column of w alone).
+CHATGLM_KN = ((4096, 4096), (4096, 256), (4096, 13696), (13696, 4096),
+              (4096, 65024))
+CUT_KN = ((7168, 1024), (20480, 7168), (7168, 64000), (8192, 1024),
+          (49152, 8192), (8192, 152064))
+K1_SLICE = 2048
+# The paper's scalar model as K3's and K4's oracle: (B, K, n) and (B, n)
+ORACLE_DOT = (64, 256, 16)
+ORACLE_MUL = (256, 16)
+# The dense phase: ChatGLM3-6B at its full published width and depth
+# served like SERVE, forward and lm_loss on one (1, FORWARD_LEN) batch, a
+# native forward at (1, FLASH_LEN) (S * T past FLASH_MIN_ELEMS, so the
+# flash path runs); Yi-34B and Qwen1.5-110B at full width with their depth
+# cut to fit the card (f32 weights of 137.6 and 444.8 GB at full depth).
+DENSE_ARCH = "chatglm3_6b"
+FORWARD_LEN = 32
+FLASH_LEN = 1024
+CUT_DEPTH = (("yi_34b", 2), ("qwen1_5_110b", 1))
 SERVE = dict(arch="internlm2_1_8b", modes=("olm16", "tpmm16"), requests=4,
              prompt=(4, 12), max_new=6, slots=4, max_len=128, block=16,
              seed=0)
@@ -309,7 +350,9 @@ def main() -> int:
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config, smoke_config
+    from repro_torch.core.inner_product import online_dot as oracle_dot
     from repro_torch.core.numerics import DotEngine
+    from repro_torch.core.online_mul import online_multiply
     from repro_torch.core.precision import OnlinePrecision
     from repro_torch.kernels import build
     from repro_torch.kernels.online_dot import kernel as k3
@@ -423,6 +466,36 @@ def main() -> int:
         hold_both(f"olm16 M,K,N={shape}", *operands(shape, 2, dev), 16)
         torch.cuda.empty_cache()
 
+    def plain_olm16(xs, ws, a=0, b=None):
+        """The plain olm16 version on columns a:b of w, PLAIN_OUTPUTS
+        outputs a call."""
+        b = ws.shape[1] if b is None else b
+        step = max(1, PLAIN_OUTPUTS // xs.shape[0])
+        return torch.cat([olm_matmul_ref(xs, ws[:, c:min(c + step, b)],
+                                         n_bits=16)
+                          for c in range(a, b, step)], dim=1)
+
+    def hold_k1(label, xs, ws, whole):
+        """K1 on the whole GEMM against the plain version on all of its
+        columns, or on the first and the last K1_SLICE."""
+        got = olm_matmul(xs, ws, n_bits=16)
+        N = ws.shape[1]
+        spans = ([(0, N)] if whole or N <= 2 * K1_SLICE
+                 else [(0, K1_SLICE), (N - K1_SLICE, N)])
+        for a, b in spans:
+            hold("olm_matmul_fused", f"{label} columns {a}:{b}",
+                 got[:, a:b].contiguous(), plain_olm16(xs, ws, a, b))
+
+    for M, kns, arch in ((4, CHATGLM_KN, "chatglm3_6b"),
+                         (64, CHATGLM_KN, "chatglm3_6b"),
+                         (4, CUT_KN, "yi_34b / qwen1_5_110b")):
+        for K, N in kns:
+            xs, ws = operands((M, K, N), 13, dev)
+            hold_k1(f"olm16 {arch} M,K,N={(M, K, N)}", xs, ws,
+                    whole=M == 4 and arch == "chatglm3_6b")
+            del xs, ws
+            torch.cuda.empty_cache()
+
     for n, truncated in MUL_CASES:
         cfg = OnlinePrecision(n=n, truncated=truncated, tail_gating=truncated)
         xd, yd = digits((MUL_B, n), n, dev)
@@ -450,6 +523,27 @@ def main() -> int:
     hold("online_dot", f"operands at a 4-byte offset B={B} K={K} n={n}",
          k3.online_dot_kernel(xd, yd, OnlinePrecision(n=n)),
          online_dot_batch_ref(xd, yd, n=n))
+    # the paper's scalar model (core/inner_product, core/online_mul) as a
+    # second oracle, independent of the plain versions, row by row
+    B, K, n = ORACLE_DOT
+    cfg = OnlinePrecision(n=n)
+    xd, yd = digits((B, K, n), 21, dev)
+    xl, yl = xd.cpu().tolist(), yd.cpu().tolist()
+    t0 = time.monotonic()
+    want = torch.tensor([oracle_dot(xl[b], yl[b], cfg).digits
+                         for b in range(B)], dtype=torch.int32, device=dev)
+    hold("online_dot", f"B={B} K={K} n={n} against the scalar model "
+         f"core.inner_product.online_dot ({time.monotonic() - t0:.1f} s)",
+         k3.online_dot_kernel(xd, yd, cfg), want)
+    B, n = ORACLE_MUL
+    cfg = OnlinePrecision(n=n)
+    xd, yd = digits((B, n), 22, dev)
+    xl, yl = xd.cpu().tolist(), yd.cpu().tolist()
+    want = torch.tensor([online_multiply(xl[b], yl[b], cfg).z_digits
+                         for b in range(B)], dtype=torch.int32, device=dev)
+    hold("online_mul", f"B={B} n={n} against the scalar model "
+         "core.online_mul.online_multiply", k4.online_mul_kernel(xd, yd, cfg),
+         want)
     del xd, yd, want
     for kw in GENERAL_CONFIGS + (dict(n=40),):
         cfg = OnlinePrecision(**kw)
@@ -561,9 +655,11 @@ def main() -> int:
                    bound_by=by, context=context)
         timed.setdefault(kernel, []).append(row)
         ctx = f"; context {context}" if context else ""
+        plain = ("not timed" if plain_ms is None
+                 else f"{plain_ms:.3f} ms")
         print(f"[time] {kernel} {label}: {ms:.4f} ms; bound {b_ms:.4f} ms "
               f"({by}: bytes {byte_ms:.4f} ms, operations {op_ms:.4f} ms); "
-              f"plain version {plain_ms:.3f} ms{ctx}", flush=True)
+              f"plain version {plain}{ctx}", flush=True)
 
     for label, shape in (("decode_gemv", DECODE_GEMV),
                          ("prefill_gemm", PREFILL_GEMM)):
@@ -590,6 +686,21 @@ def main() -> int:
                k12.int_ops(M, N, K, n=16, quantize=False), rate,
                planned[1])
         del xd, wd
+    # K1 at ChatGLM3-6B's GEMMs: the 4-lane decode and the 64-row prefill
+    # of the dense phase's serve (the plain version timed at M = 4 only:
+    # at M = 64 it takes tens of seconds a shape)
+    for M in (4, 64):
+        for K, N in CHATGLM_KN:
+            x, w = operands((M, K, N), 14, dev)
+            plan = k12.launch_plan(M, N, K, 16)
+            record("olm_matmul_fused", f"olm16 chatglm3_6b M={M} K={K} N={N}",
+                   cuda_ms(lambda: k12.olm_matmul_fused(x, w, n=16),
+                           reps=10 if M == 4 else 5, warmup=1),
+                   cuda_ms(lambda: plain_olm16(x, w), reps=1) if M == 4
+                   else None, (M * K + K * N + M * N) * 4,
+                   k12.int_ops(M, N, K, n=16), rate,
+                   f"plan bm x bn x tb {plan.bm} x {plan.bn} x {plan.tb}")
+            del x, w
     for n, truncated in MUL_CASES[:4]:
         cfg = OnlinePrecision(n=n)
         xd, yd = digits((MUL_B, n), n, dev)
@@ -661,23 +772,29 @@ def main() -> int:
     # 5. serve ---------------------------------------------------------
     _flush.clear()                           # keep the peak the serve's own
     torch.cuda.empty_cache()
-    cfg = get_config(SERVE["arch"])
-    if SERVE_LAYERS is not None:
-        cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
-        print(f"[serve] depth cut to {SERVE_LAYERS} of 24 layers; widths as "
-              "published")
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab_size}; params {cfg.param_dtype}, compute "
-          f"{cfg.compute_dtype}", flush=True)
-    params = Model(cfg, device=dev).init(seed=SERVE["seed"])
     kernel_name = {"olm16": "olm_matmul_kernel", "tpmm16": "tpmm_kernel"}
     path_extra = {"olm16": [], "tpmm16": [("plane decomposition", tpmm_ops,
                                            "decompose_operands")]}
     path_kernel = {"olm16": ("olm_matmul_fused", k12, "olm_matmul_fused"),
                    "tpmm16": ("tpmm", k5, "tpmm_kernel")}
-    launches, outputs = {}, {}
-    for mode in SERVE["modes"]:
+    launches, outputs, by_path = {}, {}, {}
+
+    def describe(tag, cfg, cut=None):
+        print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers"
+              f"{f' (depth cut from {cut})' if cut else ''}, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV "
+              f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}, qkv_bias {cfg.qkv_bias}, rope "
+              f"{cfg.rope_style}; params {cfg.param_dtype} "
+              f"({cfg.param_count() * 4 / 1e9:.1f} GB) from seed "
+              f"{SERVE['seed']}, compute {cfg.compute_dtype}", flush=True)
+
+    def serve(tag, cfg, params, mode):
+        """SERVE's workload through ServeEngine under `mode`: a run with
+        the launch counts set to 0 just before it (gates: every request
+        answered, finite logits, launches == GEMMs issued), a second with
+        the path kernel's launches bracketed (the same tokens), a third
+        profiled. Returns the first run's outputs by rid."""
         model = Model(cfg, DotEngine(mode=mode), device=dev)
 
         def seeded_engine():
@@ -716,26 +833,29 @@ def main() -> int:
         wall = time.monotonic() - t0
         counts = read_counts()
         kernel, module, attr = path_kernel[mode]
-        launches[kernel] = counts[kernel]
+        launches.setdefault(kernel, counts[kernel])
+        by_path.setdefault(kernel, {})[f"{tag} {cfg.name} {mode}"] = \
+            counts[kernel]
         gemms = (passes["prefill"] + passes["decode"]) * (7 * cfg.n_layers + 1)
         tokens = sum(len(r.output) for r in done)
         reasons = {r.rid: r.finish_reason
                    for r in sorted(done, key=lambda r: r.rid)}
         peak = torch.cuda.max_memory_allocated()
-        print(f"[serve] {mode}: answered {len(done)}/{SERVE['requests']} "
+        print(f"[{tag}] {mode}: answered {len(done)}/{SERVE['requests']} "
               f"requests, {tokens} tokens, finish reasons {reasons}")
-        print(f"[serve] {mode}: wall {wall:.3f} s (ends in "
+        print(f"[{tag}] {mode}: wall {wall:.3f} s (ends in "
               f"torch.cuda.synchronize), {tokens / wall:.3f} tokens/s, peak "
               f"memory {peak} bytes ({peak / 2**30:.2f} GiB)")
-        print(f"[serve] {mode}: forward passes: {passes['prefill']} prefill, "
-              f"{passes['decode']} decode; GEMMs issued {gemms}; kernel "
-              f"launches {counts}", flush=True)
+        print(f"[{tag}] {mode}: forward passes: {passes['prefill']} prefill, "
+              f"{passes['decode']} decode; GEMMs issued {gemms} "
+              f"({7 * cfg.n_layers + 1} a pass); kernel launches {counts}",
+              flush=True)
         if len(done) != SERVE["requests"]:
             raise SystemExit("not every request was answered")
         if any(r.finish_reason not in ("length", "eos") for r in done):
             raise SystemExit(f"unexpected finish reasons {reasons}")
         if not all(finite):
-            raise SystemExit("non-finite logits in the serve phase")
+            raise SystemExit(f"non-finite logits in the {tag} phase")
         if counts[kernel] != gemms or gemms == 0:
             raise SystemExit(f"{kernel} launched {counts[kernel]} times for "
                              f"{gemms} GEMMs under {mode}")
@@ -771,14 +891,13 @@ def main() -> int:
             setattr(m, at, fn)
         secs = {label: sum(a.elapsed_time(b) for a, b in sp) / 1e3
                 for label, sp in spans.items()}
-        outputs[mode] = [r.output for r in sorted(done, key=lambda r: r.rid)]
-        same = [r.output for r in sorted(again, key=lambda r: r.rid)] == \
-            outputs[mode]
+        first = [r.output for r in sorted(done, key=lambda r: r.rid)]
+        same = [r.output for r in sorted(again, key=lambda r: r.rid)] == first
         shares = ", ".join(f"{label} {secs[label]:.3f} s over "
                            f"{len(spans[label])} calls "
                            f"({100 * secs[label] / wall2:.1f}%)"
                            for label in spans)
-        print(f"[serve] {mode}: breakdown, second run of the same requests: "
+        print(f"[{tag}] {mode}: breakdown, second run of the same requests: "
               f"wall {wall2:.3f} s, {shares}, everything else "
               f"{wall2 - sum(secs.values()):.3f} s; same tokens as the first "
               f"run: {same}", flush=True)
@@ -793,15 +912,25 @@ def main() -> int:
         engine = seeded_engine()
         busy, kernel_s, n_events = device_busy(engine.run, kernel_name[mode])
         if n_events:
-            print(f"[serve] {mode}: profiled run: {n_events} device kernels "
+            print(f"[{tag}] {mode}: profiled run: {n_events} device kernels "
                   f"({n_events / gemms:.1f} a GEMM), device busy {busy:.3f} s"
                   f", {100 * busy / wall:.1f}% of the first run's wall (idle "
                   f"{100 * (1 - busy / wall):.1f}%); {kernel} device time "
                   f"{kernel_s:.4f} s", flush=True)
         else:
-            print(f"[serve] {mode}: device busy share not measured (the "
+            print(f"[{tag}] {mode}: device busy share not measured (the "
                   "profiler saw no device kernels)", flush=True)
-        del model, engine
+        return first
+
+    cfg = get_config(SERVE["arch"])
+    if SERVE_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
+        print(f"[serve] depth cut to {SERVE_LAYERS} of 24 layers; widths as "
+              "published")
+    describe("serve", cfg)
+    params = Model(cfg, device=dev).init(seed=SERVE["seed"])
+    for mode in SERVE["modes"]:
+        outputs[mode] = serve("serve", cfg, params, mode)
     agree = sum(a == b for r1, r2 in zip(*outputs.values())
                 for a, b in zip(r1, r2))
     print(f"[serve] olm16 and tpmm16 agree on {agree} of "
@@ -933,7 +1062,9 @@ def main() -> int:
                              "finish reason")
         return done, rep, engine
 
-    ref_done, ref_rep, _ = replay("fault-free")
+    # only `engine` and the injector keep a run's engine, and with it the
+    # weights, past its run: both go at the phase's end
+    ref_done, ref_rep = replay("fault-free")[:2]
     ref = {r.rid: (tuple(r.output), r.finish_reason) for r in ref_done}
     fc = FaultConfig(seed=0, horizon_steps=max(
         10, int(ref_rep["steps_total"]) * 2 // 3), exhaust_blocks=16,
@@ -996,8 +1127,8 @@ def main() -> int:
     if any(v != baseline["serve_faults/s0/" + k] for k, v in rows.items()):
         raise SystemExit("replay: a step-counted row differs from "
                          "results/baseline/BENCH_serve_faults.json")
-    chunked, _, _ = replay(f"fault-free, prefill_chunk={REPLAY_CHUNK}",
-                           prefill_chunk=REPLAY_CHUNK)
+    chunked = replay(f"fault-free, prefill_chunk={REPLAY_CHUNK}",
+                     prefill_chunk=REPLAY_CHUNK)[0]
     outs = {r.rid: r.output for r in chunked}
     agree = sum(a == b for r in ref_done for a, b in zip(r.output,
                                                          outs[r.rid]))
@@ -1007,8 +1138,136 @@ def main() -> int:
           "the schedule, so requests wait, degrade or expire otherwise; the "
           "equality of chunked and unchunked prefill is held on the CPU)",
           flush=True)
-    del params, model, engine
+    del params, model, engine, inj
+    gc.collect()                # the injector and its engine form a cycle
     torch.cuda.empty_cache()
+
+    # 8. the rest of the dense family -------------------------------------
+    from repro_torch.models import layers
+    from repro_torch.models.model import lm_loss
+    cfg = get_config(DENSE_ARCH)
+    per_pass = 7 * cfg.n_layers + 1
+    describe("dense", cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = Model(cfg, device=dev).init(seed=SERVE["seed"])
+    torch.cuda.synchronize()
+    print(f"[dense] weights on the card: {torch.cuda.memory_allocated()} "
+          "bytes", flush=True)
+    serve("dense", cfg, params, "olm16")
+
+    # forward and lm_loss at full width under olm16, against prefill and a
+    # plain NLL
+    model = Model(cfg, DotEngine(mode="olm16"), device=dev)
+    toks = torch.from_numpy(np.random.default_rng(SERVE["seed"]).integers(
+        0, cfg.vocab_size, (1, FORWARD_LEN))).to(dev)
+    reset_counts()
+    t0 = time.monotonic()
+    logits, aux = model.forward(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_fwd, fwd_k1 = time.monotonic() - t0, k12.launches
+    t0 = time.monotonic()
+    last, _, _ = model.prefill(params, {"tokens": toks},
+                               model.init_cache(1, FORWARD_LEN))
+    torch.cuda.synchronize()
+    t_pre = time.monotonic() - t0
+    total, parts = lm_loss(model, params, {"tokens": toks})
+    lp = torch.log_softmax(logits[0, :-1].double(), dim=-1)
+    nll = float(-lp.gather(-1, toks[0, 1:, None].long()).mean())
+    loss_rel = abs(float(parts["loss"]) - nll) / abs(nll)
+    same = bits_equal(logits[:, -1].contiguous(), last)
+    print(f"[dense] forward (1, {FORWARD_LEN}) under olm16: {t_fwd:.3f} s, "
+          f"{fwd_k1} K1 launches ({per_pass} GEMMs); prefill of the same "
+          f"tokens {t_pre:.3f} s; last position bit-identical to prefill: "
+          f"{same}; lm_loss {float(total):.6f} (aux {float(aux)}), a plain "
+          f"NLL from forward's logits {nll:.6f}, rel diff {loss_rel:.2e} "
+          "(limit 1e-6)", flush=True)
+    if logits.shape != (1, FORWARD_LEN, cfg.vocab_padded) \
+            or not bool(torch.isfinite(logits).all()):
+        raise SystemExit("forward gave logits of another shape or non-finite")
+    if fwd_k1 != per_pass:
+        raise SystemExit(f"forward launched K1 {fwd_k1} times for {per_pass} "
+                         "GEMMs")
+    if not same:
+        raise SystemExit("forward's last position differs from prefill")
+    if not (np.isfinite(float(total)) and loss_rel <= 1e-6):
+        raise SystemExit("lm_loss disagrees with the plain NLL")
+    del logits, last, lp, total, parts
+
+    # a native forward long enough for the flash path, against the same
+    # forward with the plain path forced
+    native = Model(cfg, DotEngine(mode="native"), device=dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, FLASH_LEN))).to(dev)
+    flash_calls = []
+    real_flash, threshold = layers._attn_flash, layers.FLASH_MIN_ELEMS
+
+    def counted_flash(*a, **kw):
+        flash_calls.append(1)
+        return real_flash(*a, **kw)
+
+    layers._attn_flash = counted_flash
+    try:
+        native.forward(params, {"tokens": toks})       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        flash, _ = native.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        t_flash = time.monotonic() - t0
+        layers.FLASH_MIN_ELEMS = 1 << 62               # the plain path
+        t0 = time.monotonic()
+        plain, _ = native.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        t_plain = time.monotonic() - t0
+    finally:
+        layers._attn_flash, layers.FLASH_MIN_ELEMS = real_flash, threshold
+    rel = float((flash - plain).abs().max() / plain.abs().max())
+    print(f"[dense] native forward (1, {FLASH_LEN}) bf16: flash attention "
+          f"{t_flash:.3f} s ({len(flash_calls)} flash calls over two "
+          f"forwards), plain attention forced {t_plain:.3f} s; logits rel "
+          f"diff {rel:.3e} of the largest |logit| (limit 3e-2)", flush=True)
+    if len(flash_calls) != 2 * cfg.n_layers:
+        raise SystemExit("the flash path did not run in every layer")
+    if not (bool(torch.isfinite(flash).all()) and rel <= 3e-2):
+        raise SystemExit("flash and plain attention disagree")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[dense] {cfg.name} peak memory over the phase {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)", flush=True)
+    del params, model, native, flash, plain
+    torch.cuda.empty_cache()
+
+    # Yi-34B and Qwen1.5-110B at full width, depth cut to fit the card
+    for arch, depth in CUT_DEPTH:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=depth)
+        per_pass = 7 * depth + 1
+        describe("dense", cfg, cut=full.n_layers)
+        torch.cuda.reset_peak_memory_stats()
+        params = Model(cfg, device=dev).init(seed=SERVE["seed"])
+        model = Model(cfg, DotEngine(mode="olm16"), device=dev)
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (SERVE["slots"], 16))).to(dev)
+        reset_counts()
+        t0 = time.monotonic()
+        lg, cache, _ = model.prefill(params, {"tokens": toks},
+                                     model.init_cache(SERVE["slots"], 32))
+        finite = [bool(torch.isfinite(lg).all())]
+        for step in range(2):
+            pos = torch.full((SERVE["slots"],), 16 + step, device=dev)
+            lg, cache = model.decode_step(params, lg.argmax(-1), pos, cache)
+            finite.append(bool(torch.isfinite(lg).all()))
+        torch.cuda.synchronize()
+        wall, k1 = time.monotonic() - t0, k12.launches
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[dense] {cfg.name}: a {SERVE['slots']} x 16 prefill and two "
+              f"{SERVE['slots']}-lane decode steps under olm16 in {wall:.3f} s;"
+              f" K1 launches {k1} for {3 * per_pass} GEMMs; finite logits "
+              f"{all(finite)}; peak memory {peak} bytes "
+              f"({peak / 2**30:.2f} GiB)", flush=True)
+        if k1 != 3 * per_pass or not all(finite):
+            raise SystemExit(f"{cfg.name}: K1 launches or logits are wrong")
+        by_path["olm_matmul_fused"][f"dense {cfg.name} olm16"] = k1
+        del params, model, cache, lg
+        torch.cuda.empty_cache()
 
     # the kernels line --------------------------------------------------
     src = "src/repro_torch/csrc/"
@@ -1037,6 +1296,7 @@ def main() -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,
             "shape": head["label"],
+            "launches_by_path": by_path.get(kernel, {}),
             "times": [{k: r[k] for k in ("label", "ms", "plain_ms",
                                          "bound_ms", "bound_by")}
                       for r in timed[kernel] if r is not head]})

@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the dense decoder(s) it serves.
+"""Architecture registry of the port: the dense decoders it serves.
 
 get_config(arch_id)    -> full published config
 smoke_config(arch_id)  -> reduced same-family config for CPU tests
@@ -12,10 +12,11 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-_ARCHS = ["internlm2_1_8b"]
+_ARCHS = ["chatglm3_6b", "qwen1_5_110b", "internlm2_1_8b", "yi_34b"]
 
 ALIASES = {a.replace("_", "-"): a for a in _ARCHS}
-ALIASES.update({"internlm2-1.8b": "internlm2_1_8b"})
+ALIASES.update({"chatglm3-6b": "chatglm3_6b", "qwen1.5-110b": "qwen1_5_110b",
+                "internlm2-1.8b": "internlm2_1_8b", "yi-34b": "yi_34b"})
 
 
 def list_archs() -> List[str]:
@@ -32,11 +33,13 @@ def get_config(arch: str) -> ModelConfig:
 
 def smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config: the reference's smoke widths (d_model
-    128, 4 heads of 32, 2 KV heads, d_ff 256, vocab 512)."""
+    128, 4 heads of 32, 2 KV heads, d_ff 256, vocab 512, a window of 16
+    where the config has one)."""
     cfg = get_config(arch)
     pat_len = len(cfg.block_pattern)
     n_layers = max(2 * pat_len, pat_len + cfg.n_layers % pat_len)
     return dataclasses.replace(
         cfg, n_layers=n_layers, d_model=128, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) or 2, head_dim=32, d_ff=256,
-        vocab_size=512)
+        vocab_size=512,
+        sliding_window=16 if cfg.sliding_window else None)

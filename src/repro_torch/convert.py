@@ -4,9 +4,11 @@
 `Model.init` with its leaves as numpy arrays (`jax.tree.map(np.asarray,
 params)`) and returns the port's params: the stacked `blocks/scan` groups
 (one leading group axis per pattern slot) and the `blocks/rem` remainder
-layers unrolled into the port's per-layer list, in execution order. With
-both packages on the same weights, the tests hold the port against the
-reference.
+layers unrolled into the port's per-layer list, in execution order. Every
+leaf of a layer comes across, the attention biases `bq`/`bk`/`bv` of a
+`qkv_bias` config with them; a tied tree (`tie_embeddings`) has no
+`unembed` table. With both packages on the same weights, the tests hold
+the port against the reference.
 """
 from __future__ import annotations
 
@@ -51,10 +53,16 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     if len(layers) != cfg.n_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.name} has {cfg.n_layers}")
-    return {"embed": _tree(tree["embed"], dt, dev),
-            "layers": layers,
-            "final_norm": _tree(tree["final_norm"], dt, dev),
-            "unembed": _tree(tree["unembed"], dt, dev)}
+    if ("unembed" in tree) == cfg.tie_embeddings:
+        raise ValueError(f"tree {'has' if 'unembed' in tree else 'lacks'} "
+                         f"an unembed table, config {cfg.name} has "
+                         f"tie_embeddings={cfg.tie_embeddings}")
+    params = {"embed": _tree(tree["embed"], dt, dev),
+              "layers": layers,
+              "final_norm": _tree(tree["final_norm"], dt, dev)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = _tree(tree["unembed"], dt, dev)
+    return params
 
 
 def _slice(node, g: int):

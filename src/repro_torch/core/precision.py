@@ -73,3 +73,12 @@ class OnlinePrecision:
     def steps(self) -> int:
         """Total iterations: delta initialization + n digit-producing steps."""
         return self.n + self.delta
+
+    @property
+    def pipeline_latency(self) -> int:
+        """Cycles to first result of a pipelined stream (paper Table III)."""
+        return self.n + self.delta + 1
+
+    def stream_cycles(self, k: int) -> int:
+        """Cycles to process k products through the unrolled pipeline."""
+        return self.pipeline_latency + (k - 1)

@@ -14,8 +14,11 @@ a comma-separated downshift ladder of DotEngine modes (rung 0 = the
 deployment base mode), and --numerics-check finishes NaN/Inf lanes with
 finish_reason="numerics".
 
+--arch takes any dense arch of `repro_torch.configs` (chatglm3_6b,
+qwen1_5_110b, internlm2_1_8b, yi_34b, or their dashed aliases).
+
 Usage (CPU smoke):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2_1_8b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
       --smoke --device cpu --requests 4 --slots 4 --max-new 4
 """
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Transformer building blocks: RMSNorm, RoPE, GQA attention with the
-contiguous and the paged KV cache, SwiGLU MLP, embed/unembed (port of
-`repro/models/layers.py`, the dense-decoder subset).
+"""Transformer building blocks: RMSNorm, full and half RoPE, GQA attention
+(optional qkv bias and sliding window, plain and flash) with the
+contiguous, ring and paged KV caches, SwiGLU and GELU MLPs, embed/unembed
+(port of `repro/models/layers.py`, the dense-decoder subset).
 
 Params are plain dicts of tensors. Every weight-bearing matmul goes
 through `core.numerics.DotEngine`, so the model runs under any registered
@@ -23,8 +24,9 @@ from .config import ModelConfig
 
 Params = Dict[str, Any]
 
-__all__ = ["TRASH_BLOCK", "dense_init", "rmsnorm", "apply_rope",
-           "paged_pool_write", "paged_pool_view", "paged_scatter_rows",
+__all__ = ["TRASH_BLOCK", "FLASH_MIN_ELEMS", "dense_init", "rmsnorm",
+           "apply_rope", "paged_pool_write", "paged_pool_view",
+           "paged_scatter_rows",
            "attention_init", "attention_apply", "mlp_init", "mlp_apply",
            "embedding_init", "embed", "unembed"]
 
@@ -58,19 +60,26 @@ def rope_angles(positions: torch.Tensor, dim: int, theta: float
     return torch.cos(ang), torch.sin(ang)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, style: str,
                theta: float) -> torch.Tensor:
-    """x (B, S, H, Dh), every head dim rotated (interleaved pairs)."""
+    """x (B, S, H, Dh). style "full" rotates every head dim; "half"
+    (ChatGLM's 2-D RoPE) rotates the first Dh // 2 dims and passes the
+    rest through. The rotated dims pair up interleaved (0::2 with 1::2),
+    and the frequencies run over the rotated width."""
     B, S, H, Dh = x.shape
-    cos, sin = rope_angles(positions, Dh, theta)
+    rot = Dh if style == "full" else Dh // 2
+    cos, sin = rope_angles(positions, rot, theta)
     if cos.ndim == 2:
         cos, sin = cos[None], sin[None]
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    xr = x.to(torch.float32)
+    xr = x[..., :rot].to(torch.float32)
     x1, x2 = xr[..., 0::2], xr[..., 1::2]
     o1 = x1 * cos - x2 * sin
     o2 = x2 * cos + x1 * sin
-    return torch.stack([o1, o2], dim=-1).reshape(B, S, H, Dh).to(x.dtype)
+    out = torch.stack([o1, o2], dim=-1).reshape(B, S, H, rot)
+    if rot < Dh:
+        out = torch.cat([out, x[..., rot:].to(torch.float32)], dim=-1)
+    return out.to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -138,37 +147,112 @@ def paged_scatter_rows(pool: torch.Tensor, rows: torch.Tensor,
 
 def attention_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     d, dt = cfg.d_model, cfg.pdtype
-    return {
+    p = {
         "wq": dense_init(gen, d, cfg.d_head_total, dt, device),
         "wk": dense_init(gen, d, cfg.d_kv_total, dt, device),
         "wv": dense_init(gen, d, cfg.d_kv_total, dt, device),
         "wo": dense_init(gen, cfg.d_head_total, d, dt, device),
     }
+    if cfg.qkv_bias:
+        for key, width in (("bq", cfg.d_head_total), ("bk", cfg.d_kv_total),
+                           ("bv", cfg.d_kv_total)):
+            p[key] = torch.zeros((width,), dtype=dt, device=device)
+    return p
 
 
-def _attn_plain(q, k, v, qpos, kpos, *, causal: bool) -> torch.Tensor:
+# At S * T >= FLASH_MIN_ELEMS attention runs the chunked online softmax
+# (`_attn_flash`), below it the plain one, where the reference switches.
+FLASH_MIN_ELEMS = 512 * 1024
+
+
+def _valid(kp, qpos, *, causal: bool, window: Optional[int]):
+    """Which (query, key) pairs attend: kp (B|1, T) key positions (-1 =
+    empty slot), qpos (B, S); a (B|1, 1, S|1, T) mask."""
+    valid = (kp >= 0)[:, None, None, :]
+    if causal:
+        rel = kp[:, None, :] <= qpos[:, :, None]        # (B, S, T)
+        valid = valid & rel[:, None]
+        if window is not None:
+            wn = kp[:, None, :] > qpos[:, :, None] - window
+            valid = valid & wn[:, None]
+    return valid
+
+
+def _attn_plain(q, k, v, qpos, kpos, *, causal: bool,
+                window: Optional[int] = None) -> torch.Tensor:
     """q (B,S,H,D), k/v (B,T,H,D) with kv already repeated to q heads;
     qpos (B,S), kpos (T,) or (B,T) absolute positions (-1 = empty)."""
     D = q.shape[-1]
     scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32)
     scores = scores / (D ** 0.5)
     kp = kpos if kpos.ndim == 2 else kpos[None]         # (B|1, T)
-    valid = (kp >= 0)[:, None, None, :]
-    if causal:
-        rel = kp[:, None, :] <= qpos[:, :, None]        # (B, S, T)
-        valid = valid & rel[:, None]
+    valid = _valid(kp, qpos, causal=causal, window=window)
     scores = scores.masked_fill(~valid, torch.finfo(torch.float32).min)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhst,bthd->bshd", w, v)
 
 
-def _attn_core(q, k, v, qpos, kpos, *, causal: bool) -> torch.Tensor:
-    """GQA by repeating each kv head over its query group."""
-    Hq, Hkv = q.shape[2], k.shape[2]
+def _attn_flash(q, k, v, qpos, kpos, *, causal: bool,
+                window: Optional[int] = None, chunk: int = 1024
+                ) -> torch.Tensor:
+    """Online-softmax attention over key/value chunks of `chunk` slots, in
+    order (the reference's scan): O(S * chunk) scores a head instead of
+    O(S * T). The score and probability tiles are bf16 when q is, f32
+    otherwise; their products accumulate in f32, as do m, l and acc.
+    Masked scores are -inf, and the m_safe / corr guards keep a wholly
+    masked chunk from touching l and acc. Same signature as the plain
+    path."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    chunk = min(chunk, T)
+    kp2 = kpos if kpos.ndim == 2 else kpos[None]
+    pad = (-T) % chunk
+    if pad:
+        k = torch.cat([k, k.new_zeros((B, pad, H, D))], dim=1)
+        v = torch.cat([v, v.new_zeros((B, pad, H, D))], dim=1)
+        kp2 = torch.cat([kp2, kp2.new_full((kp2.shape[0], pad), -1)], dim=1)
+    tile_dt = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    # a product of two tile_dt values is exact in f32: rounding the
+    # operands, then multiplying and summing in f32, is a tile_dt matmul
+    # with an f32 result
+    qt = q.to(tile_dt).to(torch.float32)
+    scale = 1.0 / (D ** 0.5)
+    m = q.new_full((B, H, S), float("-inf"), dtype=torch.float32)
+    l = q.new_zeros((B, H, S), dtype=torch.float32)
+    acc = q.new_zeros((B, H, S, D), dtype=torch.float32)
+    for c in range(k.shape[1] // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        kb = k[:, sl].to(tile_dt).to(torch.float32)
+        vb = v[:, sl].to(tile_dt).to(torch.float32)
+        s = torch.einsum("bshd,bthd->bhst", qt, kb) * scale
+        valid = _valid(kp2[:, sl], qpos, causal=causal, window=window)
+        s = s.masked_fill(~valid, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        p_ = torch.exp(s - m_safe[..., None])
+        p_ = p_.masked_fill(~valid, 0.0).to(tile_dt).to(torch.float32)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                           torch.zeros_like(m))
+        l = l * corr + p_.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhst,bthd->bhsd", p_, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(v.dtype)              # (B,S,H,D)
+
+
+def _attn_core(q, k, v, qpos, kpos, *, causal: bool,
+               window: Optional[int] = None) -> torch.Tensor:
+    """GQA by repeating each kv head over its query group; the flash path
+    from S * T >= FLASH_MIN_ELEMS on."""
+    S, Hq = q.shape[1], q.shape[2]
+    T, Hkv = k.shape[1], k.shape[2]
     if Hkv != Hq:
         k = k.repeat_interleave(Hq // Hkv, dim=2)
         v = v.repeat_interleave(Hq // Hkv, dim=2)
-    return _attn_plain(q, k, v, qpos, kpos, causal=causal)
+    if S * T >= FLASH_MIN_ELEMS:
+        return _attn_flash(q, k, v, qpos, kpos, causal=causal, window=window)
+    return _attn_plain(q, k, v, qpos, kpos, causal=causal, window=window)
 
 
 def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -176,7 +260,7 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     kv_cache: Optional[Dict[str, Any]] = None,
                     causal: bool = True, chunked: bool = False
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Self-attention with an optional KV cache.
+    """Self-attention with an optional KV cache and sliding window.
 
     {"k","v"} is the contiguous per-lane cache; {"kpool","vpool","table"}
     the paged one (decode steps only: prefill goes through
@@ -186,17 +270,30 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     same way (chunked prefill: each lane writes S entries from its own
     position and attends over the whole cache, so earlier chunks stay
     visible); any other S > 1 call is a fresh prefill that fills slots
-    0..S-1. Returns (output (B,S,d), the updated cache or None)."""
+    0..S-1.
+
+    A contiguous cache of exactly `cfg.sliding_window` slots is a ring:
+    slot s holds position p with s == p mod T. A decode step writes at
+    lane_pos mod T and attends through the lane's slot -> position map; a
+    prefill longer than the ring keeps its last T entries, rolled into
+    place; a chunked call on a ring raises. Returns (output (B,S,d), the
+    updated cache or None)."""
     B, S, d = x.shape
     Dh = cfg.head_dim
     q = eng.dot(x, p["wq"])
     k = eng.dot(x, p["wk"])
     v = eng.dot(x, p["wv"])
+    if cfg.qkv_bias:
+        # in the GEMM output's dtype, as the reference adds them
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
     q = apply_rope(q.reshape(B, S, cfg.n_heads, Dh), positions,
-                   theta=cfg.rope_theta)
+                   style=cfg.rope_style, theta=cfg.rope_theta)
     k = apply_rope(k.reshape(B, S, cfg.n_kv_heads, Dh), positions,
-                   theta=cfg.rope_theta)
+                   style=cfg.rope_style, theta=cfg.rope_theta)
     v = v.reshape(B, S, cfg.n_kv_heads, Dh)
+    window = cfg.sliding_window
 
     if kv_cache is not None and "kpool" in kv_cache:
         if S != 1:
@@ -211,30 +308,51 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
         ck = paged_pool_view(kv_cache["kpool"], table)
         cv = paged_pool_view(kv_cache["vpool"], table)
         kpos = torch.arange(ck.shape[1], device=x.device)
-        out = _attn_core(q, ck, cv, positions, kpos, causal=causal)
+        out = _attn_core(q, ck, cv, positions, kpos, causal=causal,
+                         window=window)
     elif kv_cache is not None and (S == 1 or chunked):
         # decode / chunked prefill: per-lane write of S entries at each
         # lane's own position (lanes in a serving pool sit at different
-        # depths), then attend over the whole cache; slot index ==
-        # absolute position.
+        # depths), then attend over the whole cache
         ck, cv = kv_cache["k"], kv_cache["v"]
         T = ck.shape[1]
-        lane_pos = positions[:, 0]
-        idx = torch.clamp(lane_pos, max=T - S).to(torch.int64)
+        ring = window is not None and T == window
+        lane_pos = positions[:, 0].to(torch.int64)
+        if ring:
+            if S != 1:
+                raise ValueError(
+                    "chunked prefill does not support sliding-window ring "
+                    "caches; disable prefill chunking for SWA models")
+            idx = torch.remainder(lane_pos, T)
+        else:
+            idx = torch.clamp(lane_pos, max=T - S)
         lanes = torch.arange(B, device=x.device)[:, None]
         slots = idx[:, None] + torch.arange(S, device=x.device)
         ck[lanes, slots] = k.to(ck.dtype)
         cv[lanes, slots] = v.to(cv.dtype)
         kpos = torch.arange(T, device=x.device)
-        out = _attn_core(q, ck, cv, positions, kpos, causal=causal)
+        if ring:                # per-lane slot -> absolute position map
+            newest = lane_pos[:, None]
+            kpos = newest - torch.remainder(newest - kpos[None], T)
+            kpos = torch.where(kpos >= 0, kpos, torch.full_like(kpos, -1))
+        out = _attn_core(q, ck, cv, positions, kpos, causal=causal,
+                         window=window)
     else:
         if kv_cache is not None:
-            # prefill: slot s holds position s; the cache serves the
-            # decode steps that follow.
-            kv_cache["k"][:, :S] = k.to(kv_cache["k"].dtype)
-            kv_cache["v"][:, :S] = v.to(kv_cache["v"].dtype)
+            # prefill: slot s holds position p with s == p mod T (ring) or
+            # s == p; the cache serves the decode steps that follow. A
+            # prompt longer than the cache keeps its last T entries.
+            T = kv_cache["k"].shape[1]
+            kw, vw = k, v
+            if S > T:
+                shift = (S - T) % T
+                kw = torch.roll(k[:, -T:], shift, dims=1)
+                vw = torch.roll(v[:, -T:], shift, dims=1)
+            kv_cache["k"][:, :kw.shape[1]] = kw.to(kv_cache["k"].dtype)
+            kv_cache["v"][:, :vw.shape[1]] = vw.to(kv_cache["v"].dtype)
         kpos = torch.arange(S, device=x.device)
-        out = _attn_core(q, k, v, positions, kpos, causal=causal)
+        out = _attn_core(q, k, v, positions, kpos, causal=causal,
+                         window=window)
     out = eng.dot(out.reshape(B, S, cfg.d_head_total), p["wo"])
     return out, kv_cache
 
@@ -245,18 +363,26 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.pdtype
-    return {"wg": dense_init(gen, d, f, dt, device),
-            "wu": dense_init(gen, d, f, dt, device),
+    if cfg.mlp_type == "swiglu":
+        return {"wg": dense_init(gen, d, f, dt, device),
+                "wu": dense_init(gen, d, f, dt, device),
+                "wd": dense_init(gen, f, d, dt, device)}
+    return {"wu": dense_init(gen, d, f, dt, device),
             "wd": dense_init(gen, f, d, dt, device)}
 
 
 def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
               eng: DotEngine) -> torch.Tensor:
-    """SwiGLU: wd(silu(wg x) * wu x)."""
-    g = torch.nn.functional.silu(
-        eng.dot(x, p["wg"]).to(torch.float32)).to(x.dtype)
-    u = eng.dot(x, p["wu"])
-    return eng.dot(g * u, p["wd"])
+    """SwiGLU: wd(silu(wg x) * wu x); GELU: wd(gelu(wu x)), with the
+    tanh approximation (jax.nn.gelu's default)."""
+    if cfg.mlp_type == "swiglu":
+        g = torch.nn.functional.silu(
+            eng.dot(x, p["wg"]).to(torch.float32)).to(x.dtype)
+        u = eng.dot(x, p["wu"])
+        return eng.dot(g * u, p["wd"])
+    h = torch.nn.functional.gelu(eng.dot(x, p["wu"]).to(torch.float32),
+                                 approximate="tanh").to(x.dtype)
+    return eng.dot(h, p["wd"])
 
 
 # --------------------------------------------------------------------------

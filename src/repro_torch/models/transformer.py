@@ -6,7 +6,7 @@ list of per-layer param dicts run by a Python loop.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -28,16 +28,22 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 def block_cache_init(cfg: ModelConfig, batch: int, max_len: int, device,
                      paged: Optional[Dict[str, Any]] = None) -> Params:
-    """One layer's KV cache: contiguous (B, max_len, Hkv, Dh) k and v, or,
-    with paged={"num_blocks", "block_size", "table"}, a block pool per
-    k and v plus the lane block table shared by every layer."""
+    """One layer's KV cache: contiguous (B, T, Hkv, Dh) k and v, or, with
+    paged={"num_blocks", "block_size", "table"}, a block pool per k and v
+    plus the lane block table shared by every paged layer. A
+    sliding-window layer holds T = min(max_len, window) slots (a ring when
+    T == window) and stays contiguous even when `paged` is given: the
+    window already bounds what it keeps."""
     H, D, dt = cfg.n_kv_heads, cfg.head_dim, cfg.cdtype
-    if paged is not None:
+    if paged is not None and cfg.sliding_window is None:
         shape = (paged["num_blocks"], paged["block_size"], H, D)
         return {"kpool": torch.zeros(shape, dtype=dt, device=device),
                 "vpool": torch.zeros(shape, dtype=dt, device=device),
                 "table": paged["table"]}
-    shape = (batch, max_len, H, D)
+    T = max_len
+    if cfg.sliding_window is not None:
+        T = min(T, cfg.sliding_window)
+    shape = (batch, T, H, D)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -59,11 +65,13 @@ def block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
 def stack_apply(layers: List[Params], cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, eng: DotEngine, *,
                 caches: Optional[List[Params]] = None,
-                chunked: bool = False) -> torch.Tensor:
+                chunked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run every layer in order (caches updated in place; `chunked`
-    makes an S > 1 call a chunked-prefill write, see attention_apply)."""
+    makes an S > 1 call a chunked-prefill write, see attention_apply).
+    Returns (x, aux loss): the aux loss of dense blocks is a 0-d f32
+    zero, as in the reference."""
     for i, p in enumerate(layers):
         x = block_apply(p, cfg, x, positions, eng,
                         cache=None if caches is None else caches[i],
                         chunked=chunked)
-    return x
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)

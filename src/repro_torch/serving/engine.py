@@ -7,7 +7,9 @@ queue feeds empty lanes.
   * Prefill is GEMM-shaped: waiting requests are batched together, their
     prompts right-padded to a shared pow2 length bucket and the batch row
     count padded to a pow2 bucket. Per-lane `last_index` picks each
-    prompt's real final position out of the padded rows. A
+    prompt's real final position out of the padded rows. A model with a
+    sliding window prefills one request at a time at its exact length
+    instead (a pad tail longer than the window would wrap its ring). A
     `prefill_chunk` knob splits long prompts into fixed-size chunks
     interleaved with decode steps, so one long prompt never stalls the
     running decode lanes.
@@ -16,7 +18,8 @@ queue feeds empty lanes.
 KV memory defaults to the paged layout (`kv_layout="paged"`): each layer
 holds a block pool plus per-lane block tables, so residency scales with
 live tokens instead of `slots * max_len`, and finished lanes return their
-blocks to the free list at once. Block 0 is the shared trash block. The
+blocks to the free list at once. Block 0 is the shared trash block.
+Sliding-window layers keep their contiguous rings under either layout. The
 contiguous layout (`kv_layout="contiguous"`) is kept as the reference the
 paged one is held against token for token.
 
@@ -284,9 +287,20 @@ class ServeEngine:
         self.logits_tap: Optional[Callable] = None
         self.prefill_fault: Optional[Callable] = None
         self._prefill_backoff_until = 0
+
+        cfg = model.cfg
+        # pow2 prompt bucketing needs right-padding to be harmless: a pad
+        # tail longer than the window would wrap a sliding-window ring and
+        # overwrite positions still in the window, so such models prefill
+        # each request at its exact length.
+        self._bucketed = cfg.sliding_window is None
         self.prefill_bucket_min = prefill_bucket_min
 
         if prefill_chunk is not None:
+            if cfg.sliding_window is not None:
+                raise ValueError(
+                    "prefill_chunk is not supported with sliding_window "
+                    "(ring caches can't take chunked writes)")
             if prefill_chunk < 1 or max_len % prefill_chunk != 0:
                 raise ValueError(
                     f"prefill_chunk must divide max_len ({max_len}); "
@@ -323,7 +337,10 @@ class ServeEngine:
             self.cache = model.init_cache(
                 slots, max_len,
                 paged={"num_blocks": kv_blocks, "block_size": bs})
-            self._table_dev = self.cache[0]["table"]  # shared by all layers
+            # the block table shared by the paged layers (None when every
+            # layer keeps a ring)
+            self._table_dev = next((c["table"] for c in self.cache
+                                    if "table" in c), None)
             # host-side allocator: ids 1..kv_blocks-1 are usable (0 is the
             # trash block); LIFO free list
             self._free: List[int] = list(range(kv_blocks - 1, 0, -1))
@@ -564,7 +581,8 @@ class ServeEngine:
         follows an alloc or free: a freed lane's stale row would route its
         idle-lane writes into blocks now owned by another lane."""
         if self._table_dirty:
-            self._table_dev.copy_(torch.from_numpy(self._table))
+            if self._table_dev is not None:
+                self._table_dev.copy_(torch.from_numpy(self._table))
             self._table_dirty = False
 
     # ------------- robustness helpers -------------
@@ -687,6 +705,8 @@ class ServeEngine:
                     break                   # wait for blocks to come back
             self.queue.popleft()
             batch.append((slot, req))
+            if not self._bucketed:
+                break                       # exact length: one a call
         if batch:
             self._prefill_batch(batch, done)
 
@@ -700,8 +720,9 @@ class ServeEngine:
     def _prefill_batch(self, batch: List[Tuple[int, Request]],
                        done: List[Request]) -> None:
         """One batched prefill over the admitted requests, padded to pow2
-        (rows, length) buckets, into a fresh contiguous row cache that is
-        then scattered into the lanes."""
+        (rows, length) buckets (unpadded for a windowed model), into a
+        fresh contiguous row cache that is then scattered into the
+        lanes."""
         t_start = time.monotonic()
         if self.prefill_fault is not None:
             try:
@@ -711,9 +732,12 @@ class ServeEngine:
                 return
         seqs = [self._req_tokens(r) for _, r in batch]
         lens = [len(s) for s in seqs]
-        Sb = min(_pow2_bucket(max(lens), self.prefill_bucket_min),
-                 self.max_len)
-        Bp = _pow2_bucket(len(batch))
+        if self._bucketed:
+            Sb = min(_pow2_bucket(max(lens), self.prefill_bucket_min),
+                     self.max_len)
+            Bp = _pow2_bucket(len(batch))
+        else:
+            Sb, Bp = max(lens), len(batch)
         tokens = np.zeros((Bp, Sb), np.int32)
         last_idx = np.zeros((Bp,), np.int64)
         slot_ids = np.zeros((Bp,), np.int64)
@@ -771,10 +795,12 @@ class ServeEngine:
 
     def _scatter_rows(self, row_cache, slot_ids: np.ndarray,
                       valid: np.ndarray, Sb: int) -> None:
-        """Scatter a fresh (Bp, Sb) row cache into the lanes: paged layers
-        through the lanes' block tables (padding rows, invalid rows and
-        blocks past a row's owned ones land in the trash block),
-        contiguous layers row by row for the valid rows."""
+        """Scatter a fresh (Bp, Sb) row cache into the lanes, layer by
+        layer: paged layers through the lanes' block tables (padding rows,
+        invalid rows and blocks past a row's owned ones land in the trash
+        block), contiguous layers and sliding-window rings row by row for
+        the valid rows."""
+        blk = None
         if self.kv_layout == "paged":
             bs = self.kv_block_size
             nb = -(-Sb // bs)
@@ -785,18 +811,18 @@ class ServeEngine:
                     take = min(len(owned), nb)
                     bt[i, :take] = owned[:take]
             blk = torch.from_numpy(bt).to(self.device)
-            for lane_c, row_c in zip(self.cache, row_cache):
-                paged_scatter_rows(lane_c["kpool"], row_c["k"], blk)
-                paged_scatter_rows(lane_c["vpool"], row_c["v"], blk)
-            self._flush_tables()
-            return
-        if not valid.any():
-            return
         rows = torch.from_numpy(np.flatnonzero(valid)).to(self.device)
         lanes = torch.from_numpy(slot_ids[valid]).to(self.device)
         for lane_c, row_c in zip(self.cache, row_cache):
-            for key in ("k", "v"):
-                lane_c[key][lanes, :Sb] = row_c[key][rows]
+            if "kpool" in lane_c:
+                paged_scatter_rows(lane_c["kpool"], row_c["k"], blk)
+                paged_scatter_rows(lane_c["vpool"], row_c["v"], blk)
+            elif valid.any():
+                for key in ("k", "v"):
+                    src = row_c[key]
+                    lane_c[key][lanes, :src.shape[1]] = src[rows]
+        if self.kv_layout == "paged":
+            self._flush_tables()
 
     def _activate(self, slot: int, req: Request, first_tok: int, P: int,
                   now: float, done: List[Request]) -> None:
@@ -1021,7 +1047,10 @@ class ServeEngine:
         cfg = self.model.cfg
         per_token = 2 * cfg.n_kv_heads * cfg.head_dim * torch.finfo(
             cfg.cdtype).bits // 8
-        contiguous = cfg.n_layers * self.slots * self.max_len * per_token
+        T = self.max_len            # a window layer's ring holds its window
+        if cfg.sliding_window is not None:
+            T = min(T, cfg.sliding_window)
+        contiguous = cfg.n_layers * self.slots * T * per_token
         return ServeReport({
             "kv_layout": self.kv_layout,
             "kv_bytes_resident": self._kv_bytes(self.cache),

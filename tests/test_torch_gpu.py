@@ -155,6 +155,38 @@ def test_both_kernels_at_the_serve_shapes(cuda, shape):
     assert _bits_equal(olm_matmul(x, w, quantize="host"), want)
 
 
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 256), (4096, 13696),
+                                 (13696, 4096), (4096, 65024)])
+def test_fused_kernel_at_the_chatglm3_shapes(cuda, K, N):
+    # ChatGLM3-6B's q/o, k/v (2 KV heads of 128), gate/up, down and head
+    # at the 4-lane decode: K = 13696 is 856 K tiles, N = 256 few column
+    # blocks
+    x, w = _operands(cuda, 4, K, N, seed=K + N)
+    before = matmul_kernel.launches
+    got = olm_matmul(x, w)
+    assert matmul_kernel.launches == before + 1
+    assert _bits_equal(got, olm_matmul_ref(x, w))
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_forward_last_position_equals_prefill_on_card(cuda, dt):
+    # ChatGLM3's smoke config (QKV bias, half RoPE) under olm16: forward's
+    # logits at the last position are prefill's, bit for bit
+    cfg = dataclasses.replace(smoke_config("chatglm3_6b"), compute_dtype=dt,
+                              dot_mode="olm16")
+    m = Model(cfg, device=cuda)
+    params = m.init(seed=0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for layer in params["layers"]:
+        for key in ("bq", "bk", "bv"):
+            layer["attn"][key].copy_(0.5 * torch.randn(
+                layer["attn"][key].shape, generator=g, device=cuda))
+    toks = torch.randint(0, 512, (2, 9), generator=g, device=cuda)
+    logits, _ = m.forward(params, {"tokens": toks})
+    last, _, _ = m.prefill(params, {"tokens": toks}, m.init_cache(2, 9))
+    assert _bits_equal(logits[:, -1].contiguous(), last)
+
+
 def test_host_kernel_flushes_a_subnormal_tile(cuda):
     # _operands puts 1e-40 in x[0, :16]: that tile contributes exactly 0
     x, w = _operands(cuda, 5, 70, 37)

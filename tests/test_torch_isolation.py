@@ -46,7 +46,9 @@ def test_no_jax_or_reference_import(path):
 def test_port_modules_found():
     names = {p.name for p in FILES}
     assert {"matmul_kernel.py", "engine.py", "chip_smoke.py", "degrade.py",
-            "faults.py", "replay.py"} <= names
+            "faults.py", "replay.py", "chatglm3_6b.py", "yi_34b.py",
+            "qwen1_5_110b.py", "sd.py", "online_add.py", "pipeline.py",
+            "inner_product.py", "hwmodel.py"} <= names
 
 
 def test_degrade_ladder_resolves_modes_from_the_port_registry(monkeypatch):
