@@ -33,14 +33,20 @@ Phases, each printing its own lines:
                raising before any launch; K1 at the weight-bearing GEMM
                shapes of ChatGLM3-6B (M of 4 and 64), Yi-34B and
                Qwen1.5-110B (M of 4; wide outputs on their first and last
-               2048 columns); K3 and K4 against the paper's scalar model
+               2048 columns), and at the eng.dot GEMM shapes of
+               RecurrentGemma-9B (M of 4, 7 and 64), Mamba2-130M,
+               Mixtral-8x22B and Qwen3-MoE-235B-A22B (M of 4; outputs
+               wider than 32768 on their first and last 2048 columns,
+               M = 64 on those columns only); K3 and K4 against the
+               paper's scalar model
                (core/inner_product.online_dot, core/online_mul.
                online_multiply) row by row; plus the smoke-size model
                under olm16 and under tpmm16 on the card against the same
                model on the CPU;
   4. time    - each kernel at those shapes (and the general K3/K4
                kernels at one shape each, K1 at ChatGLM3-6B's decode and
-               prefill GEMMs) beside its bound, its plain
+               prefill GEMMs and at the four families' decode GEMMs)
+               beside its bound, its plain
                version and a PyTorch context call: the median of CUDA
                event pairs, one per launch, with the L2 cache overwritten
                before each; a time below its bound fails the run;
@@ -78,7 +84,27 @@ Phases, each printing its own lines:
                forced (within 3e-2 of the largest |logit|); Yi-34B (2
                layers) and Qwen1.5-110B (1 layer) at full published width:
                a 64-row prefill and two 4-lane decode steps under olm16,
-               K1 launches == GEMMs.
+               K1 launches == GEMMs;
+  9. families - the recurrent and MoE families: RecurrentGemma-9B (26
+               RG-LRU layers, 12 windowed MQA layers) at its full
+               published width and depth served like phase 5 under olm16
+               but not profiled (launches == passes x 241, every prefill
+               at its request's exact length, the same tokens twice,
+               kv_report printed);
+               a native prefill of 2100 tokens into a 2304-token cache,
+               past the 2048-token window, so every attention ring rolls,
+               and 4 decode steps, each within 3e-2 of the largest |logit|
+               of forward over the 2104 tokens (the windowed flash path;
+               also printed against forward with plain attention forced);
+               Mamba2-130M at full width and depth served the same way,
+               and profiled (launches == passes x 49, no K/V bytes), and a
+               native 31-token prefill and one decode against forward;
+               Mixtral-8x22B and Qwen3-MoE-235B-A22B (2 layers each) at
+               full published width: a 64-row prefill and two 4-lane
+               decode steps under olm16 (launches == passes x 9: the
+               experts are plain matmuls, as in the reference), finite
+               logits, and a finite, positive aux loss from forward; the
+               assignments the expert capacity dropped are printed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -189,6 +215,21 @@ CHATGLM_KN = ((4096, 4096), (4096, 256), (4096, 13696), (13696, 4096),
 CUT_KN = ((7168, 1024), (20480, 7168), (7168, 64000), (8192, 1024),
           (49152, 8192), (8192, 152064))
 K1_SLICE = 2048
+# The recurrent and MoE families: K1 at every weight-bearing (K, N) that
+# their eng.dot GEMMs give it (the MoE experts, the RG-LRU gates wa/wi and
+# the SSD contractions are plain matmuls, as in the reference). M = 4 is a
+# decode; RecurrentGemma also at M = 7 and 64, ragged exact-length prefill
+# rows. Outputs are held whole up to WHOLE_N columns at M of 4 and 7,
+# elsewhere on their first and last K1_SLICE columns.
+FAMILY_KN = {
+    "recurrentgemma_9b": ((4096, 4096), (4096, 256), (4096, 12288),
+                          (12288, 4096), (4096, 256000)),
+    "mamba2_130m": ((768, 3352), (1536, 768), (768, 50280)),
+    "mixtral_8x22b": ((6144, 6144), (6144, 1024), (6144, 32768)),
+    "qwen3_moe_235b_a22b": ((4096, 4096), (4096, 256), (4096, 151936)),
+}
+RG_ROWS = (7, 64)
+WHOLE_N = 32768
 # The paper's scalar model as K3's and K4's oracle: (B, K, n) and (B, n)
 ORACLE_DOT = (64, 256, 16)
 ORACLE_MUL = (256, 16)
@@ -205,6 +246,16 @@ SERVE = dict(arch="internlm2_1_8b", modes=("olm16", "tpmm16"), requests=4,
              prompt=(4, 12), max_new=6, slots=4, max_len=128, block=16,
              seed=0)
 SERVE_LAYERS = None                # None = the full published depth
+# The families phase: RecurrentGemma-9B and Mamba2-130M at full width and
+# depth served like SERVE under olm16; a prefill of RING_PROMPT tokens into
+# a RING_MAX_LEN cache (past RecurrentGemma's 2048-token window, so every
+# attention ring rolls) and RING_DECODES decode steps under native against
+# forward; a MAMBA_PROMPT-token prefill and one decode against forward;
+# Mixtral-8x22B and Qwen3-MoE-235B-A22B at full width with their depth cut
+# (f32 weights of 562.5 and 927.0 GB at full depth).
+RING_PROMPT, RING_MAX_LEN, RING_DECODES = 2100, 2304, 4
+MAMBA_PROMPT = 31
+MOE_DEPTH = (("mixtral_8x22b", 2), ("qwen3_moe_235b_a22b", 2))
 # The replay phase: benchmarks/run.py::serve_faults_bench's engine with
 # its ladder's rungs replaced by olm16 ones, and its seed-0 workload and
 # fault plan. vocab=512 keeps the baseline's arrival schedule and prompt
@@ -222,6 +273,17 @@ REPLAY_WORKLOAD = dict(seed=0, n_requests=20, mean_interarrival_steps=2.0,
 REPLAY_CHUNK = 8
 REPLAY_REASONS = {"eos", "length", "max_len", "cache_full", "deadline",
                   "rejected", "numerics", "failed"}
+
+
+def gemms_per_pass(cfg) -> int:
+    """The eng.dot GEMMs of one forward pass of `cfg`: an attention layer
+    issues q, k, v, o and its MLP's (none for a MoE layer: the experts
+    are plain matmuls), a recurrent layer wx, wy, wo and its MLP's, an
+    SSD layer win and wout, and the LM head one."""
+    mlp = 3 if cfg.mlp_type == "swiglu" else 2
+    per_kind = {"attn": 4 + (0 if cfg.n_experts else mlp),
+                "rec": 3 + mlp, "ssm": 2}
+    return sum(per_kind[k] for k in cfg.layer_kinds) + 1
 
 
 def smi(fields: str) -> str:
@@ -495,6 +557,15 @@ def main() -> int:
                     whole=M == 4 and arch == "chatglm3_6b")
             del xs, ws
             torch.cuda.empty_cache()
+    for arch, kns in FAMILY_KN.items():
+        rows = (4,) + (RG_ROWS if arch == "recurrentgemma_9b" else ())
+        for M in rows:
+            for K, N in kns:
+                xs, ws = operands((M, K, N), 15, dev)
+                hold_k1(f"olm16 {arch} M,K,N={(M, K, N)}", xs, ws,
+                        whole=M < 64 and N <= WHOLE_N)
+                del xs, ws
+                torch.cuda.empty_cache()
 
     for n, truncated in MUL_CASES:
         cfg = OnlinePrecision(n=n, truncated=truncated, tail_gating=truncated)
@@ -701,6 +772,21 @@ def main() -> int:
                    k12.int_ops(M, N, K, n=16), rate,
                    f"plan bm x bn x tb {plan.bm} x {plan.bn} x {plan.tb}")
             del x, w
+    # K1 at the recurrent and MoE families' decode GEMMs (the plain
+    # version timed up to WHOLE_N columns)
+    for arch, kns in FAMILY_KN.items():
+        for K, N in kns:
+            x, w = operands((4, K, N), 16, dev)
+            plan = k12.launch_plan(4, N, K, 16)
+            record("olm_matmul_fused", f"olm16 {arch} M=4 K={K} N={N}",
+                   cuda_ms(lambda: k12.olm_matmul_fused(x, w, n=16), reps=5,
+                           warmup=1),
+                   cuda_ms(lambda: plain_olm16(x, w), reps=1)
+                   if N <= WHOLE_N else None, (4 * K + K * N + 4 * N) * 4,
+                   k12.int_ops(4, N, K, n=16), rate,
+                   f"plan bm x bn x tb {plan.bm} x {plan.bn} x {plan.tb}")
+            del x, w
+            torch.cuda.empty_cache()
     for n, truncated in MUL_CASES[:4]:
         cfg = OnlinePrecision(n=n)
         xd, yd = digits((MUL_B, n), n, dev)
@@ -789,13 +875,16 @@ def main() -> int:
               f"({cfg.param_count() * 4 / 1e9:.1f} GB) from seed "
               f"{SERVE['seed']}, compute {cfg.compute_dtype}", flush=True)
 
-    def serve(tag, cfg, params, mode):
+    def serve(tag, cfg, params, mode, profile=True):
         """SERVE's workload through ServeEngine under `mode`: a run with
         the launch counts set to 0 just before it (gates: every request
-        answered, finite logits, launches == GEMMs issued), a second with
-        the path kernel's launches bracketed (the same tokens), a third
-        profiled. Returns the first run's outputs by rid."""
+        answered, finite logits, launches == GEMMs issued; a model that
+        cannot right-pad its prompts prefills each request alone at its
+        exact length), a second with the path kernel's launches bracketed
+        (the same tokens), a third profiled unless `profile` is False.
+        Returns the first run's outputs by rid."""
         model = Model(cfg, DotEngine(mode=mode), device=dev)
+        prompt_lens = []
 
         def seeded_engine():
             engine = ServeEngine(model, params, slots=SERVE["slots"],
@@ -806,18 +895,21 @@ def main() -> int:
             for rid in range(SERVE["requests"]):
                 prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(
                     lo, hi + 1))).astype(np.int32)
+                prompt_lens.append(len(prompt))
                 engine.submit(Request(rid=rid, prompt=prompt,
                                       max_new_tokens=SERVE["max_new"]))
             return engine
 
         engine = seeded_engine()
         passes = {"prefill": 0, "decode": 0}
-        finite = []
+        finite, prefill_shapes = [], []
 
         def counted(kind, fn):
             def run(*a, **kw):
                 out = fn(*a, **kw)
                 passes[kind] += 1
+                if kind == "prefill":
+                    prefill_shapes.append(tuple(a[1]["tokens"].shape))
                 finite.append(bool(torch.isfinite(out[0]).all()))
                 return out
             return run
@@ -836,7 +928,8 @@ def main() -> int:
         launches.setdefault(kernel, counts[kernel])
         by_path.setdefault(kernel, {})[f"{tag} {cfg.name} {mode}"] = \
             counts[kernel]
-        gemms = (passes["prefill"] + passes["decode"]) * (7 * cfg.n_layers + 1)
+        per_pass = gemms_per_pass(cfg)
+        gemms = (passes["prefill"] + passes["decode"]) * per_pass
         tokens = sum(len(r.output) for r in done)
         reasons = {r.rid: r.finish_reason
                    for r in sorted(done, key=lambda r: r.rid)}
@@ -848,8 +941,10 @@ def main() -> int:
               f"memory {peak} bytes ({peak / 2**30:.2f} GiB)")
         print(f"[{tag}] {mode}: forward passes: {passes['prefill']} prefill, "
               f"{passes['decode']} decode; GEMMs issued {gemms} "
-              f"({7 * cfg.n_layers + 1} a pass); kernel launches {counts}",
-              flush=True)
+              f"({per_pass} a pass); kernel launches {counts}; prefill "
+              f"shapes {prefill_shapes}", flush=True)
+        kvr = engine.kv_report()
+        print(f"[{tag}] {mode}: kv_report {dict(kvr)}", flush=True)
         if len(done) != SERVE["requests"]:
             raise SystemExit("not every request was answered")
         if any(r.finish_reason not in ("length", "eos") for r in done):
@@ -859,6 +954,10 @@ def main() -> int:
         if counts[kernel] != gemms or gemms == 0:
             raise SystemExit(f"{kernel} launched {counts[kernel]} times for "
                              f"{gemms} GEMMs under {mode}")
+        if not engine._bucketed and sorted(prefill_shapes) != sorted(
+                (1, n) for n in prompt_lens):
+            raise SystemExit(f"{cfg.name}: a prefill ran at another shape "
+                             "than its request's exact length")
 
         # Where the serve time goes: the same requests again, every launch
         # of the path's kernel (and, under tpmm, every plane decomposition
@@ -905,6 +1004,8 @@ def main() -> int:
             raise SystemExit("a second serve of the same requests gave other "
                              "tokens")
 
+        if not profile:
+            return first
         # The device's busy share: the same requests a third time under
         # torch.profiler, the union of the device's kernel intervals over
         # the first run's (unprofiled) wall, and the path kernel's own
@@ -1268,6 +1369,215 @@ def main() -> int:
         by_path["olm_matmul_fused"][f"dense {cfg.name} olm16"] = k1
         del params, model, cache, lg
         torch.cuda.empty_cache()
+
+    # 9. the recurrent and MoE families -----------------------------------
+    from repro_torch.models import moe as moe_mod
+    gc.collect()                # nothing of the dense phase may stay
+    torch.cuda.empty_cache()
+    print(f"[families] memory on the card before the phase: "
+          f"{torch.cuda.memory_allocated()} bytes", flush=True)
+
+    def family_params(cfg):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        params = Model(cfg, device=dev).init(seed=SERVE["seed"])
+        torch.cuda.synchronize()
+        print(f"[families] {cfg.name}: weights on the card "
+              f"{torch.cuda.memory_allocated()} bytes, drawn in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        return params
+
+    def held_to_forward(tag, model, params, toks, n_prompt, plain=False):
+        """Prefill toks[:, :n_prompt], then decode the rest one token at a
+        time (teacher-forced); each step's logits against forward's over
+        the whole sequence at the same position, relative to forward's
+        largest |logit| there (gate 3e-2). With `plain`, the steps are
+        also printed against a forward with the plain attention path
+        forced, whose bf16 scores the decode steps' plain path shares."""
+        L = toks.shape[1]
+        t0 = time.monotonic()
+        full, _ = model.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        t_fwd = time.monotonic() - t0
+        t0 = time.monotonic()
+        lg, cache, _ = model.prefill(params, {"tokens": toks[:, :n_prompt]},
+                                     model.init_cache(1, RING_MAX_LEN))
+        steps = [(n_prompt - 1, lg)]
+        for p in range(n_prompt, L):
+            lg, cache = model.decode_step(params, toks[:, p],
+                                          torch.tensor([p], device=dev),
+                                          cache)
+            steps.append((p, lg))
+        torch.cuda.synchronize()
+        t_dec = time.monotonic() - t0
+        errs = []
+        for p, got in steps:
+            want = full[:, p]
+            errs.append(float((got - want).abs().max() / want.abs().max()))
+        print(f"[families] {tag}: forward over {L} tokens {t_fwd:.3f} s; "
+              f"prefill of {n_prompt} and {L - n_prompt} decode steps "
+              f"{t_dec:.3f} s; rel err against forward by position "
+              f"{dict(zip([p for p, _ in steps], errs))} (limit 3e-2)",
+              flush=True)
+        if plain:
+            threshold = layers.FLASH_MIN_ELEMS
+            layers.FLASH_MIN_ELEMS = 1 << 62
+            try:
+                ref, _ = model.forward(params, {"tokens": toks})
+            finally:
+                layers.FLASH_MIN_ELEMS = threshold
+            print(f"[families] {tag}: against a forward with plain "
+                  "attention forced, by position " + str({
+                      p: float((g - ref[:, p]).abs().max()
+                               / ref[:, p].abs().max()) for p, g in steps})
+                  + "; flash against plain forward "
+                  f"{float((full - ref).abs().max() / ref.abs().max()):.3e}",
+                  flush=True)
+            del ref
+        finite = bool(torch.isfinite(full).all()) and all(
+            bool(torch.isfinite(g).all()) for _, g in steps)
+        if not finite or max(errs) > 3e-2:
+            raise SystemExit(f"{tag}: decode disagrees with forward")
+
+    # RecurrentGemma-9B at its full width and depth: served under olm16
+    # (K1 at every eng.dot GEMM), then a ring that rolls, under native
+    cfg = get_config("recurrentgemma_9b")
+    describe("families", cfg)
+    print(f"[families] {cfg.name}: kinds {cfg.block_pattern} x "
+          f"{cfg.pattern_groups} + {cfg.remainder_blocks}, window "
+          f"{cfg.sliding_window}, rnn_width {cfg.rnn_width}; "
+          f"{gemms_per_pass(cfg)} eng.dot GEMMs a pass", flush=True)
+    params = family_params(cfg)
+    serve("families", cfg, params, "olm16", profile=False)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[families] {cfg.name} serve peak memory {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)", flush=True)
+    native = Model(cfg, DotEngine(mode="native"), device=dev)
+    n_ring = RING_PROMPT + RING_DECODES
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, n_ring))).to(dev)
+    flash_calls = []
+    real_flash = layers._attn_flash
+
+    def counted_ring_flash(*a, **kw):
+        flash_calls.append(kw.get("window"))
+        return real_flash(*a, **kw)
+
+    layers._attn_flash = counted_ring_flash
+    try:
+        held_to_forward(f"{cfg.name} native ring (window "
+                        f"{cfg.sliding_window}, cache {RING_MAX_LEN})",
+                        native, params, toks, RING_PROMPT, plain=True)
+    finally:
+        layers._attn_flash = real_flash
+    n_attn = cfg.layer_kinds.count("attn")
+    print(f"[families] {cfg.name}: flash attention calls {len(flash_calls)} "
+          f"with window {set(flash_calls)} ({n_attn} attention layers in "
+          f"forward and in prefill)", flush=True)
+    if len(flash_calls) != 2 * n_attn or set(flash_calls) != {
+            cfg.sliding_window}:
+        raise SystemExit("the windowed flash path did not run in every "
+                         "attention layer")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[families] {cfg.name} peak memory over the phase {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)", flush=True)
+    del params, native, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Mamba2-130M at its full width and depth: served under olm16, then a
+    # prefill and one decode under native against forward
+    cfg = get_config("mamba2_130m")
+    describe("families", cfg)
+    params = family_params(cfg)
+    serve("families", cfg, params, "olm16")
+    model = Model(cfg, DotEngine(mode="olm16"), device=dev)
+    engine = ServeEngine(model, params, slots=SERVE["slots"],
+                         max_len=SERVE["max_len"],
+                         kv_block_size=SERVE["block"], device=dev)
+    resident = engine.kv_report()["kv_bytes_resident"]
+    print(f"[families] {cfg.name}: kv_bytes_resident {resident} (no "
+          "attention layer)", flush=True)
+    if resident != 0:
+        raise SystemExit(f"{cfg.name} holds K/V bytes")
+    del engine, model
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, MAMBA_PROMPT + 1))).to(dev)
+    held_to_forward(f"{cfg.name} native", Model(cfg, DotEngine(
+        mode="native"), device=dev), params, toks, MAMBA_PROMPT)
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Mixtral-8x22B and Qwen3-MoE-235B-A22B at full width, depth cut: the
+    # experts are plain matmuls, so K1 runs each layer's 4 attention GEMMs
+    real_route = moe_mod._route_row
+    routed = {"assignments": 0, "dropped": 0}
+
+    def counted_route(*a, **kw):
+        plan = real_route(*a, **kw)
+        keep = plan[4]
+        routed["assignments"] += keep.numel()
+        routed["dropped"] += int((~keep).sum())
+        return plan
+
+    moe_mod._route_row = counted_route
+    try:
+        for arch, depth in MOE_DEPTH:
+            full = get_config(arch)
+            cfg = dataclasses.replace(full, n_layers=depth)
+            per_pass = gemms_per_pass(cfg)
+            describe("families", cfg, cut=full.n_layers)
+            print(f"[families] {cfg.name}: {cfg.n_experts} experts, "
+                  f"{cfg.experts_per_token} a token, capacity factor "
+                  f"{cfg.capacity_factor}, window {cfg.sliding_window}; "
+                  f"{per_pass} eng.dot GEMMs a pass", flush=True)
+            params = family_params(cfg)
+            model = Model(cfg, DotEngine(mode="olm16"), device=dev)
+            toks = torch.from_numpy(np.random.default_rng(5).integers(
+                0, cfg.vocab_size, (SERVE["slots"], 16))).to(dev)
+            routed.update(assignments=0, dropped=0)
+            reset_counts()
+            t0 = time.monotonic()
+            lg, cache, _ = model.prefill(params, {"tokens": toks},
+                                         model.init_cache(SERVE["slots"], 32))
+            finite = [bool(torch.isfinite(lg).all())]
+            for step in range(2):
+                pos = torch.full((SERVE["slots"],), 16 + step, device=dev)
+                lg, cache = model.decode_step(params, lg.argmax(-1), pos,
+                                              cache)
+                finite.append(bool(torch.isfinite(lg).all()))
+            torch.cuda.synchronize()
+            wall, k1 = time.monotonic() - t0, k12.launches
+            serve_routed = dict(routed)
+            by_path["olm_matmul_fused"][f"families {cfg.name} olm16"] = k1
+            routed.update(assignments=0, dropped=0)
+            t0 = time.monotonic()
+            logits, aux = model.forward(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            t_fwd, aux = time.monotonic() - t0, float(aux)
+            finite.append(bool(torch.isfinite(logits).all()))
+            peak = torch.cuda.max_memory_allocated()
+            print(f"[families] {cfg.name}: a {SERVE['slots']} x 16 prefill "
+                  f"and two {SERVE['slots']}-lane decode steps under olm16 "
+                  f"in {wall:.3f} s; K1 launches {k1} for {3 * per_pass} "
+                  f"GEMMs; routed assignments {serve_routed['assignments']},"
+                  f" dropped by capacity {serve_routed['dropped']}; forward "
+                  f"(4, 16) {t_fwd:.3f} s, aux loss {aux:.6f}, dropped "
+                  f"{routed['dropped']} of {routed['assignments']}; finite "
+                  f"logits {all(finite)}; peak memory {peak} bytes "
+                  f"({peak / 2**30:.2f} GiB)", flush=True)
+            if k1 != 3 * per_pass or not all(finite):
+                raise SystemExit(f"{cfg.name}: K1 launches or logits are "
+                                 "wrong")
+            if not (np.isfinite(aux) and aux > 0):
+                raise SystemExit(f"{cfg.name}: aux loss {aux} is not finite "
+                                 "and positive")
+            del params, model, cache, lg, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        moe_mod._route_row = real_route
 
     # the kernels line --------------------------------------------------
     src = "src/repro_torch/csrc/"

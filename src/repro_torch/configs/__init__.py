@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the dense decoders it serves.
+"""Architecture registry of the port: the dense, MoE, hybrid and SSM
+architectures it serves.
 
 get_config(arch_id)    -> full published config
 smoke_config(arch_id)  -> reduced same-family config for CPU tests
@@ -12,11 +13,17 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-_ARCHS = ["chatglm3_6b", "qwen1_5_110b", "internlm2_1_8b", "yi_34b"]
+_ARCHS = ["qwen3_moe_235b_a22b", "mixtral_8x22b", "recurrentgemma_9b",
+          "chatglm3_6b", "qwen1_5_110b", "internlm2_1_8b", "yi_34b",
+          "mamba2_130m"]
 
 ALIASES = {a.replace("_", "-"): a for a in _ARCHS}
-ALIASES.update({"chatglm3-6b": "chatglm3_6b", "qwen1.5-110b": "qwen1_5_110b",
-                "internlm2-1.8b": "internlm2_1_8b", "yi-34b": "yi_34b"})
+ALIASES.update({"qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+                "mixtral-8x22b": "mixtral_8x22b",
+                "recurrentgemma-9b": "recurrentgemma_9b",
+                "chatglm3-6b": "chatglm3_6b", "qwen1.5-110b": "qwen1_5_110b",
+                "internlm2-1.8b": "internlm2_1_8b", "yi-34b": "yi_34b",
+                "mamba2-130m": "mamba2_130m"})
 
 
 def list_archs() -> List[str]:
@@ -32,9 +39,12 @@ def get_config(arch: str) -> ModelConfig:
 
 
 def smoke_config(arch: str) -> ModelConfig:
-    """Reduced same-family config: the reference's smoke widths (d_model
-    128, 4 heads of 32, 2 KV heads, d_ff 256, vocab 512, a window of 16
-    where the config has one)."""
+    """Reduced same-family config, the reference's reduced fields: d_model
+    128, 4 heads of 32, 2 KV heads, d_ff 256, vocab 512, 8 experts of
+    which 2 a token at capacity factor 4 (no drops in tiny batches) where
+    the config has experts, an RG-LRU width of 128, an SSM state of 16 in
+    heads of 32 and chunks of 8, and a window of 16 where the config has
+    one; two pattern groups, or one and the remainder."""
     cfg = get_config(arch)
     pat_len = len(cfg.block_pattern)
     n_layers = max(2 * pat_len, pat_len + cfg.n_layers % pat_len)
@@ -42,4 +52,11 @@ def smoke_config(arch: str) -> ModelConfig:
         cfg, n_layers=n_layers, d_model=128, n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) or 2, head_dim=32, d_ff=256,
         vocab_size=512,
+        n_experts=8 if cfg.n_experts else 0,
+        experts_per_token=min(cfg.experts_per_token, 2),
+        capacity_factor=4.0,
+        rnn_width=128 if cfg.rnn_width else None,
+        ssm_state=16 if cfg.ssm_state else 0,
+        ssm_headdim=32 if cfg.ssm_state else 64,
+        ssm_chunk=8,
         sliding_window=16 if cfg.sliding_window else None)

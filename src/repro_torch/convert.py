@@ -7,8 +7,11 @@ params)`) and returns the port's params: the stacked `blocks/scan` groups
 layers unrolled into the port's per-layer list, in execution order. Every
 leaf of a layer comes across, the attention biases `bq`/`bk`/`bv` of a
 `qkv_bias` config with them; a tied tree (`tie_embeddings`) has no
-`unembed` table. With both packages on the same weights, the tests hold
-the port against the reference.
+`unembed` table. Leaves come across in `cfg.param_dtype`, except those
+the reference keeps in f32 whatever `param_dtype` is (the RG-LRU's `lam`,
+the SSD's `a_log`, `dt_bias` and `d_skip`, the MoE `router`). With both
+packages on the same weights, the tests hold the port against the
+reference.
 """
 from __future__ import annotations
 
@@ -28,9 +31,14 @@ def _tensor(a, dtype, device) -> torch.Tensor:
                                                        dtype=dtype)
 
 
+# leaves the reference initializes in f32 whatever param_dtype is
+_F32_LEAVES = frozenset({"lam", "a_log", "dt_bias", "d_skip", "router"})
+
+
 def _tree(node, dtype, device):
     if isinstance(node, dict):
-        return {k: _tree(v, dtype, device) for k, v in node.items()}
+        return {k: (_tensor(v, torch.float32, device) if k in _F32_LEAVES
+                    else _tree(v, dtype, device)) for k, v in node.items()}
     return _tensor(node, dtype, device)
 
 

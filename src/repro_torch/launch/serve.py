@@ -14,12 +14,17 @@ a comma-separated downshift ladder of DotEngine modes (rung 0 = the
 deployment base mode), and --numerics-check finishes NaN/Inf lanes with
 finish_reason="numerics".
 
---arch takes any dense arch of `repro_torch.configs` (chatglm3_6b,
-qwen1_5_110b, internlm2_1_8b, yi_34b, or their dashed aliases).
+--arch takes any arch of `repro_torch.configs`: the dense chatglm3_6b,
+qwen1_5_110b, internlm2_1_8b and yi_34b, the hybrid recurrentgemma_9b,
+the SSM mamba2_130m and the MoE mixtral_8x22b and qwen3_moe_235b_a22b
+(or their dashed aliases). A model with a recurrent layer or a sliding
+window prefills each request at its exact length.
 
 Usage (CPU smoke):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
       --smoke --device cpu --requests 4 --slots 4 --max-new 4
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma_9b --smoke --device cpu
 """
 from __future__ import annotations
 

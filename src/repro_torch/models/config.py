@@ -1,5 +1,6 @@
-"""Architecture configuration of the port's dense decoder (port of
-`repro/models/config.py`, the fields the dense family uses)."""
+"""Architecture configuration of the port (port of
+`repro/models/config.py`): the dense, MoE, hybrid (RG-LRU) and SSM
+(Mamba2) families."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,20 +12,29 @@ __all__ = ["ModelConfig"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+_KINDS = ("attn", "rec", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """One dense decoder: the reference's "attn" block kind, pre-norm GQA
-    self-attention and an MLP per layer.
+    """One config type drives every ported architecture.
+
+    family: dense | moe | hybrid | ssm
+    block_pattern: per-layer block kinds, tiled across n_layers: whole
+      pattern groups run first, then the remainder layers (e.g.
+      RecurrentGemma's 38 = 12 * (rec, rec, attn) + 2 rec). The kinds:
+      "attn" (pre-norm GQA self-attention, then an MLP, or a MoE layer
+      when n_experts is set), "rec" (an RG-LRU mixer, then an MLP) and
+      "ssm" (a Mamba2 SSD mixer, no MLP).
 
     qkv_bias adds a bias after each of the q/k/v projections; rope_style
     "full" rotates every head dim, "half" (ChatGLM's 2-D RoPE) the first
     half; sliding_window limits attention to the last `sliding_window`
     positions and turns the layer's KV cache into a ring of that length;
     mlp_type is "swiglu" or "gelu"; tie_embeddings reads the LM head from
-    the embedding table. The other families and block kinds (MoE,
-    recurrent, enc-dec, VLM) are not ported.
+    the embedding table. The enc-dec and VLM families and their block
+    kinds ("cross", "xdec") are not ported.
     """
 
     name: str
@@ -41,7 +51,19 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     sliding_window: Optional[int] = None  # SWA / local attention window
     mlp_type: str = "swiglu"              # swiglu | gelu
+    # --- moe ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    # --- hybrid (RG-LRU) ---
     block_pattern: Tuple[str, ...] = ("attn",)
+    rnn_width: Optional[int] = None       # RG-LRU recurrence width
+    conv_width: int = 4
+    # --- ssm (mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 256
     norm_eps: float = 1e-5
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -51,10 +73,18 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim is None and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
-        if self.family != "dense" or set(self.block_pattern) != {"attn"}:
+        if self.family not in _FAMILIES:
             raise ValueError(
-                f"the port runs dense attention decoders only, got family "
-                f"{self.family!r} with blocks {self.block_pattern}")
+                f"family {self.family!r} is not ported; the port runs "
+                f"{', '.join(_FAMILIES)}")
+        if len(self.block_pattern) == 0:
+            raise ValueError("block_pattern must be nonempty")
+        if bad := set(self.block_pattern) - set(_KINDS):
+            raise ValueError(
+                f"block kinds {sorted(bad)} are not ported; the port runs "
+                f"{', '.join(_KINDS)}")
+        if self.family == "moe" and not self.n_experts:
+            raise ValueError("moe family needs n_experts")
         if self.rope_style not in ("full", "half"):
             raise ValueError(f"rope_style={self.rope_style!r}; expected "
                              "'full' or 'half'")
@@ -94,15 +124,59 @@ class ModelConfig:
     def d_kv_total(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def pattern_groups(self) -> int:
+        return self.n_layers // len(self.block_pattern)
+
+    @property
+    def remainder_blocks(self) -> Tuple[str, ...]:
+        rem = self.n_layers % len(self.block_pattern)
+        return self.block_pattern[:rem]
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Every layer's block kind in execution order: the pattern
+        `pattern_groups` times, then `remainder_blocks`."""
+        return (tuple(self.block_pattern) * self.pattern_groups
+                + tuple(self.remainder_blocks))
+
     def param_count(self) -> int:
         """Analytic parameter count (embeddings included once when tied),
-        the reference's formula for the dense "attn" block."""
+        the reference's formula unchanged. Its "rec" term counts wx, wy,
+        wo, the conv kernel and the two gate biases, and leaves out the
+        RG-LRU's w x w gate matrices wa and wi and its lam vector, as the
+        reference does (2 * 4096^2 + 4096 per layer of RecurrentGemma-9B)."""
         d, h = self.d_model, self.head_dim
-        per_layer = d * (self.n_heads * h) + d * (2 * self.n_kv_heads * h)
-        per_layer += (self.n_heads * h) * d
-        if self.qkv_bias:
-            per_layer += self.n_heads * h + 2 * self.n_kv_heads * h
-        per_layer += (3 if self.mlp_type == "swiglu" else 2) * d * self.d_ff
-        per_layer += 2 * d                  # norms
-        return (self.n_layers * per_layer
-                + self.vocab_size * d * (1 if self.tie_embeddings else 2))
+        counts = 0
+        for kind in self.layer_kinds:
+            if kind == "attn":
+                counts += d * (self.n_heads * h) + d * (2 * self.n_kv_heads * h)
+                counts += (self.n_heads * h) * d
+                if self.qkv_bias:
+                    counts += self.n_heads * h + 2 * self.n_kv_heads * h
+            if kind in ("attn", "rec"):
+                if self.n_experts:
+                    counts += (self.n_experts * 3 * d * self.d_ff
+                               + d * self.n_experts)
+                elif self.mlp_type == "swiglu":
+                    counts += 3 * d * self.d_ff
+                else:
+                    counts += 2 * d * self.d_ff
+            if kind == "rec":
+                w = self.rnn_width or d
+                counts += 2 * d * w + w * d + w * self.conv_width + 2 * w
+            if kind == "ssm":
+                din, N, H = self.d_inner, self.ssm_state, self.ssm_nheads
+                counts += d * (2 * din + 2 * N + H) + din * d
+                counts += (din + 2 * N) * self.conv_width + 2 * H
+            counts += 2 * d                 # norms
+        return counts + self.vocab_size * d * (1 if self.tie_embeddings
+                                                else 2)

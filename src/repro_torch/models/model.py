@@ -1,4 +1,4 @@
-"""Model facade of the dense decoder (port of `repro/models/model.py`):
+"""Model facade of every ported family (port of `repro/models/model.py`):
 
   init(seed)                                   -> params
   forward(params, batch)                       -> (logits (B, S, V), aux)
@@ -55,7 +55,8 @@ class Model:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params: Params = {
             "embed": embedding_init(gen, cfg, dev),
-            "layers": [block_init(gen, cfg, dev) for _ in range(cfg.n_layers)],
+            "layers": [block_init(gen, cfg, kind, dev)
+                       for kind in cfg.layer_kinds],
             "final_norm": {"scale": torch.ones((cfg.d_model,),
                                                dtype=cfg.pdtype, device=dev)},
         }
@@ -81,19 +82,24 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int,
                    paged: Optional[Dict[str, int]] = None) -> List[Params]:
-        """paged={"num_blocks": NB, "block_size": bs} gives every layer
-        without a sliding window a block-pool KV layout with one
-        (batch, ceil(max_len/bs)) block table shared by those layers (all
-        entries start at the trash block); window layers keep their
-        contiguous rings. The default is the contiguous per-lane layout."""
+        """One cache per layer, in execution order. paged={"num_blocks":
+        NB, "block_size": bs} gives every attention layer without a
+        sliding window a block-pool KV layout with one (batch,
+        ceil(max_len/bs)) block table shared by those layers (all entries
+        start at the trash block), and only where such a layer exists;
+        window layers keep their contiguous rings and recurrent layers
+        their per-lane states. The default is the contiguous per-lane
+        layout."""
+        cfg = self.cfg
         shared = None
-        if paged is not None and self.cfg.sliding_window is None:
+        if (paged is not None and cfg.sliding_window is None
+                and "attn" in cfg.layer_kinds):
             mbl = -(-max_len // paged["block_size"])
             shared = {**paged, "table": torch.zeros(
                 (batch, mbl), dtype=torch.int32, device=self.device)}
-        return [block_cache_init(self.cfg, batch, max_len, self.device,
+        return [block_cache_init(cfg, kind, batch, max_len, self.device,
                                  paged=shared)
-                for _ in range(self.cfg.n_layers)]
+                for kind in cfg.layer_kinds]
 
     def _head_table(self, params: Params) -> Params:
         """The LM head's table: the embedding's when tied."""
@@ -119,9 +125,11 @@ class Model:
                 cache: List[Params], last_index: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, List[Params], None]:
         """Process prompts (B, S); returns (logits at each lane's
-        `last_index` (or S-1), cache, None). Right-padded prompts are safe:
-        causal attention masks the padding, and later decode steps
-        overwrite its cache slots position for position."""
+        `last_index` (or S-1), cache, None). Right-padded prompts are safe
+        for attention layers (causal attention masks the padding, and
+        later decode steps overwrite its cache slots position for
+        position), not for recurrent ones, whose state advances over the
+        padding: the serving engine prefills those at exact length."""
         cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape

@@ -1,0 +1,120 @@
+"""Mixture-of-Experts layer: top-k routing, capacity-based sort dispatch
+(port of `repro/models/moe.py`).
+
+Dispatch is gather-based: each batch row's token assignments are sorted
+by expert id (stably), each assignment's position within its expert comes
+from the sorted order, and tokens are gathered into a (B, E, C, d)
+buffer. Assignments past an expert's capacity C go to a sink slot and
+are dropped: their combine weight is zero, so the residual passes
+through. The router and the expert GEMMs are plain matmuls, as they are
+plain `jnp.einsum` in the reference: under a digit mode an MoE layer runs
+the DotEngine on its attention GEMMs only.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.numerics import DotEngine
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+__all__ = ["moe_init", "moe_apply"]
+
+
+def _stacked_init(gen: torch.Generator, E: int, d_in: int, d_out: int,
+                  dtype, device) -> torch.Tensor:
+    """E experts' (d_in, d_out) weights at dense_init's scale, drawn in
+    one call (no per-expert copies of a layer's largest tensors)."""
+    scale = (2.0 / (d_in + d_out)) ** 0.5
+    w = torch.randn((E, d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device)
+    return w.mul_(scale).to(dtype)
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    d, f, E, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.pdtype
+    return {
+        "router": _stacked_init(gen, 1, d, E, torch.float32, device)[0],
+        "wg": _stacked_init(gen, E, d, f, dt, device),   # (E, d, f)
+        "wu": _stacked_init(gen, E, d, f, dt, device),
+        "wd": _stacked_init(gen, E, f, d, dt, device),
+    }
+
+
+def _capacity(tokens: int, cfg: ModelConfig) -> int:
+    c = int(tokens * cfg.experts_per_token * cfg.capacity_factor
+            / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)   # round up to 8 for tiling
+
+
+def _route_row(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """Route one batch row's T tokens, xt (T, d). Returns the dispatch
+    plan (token id per (expert, slot) (E*C,), each sorted assignment's
+    slot (sink E*C when dropped), token, weight and keep flag (T*K,)) and
+    the row's aux loss E * sum(me * ce)."""
+    T = xt.shape[0]
+    E, K = cfg.n_experts, cfg.experts_per_token
+    C = _capacity(T, cfg)
+    dev = xt.device
+    gates = torch.softmax(torch.matmul(xt.to(torch.float32), router), dim=-1)
+    # jax.lax.top_k's order: descending, the lower index first among ties
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topw, topi = vals[:, :K], idx[:, :K]
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    me = gates.mean(dim=0)
+    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
+        0, topi.reshape(-1), torch.ones((T * K,), device=dev)) / (T * K)
+    aux = E * torch.sum(me * ce)
+
+    flat_e = topi.reshape(-1)                          # (T*K,)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(K)
+    flat_w = topw.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sw = flat_e[order], flat_t[order], flat_w[order]
+    pos = (torch.arange(T * K, device=dev)
+           - torch.searchsorted(se, se, side="left"))
+    keep = pos < C
+    slot = torch.where(keep, se * C + pos, torch.full_like(se, E * C))
+    buf_tok = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
+    buf_tok[slot[keep]] = st[keep]
+    return buf_tok[:-1], slot, st, sw, keep, aux
+
+
+def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              eng: DotEngine) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (output (B, S, d), aux loss ()). Routing is per
+    batch row; the experts run one batched matmul over (B, E, C, d).
+    `eng` is the block's MLP engine, which the reference's expert einsums
+    do not use either."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    C = _capacity(S, cfg)                              # per-row capacity
+    plans = [_route_row(x[b], p["router"], cfg) for b in range(B)]
+    buf_tok, slot, st, sw, keep, aux = (torch.stack(t) for t in zip(*plans))
+    aux = aux.mean()
+
+    buf_ec = buf_tok.reshape(B, E, C)                  # token id per slot
+    x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
+    rows = torch.arange(B, device=x.device)[:, None, None]
+    xe = x_pad[rows, buf_ec]                           # (B, E, C, d)
+
+    wg, wu, wd = (p[k].to(x.dtype) for k in ("wg", "wu", "wd"))
+    g = F.silu(torch.einsum("becd,edf->becf", xe, wg).to(torch.float32))
+    u = torch.einsum("becd,edf->becf", xe, wu)
+    ye = torch.einsum("becf,efd->becd", g.to(x.dtype) * u, wd)
+
+    # per-slot combine weights aligned to the (E, C) buffer
+    wslot = torch.zeros((B, E * C + 1), dtype=torch.float32, device=x.device)
+    wslot.scatter_(1, slot, torch.where(keep, sw, torch.zeros_like(sw)))
+    upd = ye * wslot[:, :-1].reshape(B, E, C)[..., None].to(x.dtype)
+
+    # combine: scatter-add each slot's update into its token's row (the
+    # empty slots into row S, which is cut off)
+    tok = torch.clamp(buf_ec, max=S) + rows * (S + 1)
+    out = x.new_zeros((B * (S + 1), d)).index_add_(
+        0, tok.reshape(-1), upd.reshape(-1, d))
+    return out.reshape(B, S + 1, d)[:, :S], aux

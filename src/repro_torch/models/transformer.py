@@ -1,8 +1,13 @@
-"""The decoder block and the layer stack (port of
-`repro/models/transformer.py`, the "attn" block of the dense family).
+"""The blocks and the layer stack (port of `repro/models/transformer.py`):
+
+  attn - pre-norm self-attention (GQA/SWA/RoPE) + MLP, or MoE when the
+         config has experts
+  rec  - pre-norm RG-LRU recurrent mixer + MLP            (recurrentgemma)
+  ssm  - Mamba2 SSD block (no separate MLP)               (mamba2)
 
 The reference scans stacked pattern groups under jit; here the stack is a
-list of per-layer param dicts run by a Python loop.
+list of per-layer param dicts, in execution order (`cfg.layer_kinds`: the
+pattern groups, then the remainder), run by a Python loop.
 """
 from __future__ import annotations
 
@@ -14,26 +19,51 @@ from repro_torch.core.numerics import DotEngine
 from .config import ModelConfig
 from .layers import (attention_apply, attention_init, mlp_apply, mlp_init,
                      rmsnorm)
+from .moe import moe_apply, moe_init
+from .recurrent import (rglru_apply, rglru_init, rglru_state_init, ssd_apply,
+                        ssd_init, ssd_state_init)
 
 Params = Dict[str, Any]
 
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
+               device) -> Params:
     ones = torch.ones((cfg.d_model,), dtype=cfg.pdtype, device=device)
-    return {"norm1": {"scale": ones.clone()},
-            "attn": attention_init(gen, cfg, device),
-            "norm2": {"scale": ones.clone()},
-            "mlp": mlp_init(gen, cfg, device)}
+    p: Params = {"norm1": {"scale": ones.clone()}}
+    if kind == "attn":
+        p["attn"] = attention_init(gen, cfg, device)
+    elif kind == "rec":
+        p["rec"] = rglru_init(gen, cfg, device)
+    elif kind == "ssm":
+        p["ssm"] = ssd_init(gen, cfg, device)
+        return p                    # the SSD block has no separate MLP
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    p["norm2"] = {"scale": ones.clone()}
+    if cfg.n_experts and kind == "attn":
+        p["moe"] = moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, device)
+    return p
 
 
-def block_cache_init(cfg: ModelConfig, batch: int, max_len: int, device,
-                     paged: Optional[Dict[str, Any]] = None) -> Params:
-    """One layer's KV cache: contiguous (B, T, Hkv, Dh) k and v, or, with
-    paged={"num_blocks", "block_size", "table"}, a block pool per k and v
-    plus the lane block table shared by every paged layer. A
-    sliding-window layer holds T = min(max_len, window) slots (a ring when
-    T == window) and stays contiguous even when `paged` is given: the
-    window already bounds what it keeps."""
+def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     device, paged: Optional[Dict[str, Any]] = None
+                     ) -> Params:
+    """One layer's decode cache. An "attn" layer holds contiguous
+    (B, T, Hkv, Dh) k and v, or, with paged={"num_blocks", "block_size",
+    "table"}, a block pool per k and v plus the lane block table shared by
+    every paged layer. A sliding-window layer holds T = min(max_len,
+    window) slots (a ring when T == window) and stays contiguous even when
+    `paged` is given: the window already bounds what it keeps. A "rec" or
+    "ssm" layer holds its recurrent state ({"h", "conv"}, f32, O(1) a
+    lane), contiguous under either layout."""
+    if kind == "rec":
+        return rglru_state_init(cfg, batch, device)
+    if kind == "ssm":
+        return ssd_state_init(cfg, batch, device)
+    if kind != "attn":
+        raise ValueError(f"unknown block kind {kind!r}")
     H, D, dt = cfg.n_kv_heads, cfg.head_dim, cfg.cdtype
     if paged is not None and cfg.sliding_window is None:
         shape = (paged["num_blocks"], paged["block_size"], H, D)
@@ -48,30 +78,49 @@ def block_cache_init(cfg: ModelConfig, batch: int, max_len: int, device,
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def block_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 positions: torch.Tensor, eng: DotEngine, *,
                 cache: Optional[Params] = None,
-                chunked: bool = False) -> torch.Tensor:
-    """Pre-norm self-attention + MLP. Attention GEMMs run under
-    eng.for_role("attn"), the MLP under eng.for_role("mlp")."""
+                chunked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux loss). Attention GEMMs run under
+    eng.for_role("attn"), the MLP and MoE under eng.for_role("mlp");
+    recurrent and SSD mixers keep the base engine (their GEMMs are gate
+    and in/out projections, not attention)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    o, _ = attention_apply(p["attn"], cfg, h, positions, eng.for_role("attn"),
-                           kv_cache=cache, chunked=chunked)
+    if kind == "attn":
+        o, _ = attention_apply(p["attn"], cfg, h, positions,
+                               eng.for_role("attn"), kv_cache=cache,
+                               chunked=chunked)
+    elif kind == "rec":
+        o, _ = rglru_apply(p["rec"], cfg, h, eng, state=cache)
+    elif kind == "ssm":
+        o, _ = ssd_apply(p["ssm"], cfg, h, eng, state=cache)
+        return x + o, aux
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
     x = x + o
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], cfg, h2, eng.for_role("mlp"))
+    mlp_eng = eng.for_role("mlp")
+    if "moe" in p:
+        m, aux = moe_apply(p["moe"], cfg, h2, mlp_eng)
+    else:
+        m = mlp_apply(p["mlp"], cfg, h2, mlp_eng)
+    return x + m, aux
 
 
 def stack_apply(layers: List[Params], cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, eng: DotEngine, *,
                 caches: Optional[List[Params]] = None,
                 chunked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run every layer in order (caches updated in place; `chunked`
-    makes an S > 1 call a chunked-prefill write, see attention_apply).
-    Returns (x, aux loss): the aux loss of dense blocks is a 0-d f32
-    zero, as in the reference."""
-    for i, p in enumerate(layers):
-        x = block_apply(p, cfg, x, positions, eng,
-                        cache=None if caches is None else caches[i],
-                        chunked=chunked)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    """Run every layer in execution order (caches updated in place;
+    `chunked` makes an S > 1 call a chunked-prefill write, see
+    attention_apply). Returns (x, the aux loss summed over the layers in
+    that order, a 0-d f32 tensor: zero without experts)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (kind, p) in enumerate(zip(cfg.layer_kinds, layers)):
+        x, a = block_apply(p, cfg, kind, x, positions, eng,
+                           cache=None if caches is None else caches[i],
+                           chunked=chunked)
+        aux = aux + a
+    return x, aux

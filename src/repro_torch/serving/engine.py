@@ -8,18 +8,21 @@ queue feeds empty lanes.
     prompts right-padded to a shared pow2 length bucket and the batch row
     count padded to a pow2 bucket. Per-lane `last_index` picks each
     prompt's real final position out of the padded rows. A model with a
-    sliding window prefills one request at a time at its exact length
-    instead (a pad tail longer than the window would wrap its ring). A
-    `prefill_chunk` knob splits long prompts into fixed-size chunks
-    interleaved with decode steps, so one long prompt never stalls the
-    running decode lanes.
+    recurrent or SSM layer (its state advances over a pad tail) or a
+    sliding window (a pad tail longer than the window would wrap its
+    ring) prefills one request at a time at its exact length instead. A
+    `prefill_chunk` knob splits long prompts of attention-only models into
+    fixed-size chunks interleaved with decode steps, so one long prompt
+    never stalls the running decode lanes.
   * Decode stays GEMV-shaped: one token per lane per step, greedy.
 
 KV memory defaults to the paged layout (`kv_layout="paged"`): each layer
 holds a block pool plus per-lane block tables, so residency scales with
 live tokens instead of `slots * max_len`, and finished lanes return their
 blocks to the free list at once. Block 0 is the shared trash block.
-Sliding-window layers keep their contiguous rings under either layout. The
+Sliding-window layers keep their contiguous rings and recurrent layers
+their per-lane states under either layout; the allocator keeps its
+accounting when no layer is paged. The
 contiguous layout (`kv_layout="contiguous"`) is kept as the reference the
 paged one is held against token for token.
 
@@ -80,6 +83,14 @@ from .faults import TransientPrefillError
 from .report import ServeReport
 
 __all__ = ["Request", "ServeEngine"]
+
+
+# Block kinds whose prefill is safe to right-pad: causal attention masks
+# padded positions out, and later decode steps overwrite their cache slots
+# position for position. Recurrent and SSM state advances on every token,
+# so a padded tail would corrupt it: those families prefill each request
+# at its exact length.
+_PAD_SAFE_KINDS = frozenset({"attn"})
 
 
 def _pow2_bucket(n: int, lo: int = 1) -> int:
@@ -289,14 +300,19 @@ class ServeEngine:
         self._prefill_backoff_until = 0
 
         cfg = model.cfg
-        # pow2 prompt bucketing needs right-padding to be harmless: a pad
-        # tail longer than the window would wrap a sliding-window ring and
-        # overwrite positions still in the window, so such models prefill
-        # each request at its exact length.
-        self._bucketed = cfg.sliding_window is None
+        # pow2 prompt bucketing needs right-padding to be harmless: see
+        # _PAD_SAFE_KINDS; and a pad tail longer than the window would
+        # wrap a sliding-window ring and overwrite positions still in the
+        # window. Such models prefill each request at its exact length.
+        self._bucketed = (set(cfg.layer_kinds) <= _PAD_SAFE_KINDS
+                          and cfg.sliding_window is None)
         self.prefill_bucket_min = prefill_bucket_min
 
         if prefill_chunk is not None:
+            if not set(cfg.layer_kinds) <= _PAD_SAFE_KINDS:
+                raise ValueError(
+                    "prefill_chunk requires an attention-only block "
+                    "pattern (recurrent/SSM state can't be chunk-padded)")
             if cfg.sliding_window is not None:
                 raise ValueError(
                     "prefill_chunk is not supported with sliding_window "
@@ -798,8 +814,8 @@ class ServeEngine:
         """Scatter a fresh (Bp, Sb) row cache into the lanes, layer by
         layer: paged layers through the lanes' block tables (padding rows,
         invalid rows and blocks past a row's owned ones land in the trash
-        block), contiguous layers and sliding-window rings row by row for
-        the valid rows."""
+        block); contiguous layers, sliding-window rings and every leaf of
+        a recurrent state (h, conv) row by row for the valid rows."""
         blk = None
         if self.kv_layout == "paged":
             bs = self.kv_block_size
@@ -818,9 +834,9 @@ class ServeEngine:
                 paged_scatter_rows(lane_c["kpool"], row_c["k"], blk)
                 paged_scatter_rows(lane_c["vpool"], row_c["v"], blk)
             elif valid.any():
-                for key in ("k", "v"):
+                for key, dst in lane_c.items():
                     src = row_c[key]
-                    lane_c[key][lanes, :src.shape[1]] = src[rows]
+                    dst[lanes, :src.shape[1]] = src[rows].to(dst.dtype)
         if self.kv_layout == "paged":
             self._flush_tables()
 
@@ -1042,15 +1058,18 @@ class ServeEngine:
 
     def kv_report(self) -> ServeReport:
         """KV residency: bytes resident for attention K/V under the current
-        layout against what the contiguous `slots * max_len` layout would
-        hold (shape arithmetic, so it is exact and deterministic)."""
+        layout against what the contiguous layout of `init_cache(slots,
+        max_len)` would hold in its K/V leaves: its attention layers only
+        (recurrent states are not K/V), a window layer's ring at its
+        window. Shape arithmetic, so it is exact and deterministic."""
         cfg = self.model.cfg
         per_token = 2 * cfg.n_kv_heads * cfg.head_dim * torch.finfo(
             cfg.cdtype).bits // 8
         T = self.max_len            # a window layer's ring holds its window
         if cfg.sliding_window is not None:
             T = min(T, cfg.sliding_window)
-        contiguous = cfg.n_layers * self.slots * T * per_token
+        contiguous = (cfg.layer_kinds.count("attn") * self.slots * T
+                      * per_token)
         return ServeReport({
             "kv_layout": self.kv_layout,
             "kv_bytes_resident": self._kv_bytes(self.cache),

@@ -452,3 +452,40 @@ def test_bf16_activations_through_engine(cuda):
             assert got.dtype == torch.bfloat16
             assert torch.equal(got.cpu().view(torch.int16),
                                want.view(torch.int16))
+
+
+RECURRENTGEMMA_KN = [(4096, 4096), (4096, 256), (4096, 12288), (12288, 4096),
+                     (4096, 256000)]
+
+
+@pytest.mark.parametrize("M", [4, 7])
+@pytest.mark.parametrize("K,N", RECURRENTGEMMA_KN)
+def test_kernel_at_recurrentgemma_shapes(cuda, M, K, N):
+    # RecurrentGemma-9B's eng.dot GEMMs at a decode and a ragged
+    # exact-length prefill; the 256000-wide head on its first and last
+    # 2048 columns (an output's bits depend on its own column alone)
+    x, w = _operands(cuda, M, K, N, seed=K + N)
+    got = olm_matmul(x, w, n_bits=16)
+    spans = [(0, N)] if N <= 32768 else [(0, 2048), (N - 2048, N)]
+    for a, b in spans:
+        want = olm_matmul_ref(x, w[:, a:b], n_bits=16)
+        assert torch.equal(got[:, a:b].contiguous().view(torch.int32),
+                           want.view(torch.int32))
+
+
+def test_mamba2_decode_after_prefill_matches_forward_on_card(cuda):
+    # the SSD stack on the card: a prefill, then one decode step, against
+    # forward over the same tokens (bf16 compute, K1 at every eng.dot)
+    cfg = dataclasses.replace(smoke_config("mamba2_130m"), dot_mode="olm16")
+    model = Model(cfg, device=cuda)
+    params = model.init(seed=0)
+    toks = torch.randint(0, 512, (2, 12), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(0))
+    full, _ = model.forward(params, {"tokens": toks})
+    lg, cache, _ = model.prefill(params, {"tokens": toks[:, :11]},
+                                 model.init_cache(2, 16))
+    dec, _ = model.decode_step(params, toks[:, 11],
+                               torch.full((2,), 11, device=cuda), cache)
+    scale = float(full.abs().max())
+    assert float((lg - full[:, 10]).abs().max()) / scale <= 3e-2
+    assert float((dec - full[:, 11]).abs().max()) / scale <= 3e-2

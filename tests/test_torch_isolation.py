@@ -48,7 +48,9 @@ def test_port_modules_found():
     assert {"matmul_kernel.py", "engine.py", "chip_smoke.py", "degrade.py",
             "faults.py", "replay.py", "chatglm3_6b.py", "yi_34b.py",
             "qwen1_5_110b.py", "sd.py", "online_add.py", "pipeline.py",
-            "inner_product.py", "hwmodel.py"} <= names
+            "inner_product.py", "hwmodel.py", "recurrent.py", "moe.py",
+            "recurrentgemma_9b.py", "mamba2_130m.py", "mixtral_8x22b.py",
+            "qwen3_moe_235b_a22b.py"} <= names
 
 
 def test_degrade_ladder_resolves_modes_from_the_port_registry(monkeypatch):

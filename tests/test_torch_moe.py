@@ -1,0 +1,167 @@
+"""The port's MoE layer (`repro_torch/models/moe.py`) against the JAX
+reference's on the same weights and inputs: `_capacity`, the per-row
+dispatch plan of `_route_row` (token per slot, slot, token, weight and
+keep flag per sorted assignment, the aux loss), and `moe_apply`, without
+capacity drops (the smoke configs' capacity factor of 4), with them (a
+capacity factor of 1 and a router that piles every token onto one
+expert, so the sink slot takes the overflow) and with tied gates (where
+top-k takes the lower expert index first, as jax.lax.top_k does).
+
+The plans' indices and keep flags are held exactly, their combine
+weights and the aux loss within 1e-5 relative (the router's f32 matmul
+sums in another order); `moe_apply` within 1e-5 of the largest |output|
+at f32 (the combine adds each token's expert rows in another order too)
+and 3e-2 at bf16.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config as jax_smoke_config
+from repro.core.numerics import DotEngine as JEngine
+from repro.models import moe as jmoe
+from repro_torch.configs import smoke_config
+from repro_torch.core.numerics import DotEngine
+from repro_torch.models import moe as tmoe
+
+ARCH = "mixtral_8x22b"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def cfgs(**over):
+    return (dataclasses.replace(jax_smoke_config(ARCH), **over),
+            dataclasses.replace(smoke_config(ARCH), **over))
+
+
+def params(jcfg, router=None):
+    jp = jmoe.moe_init(jax.random.PRNGKey(1), jcfg)
+    if router is not None:
+        jp["router"] = jnp.asarray(router)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    return jp, tp
+
+
+def rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def piled_router(d, E, seed=2):
+    """A router whose first expert outscores every other for every token
+    of a positive input: all top-1 choices land on expert 0."""
+    r = 0.01 * rand((d, E), seed)
+    r[:, 0] += 0.05
+    return r
+
+
+def tied_router(d, E, seed=3):
+    """Experts in pairs (0,1), (2,3), ... with equal router columns: every
+    gate ties with its partner's."""
+    r = 0.1 * rand((d, E // 2), seed)
+    return np.repeat(r, 2, axis=1)
+
+
+ROUTERS = {
+    "no-drops": (dict(), None, False),
+    "drops": (dict(capacity_factor=1.0), piled_router, True),
+    "tied": (dict(), tied_router, False),
+}
+
+
+@pytest.fixture(params=sorted(ROUTERS))
+def routed(request):
+    over, make, positive = ROUTERS[request.param]
+    jcfg, cfg = cfgs(**over)
+    router = None if make is None else make(cfg.d_model, cfg.n_experts)
+    jp, tp = params(jcfg, router)
+    x = rand((2, 16, cfg.d_model), 4)
+    if positive:
+        x = np.abs(x)
+    return request.param, jcfg, cfg, jp, tp, x
+
+
+@pytest.mark.parametrize("T", [1, 7, 16, 33, 100])
+def test_capacity_matches_reference(T):
+    for cf in (1.0, 1.25, 4.0):
+        jcfg, cfg = cfgs(capacity_factor=cf)
+        assert tmoe._capacity(T, cfg) == jmoe._capacity(T, jcfg)
+
+
+def test_route_row_plan_matches_reference(routed):
+    case, jcfg, cfg, jp, tp, x = routed
+    for row in x:
+        want = jmoe._route_row(jnp.asarray(row), jp["router"], jcfg)
+        got = tmoe._route_row(torch.from_numpy(row), tp["router"], cfg)
+        names = ("buf_tok", "slot", "st", "sw", "keep")
+        for name, w, g in zip(names, want[:5], got[:5]):
+            w, g = np.asarray(w), g.numpy()
+            if name == "sw":
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=0)
+            else:
+                np.testing.assert_array_equal(g, w.astype(g.dtype), name)
+        assert abs(float(got[5]) - float(want[5])) <= 1e-5 * float(want[5])
+    keep = got[4]
+    if case == "drops":
+        assert not bool(keep.all())             # the sink took the overflow
+        E, C = cfg.n_experts, tmoe._capacity(x.shape[1], cfg)
+        assert bool((got[1][~keep] == E * C).all())
+    else:
+        assert bool(keep.all())
+
+
+def test_tied_gates_take_the_lower_expert_first():
+    jcfg, cfg = cfgs()
+    router = tied_router(cfg.d_model, cfg.n_experts)
+    jp, tp = params(jcfg, router)
+    x = torch.from_numpy(rand((16, cfg.d_model), 5))
+    gates = torch.softmax(x @ tp["router"], dim=-1)
+    assert bool((gates[:, 0::2] == gates[:, 1::2]).all())   # exact ties
+    _, slot, st, _, _, _ = tmoe._route_row(x, tp["router"], cfg)
+    C = tmoe._capacity(16, cfg)
+    experts = torch.div(slot, C, rounding_mode="floor")
+    # each token's two picks are a tied pair, the even expert first
+    order = torch.argsort(st, stable=True)
+    picks = experts[order].reshape(16, 2)
+    assert bool((picks[:, 0] % 2 == 0).all())
+    assert bool((picks[:, 1] == picks[:, 0] + 1).all())
+
+
+@pytest.mark.parametrize("dt,tol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+def test_moe_apply_matches_reference(routed, dt, tol):
+    case, jcfg, cfg, jp, tp, x = routed
+    jcfg = dataclasses.replace(jcfg, compute_dtype=dt)
+    cfg = dataclasses.replace(cfg, compute_dtype=dt)
+    xj = jnp.asarray(x, jcfg.cdtype)
+    xt = torch.from_numpy(x).to(cfg.cdtype)
+    yw, aw = jmoe.moe_apply(jp, jcfg, xj, JEngine(mode="native"))
+    yg, ag = tmoe.moe_apply(tp, cfg, xt, DotEngine(mode="native"))
+    assert yg.dtype == cfg.cdtype and yg.shape == xt.shape
+    yw = np.asarray(yw.astype(jnp.float32))
+    yg = yg.to(torch.float32).numpy()
+    assert np.abs(yw - yg).max() <= tol * np.abs(yw).max()
+    assert abs(float(ag) - float(aw)) <= 1e-5 * float(aw)
+    if case == "drops" and dt == "float32":
+        # a dropped assignment adds nothing: each token's output is the
+        # weighted sum of its kept experts' FFNs alone
+        xr = torch.from_numpy(x[0])
+        _, slot, st, sw, keep, _ = tmoe._route_row(xr, tp["router"], cfg)
+        C = tmoe._capacity(x.shape[1], cfg)
+        want = torch.zeros_like(xr)
+        for s_, t, w in zip(slot[keep].tolist(), st[keep].tolist(),
+                            sw[keep].tolist()):
+            e = s_ // C
+            g = torch.nn.functional.silu(xr[t] @ tp["wg"][e])
+            want[t] += w * ((g * (xr[t] @ tp["wu"][e])) @ tp["wd"][e])
+        assert float((want - torch.from_numpy(yg[0])).abs().max()) <= \
+            1e-5 * float(want.abs().max())
