@@ -104,7 +104,24 @@ Phases, each printing its own lines:
                decode steps under olm16 (launches == passes x 9: the
                experts are plain matmuls, as in the reference), finite
                logits, and a finite, positive aux loss from forward; the
-               assignments the expert capacity dropped are printed.
+               assignments the expert capacity dropped are printed;
+ 10. tune    - the autotuner: `tuning.tune` under olm16 at the ten serve
+               GEMM shapes into a temporary cache (every candidate plan
+               timed and held bit-identical to the heuristic's), then
+               SERVE's workload again under dot_tiling="auto" on that
+               cache (the serve phase's olm16 tokens, launches == passes
+               x 169, tuner misses 0 and hits == GEMMs), and the committed
+               results/tuning_torch.json against this run's winners;
+ 11. crossattn - Llama-3.2-Vision-11B (40 layers, 8 cross-attention) and
+               SeamlessM4T-medium (12 encoder + 12 xdec layers) at full
+               published width and depth under olm16, frontend embeddings
+               N(0, 1) from the seed: a 2 x 12 prefill and 3 decode steps
+               with its memory, and forward over 12 and 15 tokens (the
+               prefill bit-identical to forward's last position, each
+               decode within 3e-2 of forward, launches == GEMMs), each
+               call's wall and K1's share of it. K1 is also checked and
+               timed at their new GEMM shapes (the 2048-row cross K/V and
+               encoder GEMMs on their first and last 64 rows).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -116,9 +133,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -230,6 +249,22 @@ FAMILY_KN = {
 }
 RG_ROWS = (7, 64)
 WHOLE_N = 32768
+# The enc-dec and VLM families: K1 at the eng.dot (K, N) their GEMMs give
+# it that no earlier family did, at a 4-lane decode (heads wider than
+# WHOLE_N on their first and last K1_SLICE columns) and, for the cross
+# K/V over 1024 patch tokens a lane and the encoder over 1024 frames a
+# lane, at M = ENC_ROWS, checked on its first and last ENC_CHECK_ROWS
+# rows (an output row's bits depend on its own row of x alone).
+CROSS_KN = {
+    "llama_3_2_vision_11b": ((4096, 1024), (4096, 14336), (14336, 4096),
+                             (4096, 128256)),
+    "seamless_m4t_medium": ((1024, 1024), (1024, 4096), (4096, 1024),
+                            (1024, 256256)),
+}
+CROSS_ROWS_KN = {"llama_3_2_vision_11b": ((4096, 1024),),
+                 "seamless_m4t_medium": ((1024, 1024), (1024, 4096),
+                                         (4096, 1024))}
+ENC_ROWS, ENC_CHECK_ROWS = 2048, 64
 # The paper's scalar model as K3's and K4's oracle: (B, K, n) and (B, n)
 ORACLE_DOT = (64, 256, 16)
 ORACLE_MUL = (256, 16)
@@ -256,6 +291,13 @@ SERVE_LAYERS = None                # None = the full published depth
 RING_PROMPT, RING_MAX_LEN, RING_DECODES = 2100, 2304, 4
 MAMBA_PROMPT = 31
 MOE_DEPTH = (("mixtral_8x22b", 2), ("qwen3_moe_235b_a22b", 2))
+# The crossattn phase: Llama-3.2-Vision-11B and SeamlessM4T-medium at full
+# published width and depth under olm16, CROSS_LANES lanes with frontend
+# embeddings N(0, 1) from the seed: a CROSS_PROMPT-token prefill, then
+# CROSS_DECODES decode steps with the memory prefill returned, against
+# forward over the prompt and over all CROSS_PROMPT + CROSS_DECODES tokens.
+CROSS_ARCHS = ("llama_3_2_vision_11b", "seamless_m4t_medium")
+CROSS_LANES, CROSS_PROMPT, CROSS_DECODES = 2, 12, 3
 # The replay phase: benchmarks/run.py::serve_faults_bench's engine with
 # its ladder's rungs replaced by olm16 ones, and its seed-0 workload and
 # fault plan. vocab=512 keeps the baseline's arrival schedule and prompt
@@ -275,15 +317,19 @@ REPLAY_REASONS = {"eos", "length", "max_len", "cache_full", "deadline",
                   "rejected", "numerics", "failed"}
 
 
-def gemms_per_pass(cfg) -> int:
+def gemms_per_pass(cfg, encoder: bool = False) -> int:
     """The eng.dot GEMMs of one forward pass of `cfg`: an attention layer
     issues q, k, v, o and its MLP's (none for a MoE layer: the experts
-    are plain matmuls), a recurrent layer wx, wy, wo and its MLP's, an
-    SSD layer win and wout, and the LM head one."""
+    are plain matmuls), a cross-attention layer the same, an xdec layer
+    both attentions' and its MLP's, a recurrent layer wx, wy, wo and its
+    MLP's, an SSD layer win and wout, and the LM head one; with `encoder`,
+    also the encoder's layers (4 and a GELU MLP's 2 each), which a pass
+    that takes frames runs first."""
     mlp = 3 if cfg.mlp_type == "swiglu" else 2
-    per_kind = {"attn": 4 + (0 if cfg.n_experts else mlp),
-                "rec": 3 + mlp, "ssm": 2}
-    return sum(per_kind[k] for k in cfg.layer_kinds) + 1
+    per_kind = {"attn": 4 + (0 if cfg.n_experts else mlp), "cross": 4 + mlp,
+                "xdec": 8 + mlp, "rec": 3 + mlp, "ssm": 2}
+    return (sum(per_kind[k] for k in cfg.layer_kinds) + 1
+            + (6 * cfg.n_enc_layers if encoder else 0))
 
 
 def smi(fields: str) -> str:
@@ -419,6 +465,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.online_dot import kernel as k3
     from repro_torch.kernels.online_dot import matmul_kernel as k12
+    from repro_torch.kernels.online_dot import tuning
     from repro_torch.kernels.online_dot.matmul import (_quantize_tiles,
                                                        _tile_plan,
                                                        olm_matmul,
@@ -566,6 +613,24 @@ def main() -> int:
                         whole=M < 64 and N <= WHOLE_N)
                 del xs, ws
                 torch.cuda.empty_cache()
+    for arch, kns in CROSS_KN.items():
+        for K, N in kns:
+            xs, ws = operands((4, K, N), 17, dev)
+            hold_k1(f"olm16 {arch} M,K,N={(4, K, N)}", xs, ws,
+                    whole=N <= WHOLE_N)
+            del xs, ws
+            torch.cuda.empty_cache()
+        for K, N in CROSS_ROWS_KN[arch]:
+            xs, ws = operands((ENC_ROWS, K, N), 18, dev)
+            got = olm_matmul(xs, ws, n_bits=16)
+            for a, b in ((0, ENC_CHECK_ROWS),
+                         (ENC_ROWS - ENC_CHECK_ROWS, ENC_ROWS)):
+                hold("olm_matmul_fused", f"olm16 {arch} M,K,N="
+                     f"{(ENC_ROWS, K, N)} rows {a}:{b}",
+                     got[a:b].contiguous(),
+                     plain_olm16(xs[a:b].contiguous(), ws))
+            del xs, ws, got
+            torch.cuda.empty_cache()
 
     for n, truncated in MUL_CASES:
         cfg = OnlinePrecision(n=n, truncated=truncated, tail_gating=truncated)
@@ -787,6 +852,24 @@ def main() -> int:
                    f"plan bm x bn x tb {plan.bm} x {plan.bn} x {plan.tb}")
             del x, w
             torch.cuda.empty_cache()
+    # K1 at the enc-dec and VLM families' new shapes: a 4-lane decode and
+    # the ENC_ROWS-row cross K/V and encoder GEMMs (the plain version timed
+    # at M = 4 up to WHOLE_N columns)
+    for arch, kns in CROSS_KN.items():
+        for M, K, N in ([(4, K, N) for K, N in kns]
+                        + [(ENC_ROWS, K, N) for K, N in CROSS_ROWS_KN[arch]]):
+            x, w = operands((M, K, N), 19, dev)
+            plan = k12.launch_plan(M, N, K, 16)
+            record("olm_matmul_fused", f"olm16 {arch} M={M} K={K} N={N}",
+                   cuda_ms(lambda: k12.olm_matmul_fused(x, w, n=16),
+                           reps=5 if M == 4 else 3, warmup=1),
+                   cuda_ms(lambda: plain_olm16(x, w), reps=1)
+                   if M == 4 and N <= WHOLE_N else None,
+                   (M * K + K * N + M * N) * 4, k12.int_ops(M, N, K, n=16),
+                   rate, f"plan bm x bn x tb {plan.bm} x {plan.bn} x "
+                   f"{plan.tb}")
+            del x, w
+            torch.cuda.empty_cache()
     for n, truncated in MUL_CASES[:4]:
         cfg = OnlinePrecision(n=n)
         xd, yd = digits((MUL_B, n), n, dev)
@@ -875,21 +958,28 @@ def main() -> int:
               f"({cfg.param_count() * 4 / 1e9:.1f} GB) from seed "
               f"{SERVE['seed']}, compute {cfg.compute_dtype}", flush=True)
 
-    def serve(tag, cfg, params, mode, profile=True):
-        """SERVE's workload through ServeEngine under `mode`: a run with
+    serve_stats = {}
+
+    def serve(tag, cfg, params, mode, profile=True, engine_kw=None):
+        """SERVE's workload through ServeEngine under `mode` (and
+        `engine_kw`, ServeEngine's further keywords): a run with
         the launch counts set to 0 just before it (gates: every request
         answered, finite logits, launches == GEMMs issued; a model that
         cannot right-pad its prompts prefills each request alone at its
         exact length), a second with the path kernel's launches bracketed
         (the same tokens), a third profiled unless `profile` is False.
-        Returns the first run's outputs by rid."""
+        Returns the first run's outputs by rid; its wall, GEMMs and, under
+        dot_tiling="auto", the tuner cache's hits and misses go into
+        serve_stats."""
+        auto = (engine_kw or {}).get("dot_tiling") == "auto"
         model = Model(cfg, DotEngine(mode=mode), device=dev)
         prompt_lens = []
 
         def seeded_engine():
             engine = ServeEngine(model, params, slots=SERVE["slots"],
                                  max_len=SERVE["max_len"],
-                                 kv_block_size=SERVE["block"], device=dev)
+                                 kv_block_size=SERVE["block"], device=dev,
+                                 **(engine_kw or {}))
             rng = np.random.default_rng(SERVE["seed"])
             lo, hi = SERVE["prompt"]
             for rid in range(SERVE["requests"]):
@@ -918,18 +1008,25 @@ def main() -> int:
         engine.model.decode_step = counted("decode", engine.model.decode_step)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        tuner = tuning.default_cache() if auto else None
+        looked = (tuner.hits, tuner.misses) if auto else None
         reset_counts()
         t0 = time.monotonic()
         done = engine.run()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = read_counts()
+        if auto:
+            looked = (tuner.hits - looked[0], tuner.misses - looked[1])
         kernel, module, attr = path_kernel[mode]
         launches.setdefault(kernel, counts[kernel])
         by_path.setdefault(kernel, {})[f"{tag} {cfg.name} {mode}"] = \
             counts[kernel]
         per_pass = gemms_per_pass(cfg)
         gemms = (passes["prefill"] + passes["decode"]) * per_pass
+        serve_stats[f"{tag} {mode}"] = dict(
+            wall=wall, gemms=gemms, passes=passes["prefill"]
+            + passes["decode"], tuner=looked)
         tokens = sum(len(r.output) for r in done)
         reasons = {r.rid: r.finish_reason
                    for r in sorted(done, key=lambda r: r.rid)}
@@ -1377,12 +1474,12 @@ def main() -> int:
     print(f"[families] memory on the card before the phase: "
           f"{torch.cuda.memory_allocated()} bytes", flush=True)
 
-    def family_params(cfg):
+    def family_params(cfg, tag="families"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         params = Model(cfg, device=dev).init(seed=SERVE["seed"])
         torch.cuda.synchronize()
-        print(f"[families] {cfg.name}: weights on the card "
+        print(f"[{tag}] {cfg.name}: weights on the card "
               f"{torch.cuda.memory_allocated()} bytes, drawn in "
               f"{time.monotonic() - t0:.1f} s", flush=True)
         return params
@@ -1578,6 +1675,177 @@ def main() -> int:
             torch.cuda.empty_cache()
     finally:
         moe_mod._route_row = real_route
+
+    # 10. the autotuner: tune the serve's GEMM buckets, serve on them ------
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE["arch"])
+    if SERVE_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
+    winners = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tuning_torch.json")
+        cache = tuning.TuningCache(path)
+        t0 = time.monotonic()
+        for M, K, N in SERVE_SHAPES:
+            trace = []
+            best = tuning.tune(M, N, K, 16, cache, trace=trace)
+            base = tuning.heuristic_tiling(M, N, K, 16, sms=sms)
+            times = {c.label(): ms for c, ms, _ in trace}
+            want = next(out for c, _, out in trace if c == base)
+            same = all(bits_equal(out, want) for _, _, out in trace)
+            key = tuning.bucket_key(M, N, K, 16)
+            winners[key] = ((M, N, K), best)
+            plan_ms = {c: round(ms, 4) for c, ms in times.items()}
+            print(f"[tune] olm16 M,K,N={(M, K, N)} ({key}): heuristic "
+                  f"{base.label()} {times[base.label()]:.4f} ms, winner "
+                  f"{best.label()} {times[best.label()]:.4f} ms "
+                  f"({times[base.label()] / times[best.label()]:.3f}x); "
+                  f"candidates (bm x bn x tb: ms) {plan_ms}; every "
+                  f"candidate bit-identical to the heuristic's plan: {same}",
+                  flush=True)
+            if not same:
+                raise SystemExit(f"a launch plan changed the bits at {key}")
+            del trace, want
+            torch.cuda.empty_cache()
+        print(f"[tune] {len(SERVE_SHAPES)} buckets tuned in "
+              f"{time.monotonic() - t0:.1f} s into {path}", flush=True)
+        os.environ[tuning.CACHE_ENV] = path
+        tuner = tuning.default_cache()
+        if tuner.path != path:
+            raise SystemExit("the tuner's default cache was made before "
+                             "the tune phase")
+        params = Model(cfg, device=dev).init(seed=SERVE["seed"])
+        first = serve("tune", cfg, params, "olm16", profile=False,
+                      engine_kw=dict(dot_tiling="auto"))
+        del params
+    stats, fixed = serve_stats["tune olm16"], serve_stats["serve olm16"]
+    hits, misses = stats["tuner"]
+    print(f"[tune] serve under dot_tiling='auto': wall {stats['wall']:.3f} s "
+          f"against the fixed plans' {fixed['wall']:.3f} s (serve phase); "
+          f"{stats['passes']} passes x {gemms_per_pass(cfg)} = "
+          f"{stats['gemms']} GEMMs; tuner hits {hits}, misses {misses}; "
+          f"tokens equal to the serve phase's olm16 tokens: "
+          f"{first == outputs['olm16']}", flush=True)
+    if first != outputs["olm16"]:
+        raise SystemExit("the tuned serve gave other tokens than the fixed "
+                         "plans")
+    if misses != 0 or hits != stats["gemms"]:
+        raise SystemExit(f"tuner hits {hits} and misses {misses} for "
+                         f"{stats['gemms']} GEMMs")
+    committed = ROOT / "results" / "tuning_torch.json"
+    if committed.exists():
+        ref = tuning.TuningCache(str(committed), card=name)
+        agree = sum(ref.lookup(*shape, 16) == best
+                    for shape, best in winners.values())
+        print(f"[tune] committed {committed.relative_to(ROOT)} (card "
+              f"{ref.header}): its plan is this run's winner in {agree} of "
+              f"{len(winners)} buckets, {ref.misses} absent or of another "
+              "card", flush=True)
+    else:
+        print("[tune] no committed results/tuning_torch.json to compare",
+              flush=True)
+    torch.cuda.empty_cache()
+
+    # 11. the enc-dec and VLM families --------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[crossattn] memory on the card before the phase: "
+          f"{torch.cuda.memory_allocated()} bytes", flush=True)
+    real_k1, spans = k12.olm_matmul_fused, []
+
+    def bracketed_k1(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_k1(*a, **kw)
+        stop.record()
+        spans.append((start, stop))
+        return out
+
+    def call_timed(calls, label, fn):
+        """fn() between synchronizes: its wall and K1's bracketed share."""
+        spans.clear()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        calls[label] = (time.monotonic() - t0,
+                        sum(a.elapsed_time(b) for a, b in spans) / 1e3,
+                        len(spans))
+        return out
+
+    for arch in CROSS_ARCHS:
+        cfg = get_config(arch)
+        key = "frames" if cfg.family == "encdec" else "patches"
+        describe("crossattn", cfg)
+        per_pass, with_enc = gemms_per_pass(cfg), gemms_per_pass(cfg, True)
+        print(f"[crossattn] {cfg.name}: family {cfg.family}, kinds "
+              f"{cfg.block_pattern} x {cfg.pattern_groups}, "
+              f"{cfg.n_enc_layers} encoder layers, {cfg.n_frontend_tokens} "
+              f"{key} a lane; {with_enc} eng.dot GEMMs a pass over {key}, "
+              f"{per_pass} a decode step", flush=True)
+        params = family_params(cfg, tag="crossattn")
+        model = Model(cfg, DotEngine(mode="olm16"), device=dev)
+        g = torch.Generator(device=dev).manual_seed(SERVE["seed"])
+        front = torch.randn(CROSS_LANES, cfg.n_frontend_tokens, cfg.d_model,
+                            generator=g, device=dev)
+        P, L = CROSS_PROMPT, CROSS_PROMPT + CROSS_DECODES
+        toks = torch.from_numpy(np.random.default_rng(6).integers(
+            0, cfg.vocab_size, (CROSS_LANES, L))).to(dev)
+        calls = {}
+        k12.olm_matmul_fused = bracketed_k1
+        try:
+            reset_counts()
+            lg, cache, mem = call_timed(
+                calls, f"prefill {P}", lambda: model.prefill(
+                    params, {"tokens": toks[:, :P], key: front},
+                    model.init_cache(CROSS_LANES, L + 1)))
+            prefill_lg, steps = lg, []
+            for p in range(P, L):
+                lg, cache = call_timed(calls, f"decode at {p}",
+                                  lambda: model.decode_step(
+                                      params, toks[:, p], torch.full(
+                                          (CROSS_LANES,), p, device=dev),
+                                      cache, mem))
+                steps.append((p, lg))
+            short, _ = call_timed(calls, f"forward {P}", lambda: model.forward(
+                params, {"tokens": toks[:, :P], key: front}))
+            full, _ = call_timed(calls, f"forward {L}", lambda: model.forward(
+                params, {"tokens": toks, key: front}))
+            torch.cuda.synchronize()
+            k1 = k12.launches
+        finally:
+            k12.olm_matmul_fused = real_k1
+        peak = torch.cuda.max_memory_allocated()
+        gemms = 3 * with_enc + CROSS_DECODES * per_pass
+        same = bits_equal(prefill_lg, short[:, P - 1])
+        errs = {p: float((got - full[:, p]).abs().max()
+                         / full[:, p].abs().max()) for p, got in steps}
+        finite = all(bool(torch.isfinite(t).all()) for t in (
+            prefill_lg, short, full, *(lg for _, lg in steps)))
+        by_path["olm_matmul_fused"][f"crossattn {cfg.name} olm16"] = k1
+        for label, (wall, k1_s, n) in calls.items():
+            print(f"[crossattn] {cfg.name} {label}: wall {wall:.3f} s, K1 "
+                  f"{k1_s:.3f} s over {n} launches ({100 * k1_s / wall:.1f}%)",
+                  flush=True)
+        print(f"[crossattn] {cfg.name}: K1 launches {k1} for {gemms} GEMMs; "
+              f"prefill's last position bit-identical to forward over the "
+              f"{P} prompt tokens: {same}; decode rel err against forward "
+              f"over {L} tokens by position {errs} (limit 3e-2); finite "
+              f"logits {finite}; memory {tuple(mem.shape)} {mem.dtype}; peak "
+              f"memory {peak} bytes ({peak / 2**30:.2f} GiB)", flush=True)
+        if k1 != gemms:
+            raise SystemExit(f"{cfg.name}: K1 launched {k1} times for "
+                             f"{gemms} GEMMs")
+        if not same:
+            raise SystemExit(f"{cfg.name}: prefill differs from forward")
+        if not finite or max(errs.values()) > 3e-2:
+            raise SystemExit(f"{cfg.name}: decode disagrees with forward")
+        del params, model, front, cache, lg, prefill_lg, mem, short, full
+        del steps
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # the kernels line --------------------------------------------------
     src = "src/repro_torch/csrc/"

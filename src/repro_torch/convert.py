@@ -7,7 +7,10 @@ params)`) and returns the port's params: the stacked `blocks/scan` groups
 layers unrolled into the port's per-layer list, in execution order. Every
 leaf of a layer comes across, the attention biases `bq`/`bk`/`bv` of a
 `qkv_bias` config with them; a tied tree (`tie_embeddings`) has no
-`unembed` table. Leaves come across in `cfg.param_dtype`, except those
+`unembed` table. An enc-dec tree's `encoder` (its stacked layers and final
+norm) comes across as the port's `encoder` {"layers", "final_norm"}; the
+`cross` attention and `norm_x` leaves of the cross-attention layers come
+with their layers. Leaves come across in `cfg.param_dtype`, except those
 the reference keeps in f32 whatever `param_dtype` is (the RG-LRU's `lam`,
 the SSD's `a_log`, `dt_bias` and `d_skip`, the MoE `router`). With both
 packages on the same weights, the tests hold the port against the
@@ -48,19 +51,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     numpy leaves, on `device` (CUDA unless given)."""
     dev = resolve_device(device)
     dt = cfg.pdtype
-    pattern = cfg.block_pattern
-    scan = tree["blocks"]["scan"]
-    groups = cfg.n_layers // len(pattern)
-    layers: List[Dict[str, Any]] = []
-    for g in range(groups):
-        for s in range(len(pattern)):
-            layer = _slice(scan[s], g)
-            layers.append(_tree(layer, dt, dev))
-    for rem in tree["blocks"]["rem"]:
-        layers.append(_tree(rem, dt, dev))
+    layers = _layers(tree["blocks"], cfg.block_pattern, cfg.n_layers, dt, dev)
     if len(layers) != cfg.n_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.name} has {cfg.n_layers}")
+    if ("encoder" in tree) != bool(cfg.n_enc_layers):
+        raise ValueError(f"tree {'has' if 'encoder' in tree else 'lacks'} "
+                         f"an encoder, config {cfg.name} has n_enc_layers="
+                         f"{cfg.n_enc_layers}")
     if ("unembed" in tree) == cfg.tie_embeddings:
         raise ValueError(f"tree {'has' if 'unembed' in tree else 'lacks'} "
                          f"an unembed table, config {cfg.name} has "
@@ -70,7 +68,22 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
               "final_norm": _tree(tree["final_norm"], dt, dev)}
     if not cfg.tie_embeddings:
         params["unembed"] = _tree(tree["unembed"], dt, dev)
+    if cfg.n_enc_layers:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "layers": _layers(enc["blocks"], ("attn",), cfg.n_enc_layers,
+                              dt, dev),
+            "final_norm": _tree(enc["final_norm"], dt, dev)}
     return params
+
+
+def _layers(blocks, pattern, n_layers: int, dt, dev) -> List[Dict[str, Any]]:
+    """A stack's layers in execution order: the scanned groups (one
+    leading group axis per pattern slot), then the remainder layers."""
+    layers = [_tree(_slice(blocks["scan"][s], g), dt, dev)
+              for g in range(n_layers // len(pattern))
+              for s in range(len(pattern))]
+    return layers + [_tree(rem, dt, dev) for rem in blocks["rem"]]
 
 
 def _slice(node, g: int):

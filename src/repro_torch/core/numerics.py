@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
@@ -115,15 +116,23 @@ def _tpmm8(eng, x, w):
 def _olm_dot(eng: "DotEngine", x: torch.Tensor, w: torch.Tensor,
              n_bits: int, trunc: Optional[int] = None) -> torch.Tensor:
     from repro_torch.kernels.online_dot.matmul import olm_matmul
-    # k_tile is the numerics knob (array width per K tile). block_m /
-    # block_n and tiling="auto" only shape the TPU kernel's grid; the
-    # Hopper kernel picks its own launch shape and block shapes never
-    # change the bits, so they are accepted and not forwarded.
-    kw = {"trunc": trunc}
-    if eng.k_tile is not None:
-        kw["k_tile"] = eng.k_tile
-    return _lowered_dot(eng, x, w, functools.partial(olm_matmul, **kw),
-                        n_bits)
+    # k_tile is the numerics knob (array width per K tile); block_m and
+    # block_n pin the kernel's block rows and columns. tiling="auto" asks
+    # the autotuner for the GEMM's launch plan (k_tile pinned to the
+    # numerics default, so the bits stay those of tiling=None); knobs
+    # pinned on the engine win over it. The lookup runs for CPU operands
+    # too, whose plain version ignores the plan, as the reference's
+    # interpret-mode call looks up its tiling.
+    tiling = {k: v for k, v in (("k_tile", eng.k_tile),
+                                ("block_m", eng.block_m),
+                                ("block_n", eng.block_n)) if v is not None}
+    if eng.tiling == "auto":
+        from repro_torch.kernels.online_dot.tuning import get_tiling
+        auto = get_tiling(math.prod(x.shape[:-1]), w.shape[-1],
+                          x.shape[-1], n_bits, trunc=trunc)
+        tiling = {**auto, **tiling}
+    return _lowered_dot(eng, x, w, functools.partial(
+        olm_matmul, trunc=trunc, **tiling), n_bits)
 
 
 def _register_olm_modes() -> None:
@@ -166,13 +175,12 @@ class DotEngine:
     # olm array width (lanes per adder tree); None = the kernel default.
     # A numerics parameter: it changes the bits.
     k_tile: Optional[int] = None
-    # Output-tile knobs of the TPU grid kernel, kept so engines carry the
-    # same fields as the reference; block shapes never change the bits and
-    # the Hopper kernel chooses its own launch shape.
+    # Block rows and columns of K1/K2's launch (None = the planner's);
+    # block shapes never change the bits.
     block_m: Optional[int] = None
     block_n: Optional[int] = None
-    # tiling="auto" stands for the autotuner, which is not ported yet: it
-    # resolves to the kernel's own launch shape.
+    # tiling="auto" takes each GEMM's launch plan from the autotuner
+    # (kernels/online_dot/tuning); the knobs pinned above win over it.
     tiling: Optional[str] = None
     # Per-role mode overrides {"attn" | "mlp" | "head": mode}; a dict is
     # normalized to a sorted tuple of pairs so the engine stays hashable.

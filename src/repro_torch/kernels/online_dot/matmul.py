@@ -163,7 +163,9 @@ def olm_matmul_ref(x: torch.Tensor, w: torch.Tensor, *, n_bits: int = 16,
 
 def olm_matmul(x: torch.Tensor, w: torch.Tensor, *, n_bits: int = 16,
                k_tile: int = DEFAULT_K_TILE, trunc: int | None = None,
-               quantize: str = "kernel") -> torch.Tensor:
+               quantize: str = "kernel", block_m: int | None = None,
+               block_n: int | None = None,
+               tb: int | None = None) -> torch.Tensor:
     """Matmul through the fused online inner-product array; (M, N) float32.
 
     trunc=p selects the truncated family `olm{n}t{p}`: the whole array runs
@@ -173,6 +175,13 @@ def olm_matmul(x: torch.Tensor, w: torch.Tensor, *, n_bits: int = 16,
     ships the digit grids (the reference grid path). On a CPU tensor both
     run the plain version, which gives the same bits. Raises when
     n_bits + 2 ceil(log2 k_tile) exceeds the 48-digit exact decode window.
+
+    block_m, block_n and tb pin the kernel's block shape (rows, columns
+    and K tiles a block runs; None leaves a knob to the planner,
+    `matmul_kernel.launch_plan`). They never change the bits, and the
+    plain version ignores them. Under quantize="host" a shape whose block
+    does not fit K2's larger stage as given (a plan tuned for K1) is
+    re-planned, never launched.
     """
     _check_operands(x, w)
     if quantize not in ("kernel", "host"):
@@ -185,17 +194,23 @@ def olm_matmul(x: torch.Tensor, w: torch.Tensor, *, n_bits: int = 16,
         return olm_matmul_ref(x, w, n_bits=work, k_tile=k_tile)
     if x.device.type != "cuda":
         raise ValueError(f"olm_matmul runs on cpu or cuda, got {x.device}")
-    from .matmul_kernel import olm_matmul_fused, olm_matmul_host
+    from .matmul_kernel import fits, olm_matmul_fused, olm_matmul_host
+    knobs = dict(bm=block_m, bn=block_n, tb=tb)
     if quantize == "host":
+        if None not in knobs.values() and not all(
+                fits(work, True, vec, block_m, block_n, tb)
+                for vec in (False, True)):
+            knobs = {}
         kt, n_tiles, xp, wpT = _tile_plan(x, w, k_tile)
         xd, sx = _quantize_tiles(xp, kt, n_tiles, work)
         wd, sw = _quantize_tiles(wpT, kt, n_tiles, work)
         return olm_matmul_host(xd.contiguous(), sx.contiguous(),
-                               wd.contiguous(), sw.contiguous(), n=work)
+                               wd.contiguous(), sw.contiguous(), n=work,
+                               **knobs)
     # The same f32 casts as _tile_plan; w keeps its layout (a transposed
     # view is read in place).
     return olm_matmul_fused(x.to(torch.float32).contiguous(),
-                            w.to(torch.float32), n=work, k_tile=kt)
+                            w.to(torch.float32), n=work, k_tile=kt, **knobs)
 
 
 def olm_error_bound(x: torch.Tensor, w: torch.Tensor, *, n_bits: int = 16,

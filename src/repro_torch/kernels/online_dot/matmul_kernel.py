@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -29,7 +30,7 @@ from .ref import tree_levels
 
 __all__ = ["olm_matmul_fused", "olm_matmul_host", "launches",
            "host_launches", "SOURCE", "MAX_K_TILE", "Plan", "launch_plan",
-           "smem_bytes", "geometry", "int_ops"]
+           "smem_bytes", "fits", "geometry", "int_ops"]
 
 SOURCE = "olm_matmul.cu"
 MAX_K_TILE = 16            # lanes of one tile: L <= 4 tree levels
@@ -120,15 +121,38 @@ class Plan:
         return o // self.bn, o % self.bn, t // P
 
 
+def _pow2_at_most(v: int) -> int:
+    return 1 << (max(1, int(v)).bit_length() - 1)
+
+
+def fits(n: int, host: bool, vec: bool, bm: int, bn: int, tb: int) -> bool:
+    """Whether a block of bm x bn outputs x tb K tiles is one the kernel
+    launches: powers of two, 32 to MAX_THREADS threads (a multiple of 32)
+    and its shared memory within SMEM_PER_BLOCK."""
+    threads = bm * bn * tb
+    return (all(v >= 1 and v & (v - 1) == 0 for v in (bm, bn, tb))
+            and 32 <= threads <= MAX_THREADS
+            and smem_bytes(n, host, vec, bm, bn, tb) <= SMEM_PER_BLOCK)
+
+
 def launch_plan(M: int, N: int, K: int, n: int, *, k_tile: int = MAX_K_TILE,
-                host: bool = False, vec: bool = False,
-                sms: int = 132) -> Plan:
+                host: bool = False, vec: bool = False, sms: int = 132,
+                bm: int | None = None, bn: int | None = None,
+                tb: int | None = None) -> Plan:
     """The launch geometry of an (M, K) @ (K, N) call at n digits, kt =
     min(k_tile, K) lanes a tile: bm = M's power of two up to 8 rows, then
     the most threads (256 down to 32) whose shared memory fits a block.
     Columns a block holds are traded for K tiles it runs at once while
     the block is wider than N, or the grid gives fewer than
-    FILL_BLOCKS_PER_SM blocks an SM, as long as the tiles are there."""
+    FILL_BLOCKS_PER_SM blocks an SM, as long as the tiles are there.
+
+    bm, bn and tb pin the block's shape (a DotEngine's block_m / block_n,
+    or the autotuner's plan); the planner's choice stands for any knob
+    left None. A pin is taken at the power of two at or below it, then the
+    largest knob (tb before bn before bm on a tie) is halved until the
+    block has at most MAX_THREADS threads and fits shared memory, and tb
+    doubled (tiles past T idle) until it has a whole warp. The block shape
+    never changes the bits: K tiles add in tile order whatever it is."""
     if min(M, N, K) < 1 or not 1 <= k_tile:
         raise ValueError(f"need M, N, K, k_tile >= 1, got M={M} N={N} K={K}"
                          f" k_tile={k_tile}")
@@ -137,6 +161,29 @@ def launch_plan(M: int, N: int, K: int, n: int, *, k_tile: int = MAX_K_TILE,
         raise ValueError(f"k_tile {kt} > {MAX_K_TILE}: a tile's tree has at "
                          "most 4 levels")
     T = -(-K // kt)
+    free = _planned(M, N, T, n, host, vec, sms)
+    if free is None:
+        raise ValueError(f"n={n} M={M} N={N} K={K}: no block fits shared "
+                         "memory")
+    shape = [v if p is None else _pow2_at_most(p)
+             for p, v in zip((bm, bn, tb), free)]
+    while not fits(n, host, vec, *shape) and math.prod(shape) >= 32:
+        big = max(shape)
+        shape[max(i for i in (2, 1, 0) if shape[i] == big)] //= 2
+    while math.prod(shape) < 32:
+        shape[2] *= 2                     # a whole warp, tiles past T idle
+    if not fits(n, host, vec, *shape):
+        raise ValueError(f"n={n} M={M} N={N} K={K}: no block of the pinned "
+                         f"shape {(bm, bn, tb)} fits")
+    bm, bn, tb = shape
+    return Plan(bm, bn, tb, T, kt, -(-N // bn), -(-M // bm), -(-T // tb),
+                smem_bytes(n, host, vec, bm, bn, tb))
+
+
+def _planned(M: int, N: int, T: int, n: int, host: bool, vec: bool,
+             sms: int):
+    """The planner's own (bm, bn, tb) for T K tiles (None if no block fits
+    shared memory)."""
     bm = min(_pow2_at_least(M), 8)
     for threads in (256, 128, 64, 32):
         bn, tb = threads // bm, 1
@@ -151,11 +198,9 @@ def launch_plan(M: int, N: int, K: int, n: int, *, k_tile: int = MAX_K_TILE,
             bn //= 2                      # no more tiles: fewer threads
         while bm * bn * tb < 32:
             tb *= 2                       # a whole warp, tiles past T idle
-        smem = smem_bytes(n, host, vec, bm, bn, tb)
-        if smem <= SMEM_PER_BLOCK:
-            return Plan(bm, bn, tb, T, kt, -(-N // bn), -(-M // bm),
-                        -(-T // tb), smem)
-    raise ValueError(f"n={n} M={M} N={N} K={K}: no block fits shared memory")
+        if smem_bytes(n, host, vec, bm, bn, tb) <= SMEM_PER_BLOCK:
+            return bm, bn, tb
+    return None
 
 
 def _lib() -> ctypes.CDLL:
@@ -201,10 +246,13 @@ def _sms(dev) -> int:
 
 
 def olm_matmul_fused(x: torch.Tensor, w: torch.Tensor, *, n: int,
-                     k_tile: int = MAX_K_TILE) -> torch.Tensor:
+                     k_tile: int = MAX_K_TILE, bm: int | None = None,
+                     bn: int | None = None,
+                     tb: int | None = None) -> torch.Tensor:
     """x (M, K) float32 @ w (K, N) float32 through the fused online
     inner-product array at n working digits, kt = min(k_tile, K) lanes per
-    adder tree; returns (M, N) float32.
+    adder tree; returns (M, N) float32. bm, bn and tb pin the launch's
+    block shape (`launch_plan`); the bits are the same whatever it is.
 
     x must be row-major contiguous. w may be row-major (K, N) or the
     transpose of a row-major (N, K) tensor; the kernel reads it in place
@@ -232,7 +280,8 @@ def olm_matmul_fused(x: torch.Tensor, w: torch.Tensor, *, n: int,
         raise ValueError(f"k_tile {kt} > {MAX_K_TILE}: a tile's tree has at "
                          "most 4 levels")
     arr, S, L = _schedule(n, kt)
-    plan = launch_plan(M, N, K, n, k_tile=kt, sms=_sms(x.device))
+    plan = launch_plan(M, N, K, n, k_tile=kt, sms=_sms(x.device), bm=bm,
+                       bn=bn, tb=tb)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -248,11 +297,14 @@ def olm_matmul_fused(x: torch.Tensor, w: torch.Tensor, *, n: int,
 
 
 def olm_matmul_host(xd: torch.Tensor, sx: torch.Tensor, wd: torch.Tensor,
-                    sw: torch.Tensor, *, n: int) -> torch.Tensor:
+                    sw: torch.Tensor, *, n: int, bm: int | None = None,
+                    bn: int | None = None,
+                    tb: int | None = None) -> torch.Tensor:
     """The array matmul from pre-quantized operands: row digit grids
     xd (M, T, kt, n) and column grids wd (N, T, kt, n), int32 in
     {-1, 0, 1}, with power-of-two scales sx (M, T) and sw (N, T) float32
-    (`matmul._quantize_tiles` makes all four). Returns (M, N) float32."""
+    (`matmul._quantize_tiles` makes all four). Returns (M, N) float32.
+    bm, bn and tb pin the block shape, as for `olm_matmul_fused`."""
     global host_launches
     tensors = (xd, sx, wd, sw)
     if not all(t.is_cuda and t.device == xd.device for t in tensors):
@@ -285,7 +337,7 @@ def olm_matmul_host(xd: torch.Tensor, sx: torch.Tensor, wd: torch.Tensor,
     vec = (n % 4 == 0 and xd.data_ptr() % 16 == 0
            and wd.data_ptr() % 16 == 0)
     plan = launch_plan(M, N, T * kt, n, k_tile=kt, host=True, vec=vec,
-                       sms=_sms(xd.device))
+                       sms=_sms(xd.device), bm=bm, bn=bn, tb=tb)
     out = torch.empty((M, N), dtype=torch.float32, device=xd.device)
     with torch.cuda.device(xd.device):
         stream = torch.cuda.current_stream(xd.device).cuda_stream

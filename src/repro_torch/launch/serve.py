@@ -83,6 +83,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in ("encdec", "vlm"):
+        raise SystemExit("serve driver targets decoder-only archs; "
+                         "use examples/ for enc-dec")
     model = Model(cfg, DotEngine(mode=args.dot_mode or cfg.dot_mode),
                   device=args.device)
     params = model.init(args.seed)

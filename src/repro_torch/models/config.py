@@ -1,6 +1,6 @@
 """Architecture configuration of the port (port of
-`repro/models/config.py`): the dense, MoE, hybrid (RG-LRU) and SSM
-(Mamba2) families."""
+`repro/models/config.py`): the dense, MoE, hybrid (RG-LRU), SSM (Mamba2),
+enc-dec and VLM families."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,29 +12,34 @@ __all__ = ["ModelConfig"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-_KINDS = ("attn", "rec", "ssm")
+_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
+_KINDS = ("attn", "rec", "ssm", "cross", "xdec")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One config type drives every ported architecture.
 
-    family: dense | moe | hybrid | ssm
+    family: dense | moe | hybrid | ssm | encdec | vlm
     block_pattern: per-layer block kinds, tiled across n_layers: whole
       pattern groups run first, then the remainder layers (e.g.
       RecurrentGemma's 38 = 12 * (rec, rec, attn) + 2 rec). The kinds:
       "attn" (pre-norm GQA self-attention, then an MLP, or a MoE layer
-      when n_experts is set), "rec" (an RG-LRU mixer, then an MLP) and
-      "ssm" (a Mamba2 SSD mixer, no MLP).
+      when n_experts is set), "rec" (an RG-LRU mixer, then an MLP),
+      "ssm" (a Mamba2 SSD mixer, no MLP), "cross" (pre-norm
+      cross-attention to the frontend memory, then an MLP: Llama-Vision)
+      and "xdec" (self-attention, then cross-attention, then an MLP:
+      Seamless's decoder).
 
     qkv_bias adds a bias after each of the q/k/v projections; rope_style
     "full" rotates every head dim, "half" (ChatGLM's 2-D RoPE) the first
     half; sliding_window limits attention to the last `sliding_window`
     positions and turns the layer's KV cache into a ring of that length;
     mlp_type is "swiglu" or "gelu"; tie_embeddings reads the LM head from
-    the embedding table. The enc-dec and VLM families and their block
-    kinds ("cross", "xdec") are not ported.
+    the embedding table. The enc-dec and VLM frontends are stubs that
+    hand in n_frontend_tokens embeddings a row (audio frames or image
+    patches); an encdec config runs them through n_enc_layers of
+    non-causal encoder first.
     """
 
     name: str
@@ -64,6 +69,9 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_headdim: int = 64
     ssm_chunk: int = 256
+    # --- enc-dec / vlm frontends (stubs provide embeddings) ---
+    n_enc_layers: int = 0
+    n_frontend_tokens: int = 0            # audio frames / image patches
     norm_eps: float = 1e-5
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -153,16 +161,19 @@ class ModelConfig:
         the reference's formula unchanged. Its "rec" term counts wx, wy,
         wo, the conv kernel and the two gate biases, and leaves out the
         RG-LRU's w x w gate matrices wa and wi and its lam vector, as the
-        reference does (2 * 4096^2 + 4096 per layer of RecurrentGemma-9B)."""
+        reference does (2 * 4096^2 + 4096 per layer of RecurrentGemma-9B).
+        An "xdec" layer counts its norms alone and a "cross" layer an
+        attention and its MLP, as the reference's formula does; the encoder
+        counts 4 d^2 of attention, its MLP and two norms a layer."""
         d, h = self.d_model, self.head_dim
         counts = 0
         for kind in self.layer_kinds:
-            if kind == "attn":
+            if kind in ("attn", "cross"):
                 counts += d * (self.n_heads * h) + d * (2 * self.n_kv_heads * h)
                 counts += (self.n_heads * h) * d
                 if self.qkv_bias:
                     counts += self.n_heads * h + 2 * self.n_kv_heads * h
-            if kind in ("attn", "rec"):
+            if kind in ("attn", "cross", "rec"):
                 if self.n_experts:
                     counts += (self.n_experts * 3 * d * self.d_ff
                                + d * self.n_experts)
@@ -178,5 +189,9 @@ class ModelConfig:
                 counts += d * (2 * din + 2 * N + H) + din * d
                 counts += (din + 2 * N) * self.conv_width + 2 * H
             counts += 2 * d                 # norms
-        return counts + self.vocab_size * d * (1 if self.tie_embeddings
-                                                else 2)
+        counts += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.n_enc_layers:
+            mlp = 2 if self.mlp_type == "gelu" else 3
+            counts += self.n_enc_layers * (4 * d * d + mlp * d * self.d_ff
+                                           + 2 * d)
+        return counts

@@ -258,9 +258,13 @@ def _attn_core(q, k, v, qpos, kpos, *, causal: bool,
 def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, eng: DotEngine, *,
                     kv_cache: Optional[Dict[str, Any]] = None,
+                    memory: Optional[torch.Tensor] = None,
                     causal: bool = True, chunked: bool = False
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Self-attention with an optional KV cache and sliding window.
+    """Self-attention with an optional KV cache and sliding window, or
+    cross-attention to `memory` (B, M, d): q from x, k and v from the
+    memory through eng.dot, recomputed on every call (no cache), no RoPE,
+    no window and no causal mask.
 
     {"k","v"} is the contiguous per-lane cache; {"kpool","vpool","table"}
     the paged one (decode steps only: prefill goes through
@@ -280,19 +284,25 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     updated cache or None)."""
     B, S, d = x.shape
     Dh = cfg.head_dim
+    src = x if memory is None else memory
     q = eng.dot(x, p["wq"])
-    k = eng.dot(x, p["wk"])
-    v = eng.dot(x, p["wv"])
+    k = eng.dot(src, p["wk"])
+    v = eng.dot(src, p["wv"])
     if cfg.qkv_bias:
         # in the GEMM output's dtype, as the reference adds them
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = apply_rope(q.reshape(B, S, cfg.n_heads, Dh), positions,
-                   style=cfg.rope_style, theta=cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, cfg.n_kv_heads, Dh), positions,
-                   style=cfg.rope_style, theta=cfg.rope_theta)
-    v = v.reshape(B, S, cfg.n_kv_heads, Dh)
+    T = src.shape[1]
+    q = q.reshape(B, S, cfg.n_heads, Dh)
+    k = k.reshape(B, T, cfg.n_kv_heads, Dh)
+    v = v.reshape(B, T, cfg.n_kv_heads, Dh)
+    if memory is not None:
+        out = _attn_core(q, k, v, positions,
+                         torch.arange(T, device=x.device), causal=False)
+        return eng.dot(out.reshape(B, S, cfg.d_head_total), p["wo"]), None
+    q = apply_rope(q, positions, style=cfg.rope_style, theta=cfg.rope_theta)
+    k = apply_rope(k, positions, style=cfg.rope_style, theta=cfg.rope_theta)
     window = cfg.sliding_window
 
     if kv_cache is not None and "kpool" in kv_cache:

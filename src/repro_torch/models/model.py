@@ -3,10 +3,17 @@
   init(seed)                                   -> params
   forward(params, batch)                       -> (logits (B, S, V), aux)
   init_cache(batch, max_len, paged=)           -> per-layer caches
-  prefill(params, batch, cache, last_index=)   -> (last logits, cache, None)
+  prefill(params, batch, cache, last_index=)   -> (last logits, cache, memory)
   prefill_chunk(params, batch, cache, start, last_index=)
                                                -> (logits, cache)
-  decode_step(params, token, pos, cache)       -> (logits, cache)
+  decode_step(params, token, pos, cache, memory=)
+                                               -> (logits, cache)
+
+`batch` holds tokens (B, S) and, per family, the stub frontend's
+embeddings (B, M, d_model): "frames" (encdec), run through the non-causal
+encoder into the memory the cross-attention layers read, or "patches"
+(vlm), the memory as they are. `prefill` returns the memory so the decode
+steps that follow can be handed it; other families get None.
 
 The model lives on one device, the CUDA card unless the caller passes
 device="cpu". Weights are drawn from a seeded torch.Generator on that
@@ -16,6 +23,7 @@ JAX parameter tree over instead). `lm_loss` is the causal LM loss over
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -62,7 +70,41 @@ class Model:
         }
         if not cfg.tie_embeddings:
             params["unembed"] = embedding_init(gen, cfg, dev)
+        if cfg.n_enc_layers:
+            enc = self._encoder_cfg()
+            params["encoder"] = {
+                "layers": [block_init(gen, enc, kind, dev)
+                           for kind in enc.layer_kinds],
+                "final_norm": {"scale": torch.ones(
+                    (cfg.d_model,), dtype=cfg.pdtype, device=dev)}}
         return params
+
+    def _encoder_cfg(self) -> ModelConfig:
+        """The encoder's config: n_enc_layers plain attention layers with a
+        GELU MLP, no experts and no window."""
+        return dataclasses.replace(
+            self.cfg, block_pattern=("attn",), n_layers=self.cfg.n_enc_layers,
+            n_experts=0, experts_per_token=0, sliding_window=None,
+            mlp_type="gelu")
+
+    def _memory(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+        """What the cross-attention layers attend to: an encdec model's
+        frames through the non-causal encoder and its final norm, a vlm
+        model's patches as they are, in the compute dtype; None for the
+        other families."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            frames = batch["frames"].to(self.device, cfg.cdtype)
+            B, M = frames.shape[:2]
+            pos = torch.arange(M, device=self.device)[None].expand(B, M)
+            enc = params["encoder"]
+            h, _ = stack_apply(enc["layers"], self._encoder_cfg(), frames,
+                               pos, self.eng, causal=False)
+            return rmsnorm(enc["final_norm"], h, cfg.norm_eps)
+        if cfg.family == "vlm":
+            return batch["patches"].to(self.device, cfg.cdtype)
+        return None
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,9 +114,11 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape
+        memory = self._memory(params, batch)
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
         x = embed(params["embed"], tokens, cfg)
-        x, aux = stack_apply(params["layers"], cfg, x, pos, self.eng)
+        x, aux = stack_apply(params["layers"], cfg, x, pos, self.eng,
+                             memory=memory)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = unembed(self._head_table(params), x, cfg,
                          self.eng.for_role("head"))
@@ -83,7 +127,7 @@ class Model:
     def init_cache(self, batch: int, max_len: int,
                    paged: Optional[Dict[str, int]] = None) -> List[Params]:
         """One cache per layer, in execution order. paged={"num_blocks":
-        NB, "block_size": bs} gives every attention layer without a
+        NB, "block_size": bs} gives every self-attention layer without a
         sliding window a block-pool KV layout with one (batch,
         ceil(max_len/bs)) block table shared by those layers (all entries
         start at the trash block), and only where such a layer exists;
@@ -93,7 +137,7 @@ class Model:
         cfg = self.cfg
         shared = None
         if (paged is not None and cfg.sliding_window is None
-                and "attn" in cfg.layer_kinds):
+                and {"attn", "xdec"} & set(cfg.layer_kinds)):
             mbl = -(-max_len // paged["block_size"])
             shared = {**paged, "table": torch.zeros(
                 (batch, mbl), dtype=torch.int32, device=self.device)}
@@ -123,9 +167,10 @@ class Model:
     @torch.no_grad()
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 cache: List[Params], last_index: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, List[Params], None]:
+                ) -> Tuple[torch.Tensor, List[Params], Optional[torch.Tensor]]:
         """Process prompts (B, S); returns (logits at each lane's
-        `last_index` (or S-1), cache, None). Right-padded prompts are safe
+        `last_index` (or S-1), cache, the memory the decode steps attend
+        to, None without a frontend). Right-padded prompts are safe
         for attention layers (causal attention masks the padding, and
         later decode steps overwrite its cache slots position for
         position), not for recurrent ones, whose state advances over the
@@ -133,11 +178,12 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape
+        memory = self._memory(params, batch)
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
         x = embed(params["embed"], tokens, cfg)
         x, _ = stack_apply(params["layers"], cfg, x, pos, self.eng,
-                           caches=cache)
-        return self._head(params, x, last_index), cache, None
+                           caches=cache, memory=memory)
+        return self._head(params, x, last_index), cache, memory
 
     @torch.no_grad()
     def prefill_chunk(self, params: Params, batch: Dict[str, torch.Tensor],
@@ -169,14 +215,16 @@ class Model:
 
     @torch.no_grad()
     def decode_step(self, params: Params, token: torch.Tensor,
-                    pos: torch.Tensor, cache: List[Params]
+                    pos: torch.Tensor, cache: List[Params],
+                    memory: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, List[Params]]:
-        """token (B,), pos (B,) absolute position of `token`."""
+        """token (B,), pos (B,) absolute position of `token`; `memory` is
+        what prefill returned (enc-dec and VLM models)."""
         token = token.to(self.device)
         pos = pos.to(self.device)
         x = embed(params["embed"], token[:, None], self.cfg)
         x, _ = stack_apply(params["layers"], self.cfg, x, pos[:, None],
-                           self.eng, caches=cache)
+                           self.eng, caches=cache, memory=memory)
         return self._head(params, x), cache
 
 

@@ -4,6 +4,8 @@
          config has experts
   rec  - pre-norm RG-LRU recurrent mixer + MLP            (recurrentgemma)
   ssm  - Mamba2 SSD block (no separate MLP)               (mamba2)
+  cross - pre-norm cross-attention to frontend memory + MLP (llama-vision)
+  xdec - self-attn + cross-attn + MLP                     (seamless decoder)
 
 The reference scans stacked pattern groups under jit; here the stack is a
 list of per-layer param dicts, in execution order (`cfg.layer_kinds`: the
@@ -37,6 +39,12 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
     elif kind == "ssm":
         p["ssm"] = ssd_init(gen, cfg, device)
         return p                    # the SSD block has no separate MLP
+    elif kind == "cross":
+        p["cross"] = attention_init(gen, cfg, device)
+    elif kind == "xdec":
+        p["attn"] = attention_init(gen, cfg, device)
+        p["norm_x"] = {"scale": ones.clone()}
+        p["cross"] = attention_init(gen, cfg, device)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     p["norm2"] = {"scale": ones.clone()}
@@ -49,20 +57,23 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      device, paged: Optional[Dict[str, Any]] = None
-                     ) -> Params:
-    """One layer's decode cache. An "attn" layer holds contiguous
+                     ) -> Optional[Params]:
+    """One layer's decode cache. An "attn" or "xdec" layer holds contiguous
     (B, T, Hkv, Dh) k and v, or, with paged={"num_blocks", "block_size",
     "table"}, a block pool per k and v plus the lane block table shared by
     every paged layer. A sliding-window layer holds T = min(max_len,
     window) slots (a ring when T == window) and stays contiguous even when
     `paged` is given: the window already bounds what it keeps. A "rec" or
     "ssm" layer holds its recurrent state ({"h", "conv"}, f32, O(1) a
-    lane), contiguous under either layout."""
+    lane), contiguous under either layout. A "cross" layer holds none: its
+    k and v are recomputed from the memory on every call."""
     if kind == "rec":
         return rglru_state_init(cfg, batch, device)
     if kind == "ssm":
         return ssd_state_init(cfg, batch, device)
-    if kind != "attn":
+    if kind == "cross":
+        return None
+    if kind not in ("attn", "xdec"):
         raise ValueError(f"unknown block kind {kind!r}")
     H, D, dt = cfg.n_kv_heads, cfg.head_dim, cfg.cdtype
     if paged is not None and cfg.sliding_window is None:
@@ -81,17 +92,29 @@ def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 positions: torch.Tensor, eng: DotEngine, *,
                 cache: Optional[Params] = None,
+                memory: Optional[torch.Tensor] = None, causal: bool = True,
                 chunked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, aux loss). Attention GEMMs run under
+    """Returns (x, aux loss). Attention GEMMs (self and cross) run under
     eng.for_role("attn"), the MLP and MoE under eng.for_role("mlp");
     recurrent and SSD mixers keep the base engine (their GEMMs are gate
-    and in/out projections, not attention)."""
+    and in/out projections, not attention). `memory` (B, M, d) is what a
+    "cross" or "xdec" layer attends to; causal=False makes self-attention
+    bidirectional (the encoder)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    attn_eng = eng.for_role("attn")
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if kind == "attn":
-        o, _ = attention_apply(p["attn"], cfg, h, positions,
-                               eng.for_role("attn"), kv_cache=cache,
+    if kind in ("attn", "xdec"):
+        o, _ = attention_apply(p["attn"], cfg, h, positions, attn_eng,
+                               kv_cache=cache, causal=causal,
                                chunked=chunked)
+        if kind == "xdec":
+            x = x + o
+            hx = rmsnorm(p["norm_x"], x, cfg.norm_eps)
+            o, _ = attention_apply(p["cross"], cfg, hx, positions, attn_eng,
+                                   memory=memory)
+    elif kind == "cross":
+        o, _ = attention_apply(p["cross"], cfg, h, positions, attn_eng,
+                               memory=memory)
     elif kind == "rec":
         o, _ = rglru_apply(p["rec"], cfg, h, eng, state=cache)
     elif kind == "ssm":
@@ -112,15 +135,17 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
 def stack_apply(layers: List[Params], cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, eng: DotEngine, *,
                 caches: Optional[List[Params]] = None,
+                memory: Optional[torch.Tensor] = None, causal: bool = True,
                 chunked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run every layer in execution order (caches updated in place;
-    `chunked` makes an S > 1 call a chunked-prefill write, see
+    `memory` for the cross-attention layers; causal=False for the
+    encoder; `chunked` makes an S > 1 call a chunked-prefill write, see
     attention_apply). Returns (x, the aux loss summed over the layers in
     that order, a 0-d f32 tensor: zero without experts)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds, layers)):
         x, a = block_apply(p, cfg, kind, x, positions, eng,
                            cache=None if caches is None else caches[i],
-                           chunked=chunked)
+                           memory=memory, causal=causal, chunked=chunked)
         aux = aux + a
     return x, aux

@@ -90,7 +90,7 @@ __all__ = ["Request", "ServeEngine"]
 # position for position. Recurrent and SSM state advances on every token,
 # so a padded tail would corrupt it: those families prefill each request
 # at its exact length.
-_PAD_SAFE_KINDS = frozenset({"attn"})
+_PAD_SAFE_KINDS = frozenset({"attn", "cross", "xdec"})
 
 
 def _pow2_bucket(n: int, lo: int = 1) -> int:
@@ -166,9 +166,9 @@ class _EntryPoints:
         return self.model.prefill_chunk(params, {"tokens": tokens}, cache,
                                         start, last_index=last_index)
 
-    def decode(self, params, tokens, pos, cache):
+    def decode(self, params, tokens, pos, cache, memory):
         self._note(("decode", tuple(tokens.shape)), "decode")
-        return self.model.decode_step(params, tokens, pos, cache)
+        return self.model.decode_step(params, tokens, pos, cache, memory)
 
 
 class ServeEngine:
@@ -372,6 +372,9 @@ class ServeEngine:
         self.last_tok = np.zeros((slots,), np.int32)
         self.queue: Deque[Request] = deque()
         self.step_count = 0
+        # the reference's stub: no frontend memory is served (the serve
+        # CLI refuses the encdec and vlm families)
+        self.memory = None
         self.pending_chunk: Optional[Dict[str, Any]] = None
         self._traces: Counter = Counter()
 
@@ -992,7 +995,7 @@ class ServeEngine:
         toks = torch.from_numpy(self.last_tok).to(self.device)
         pos = torch.from_numpy(self.pos).to(self.device)
         logits, self.cache = self._fns.decode(self.params, toks, pos,
-                                              self.cache)
+                                              self.cache, self.memory)
         if self.logits_tap is not None or self.numerics_check:
             lg = self._host_logits(logits, "decode")
             if self.numerics_check:

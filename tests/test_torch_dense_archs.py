@@ -177,7 +177,7 @@ def test_param_count_matches_reference(arch):
 def test_registry_names_the_dense_archs_and_aliases():
     assert set(list_archs()) == set(ARCHS) | {
         "recurrentgemma_9b", "mamba2_130m", "mixtral_8x22b",
-        "qwen3_moe_235b_a22b"}
+        "qwen3_moe_235b_a22b", "llama_3_2_vision_11b", "seamless_m4t_medium"}
     assert {a for a in list_archs()
             if get_config(a).family == "dense"} == set(ARCHS)
     for alias, arch in (("chatglm3-6b", "chatglm3_6b"), ("yi-34b", "yi_34b"),

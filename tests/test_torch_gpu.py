@@ -489,3 +489,115 @@ def test_mamba2_decode_after_prefill_matches_forward_on_card(cuda):
     scale = float(full.abs().max())
     assert float((lg - full[:, 10]).abs().max()) / scale <= 3e-2
     assert float((dec - full[:, 11]).abs().max()) / scale <= 3e-2
+
+
+# The autotuner (K1/K2's launch plans) and the enc-dec / VLM families.
+
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 8192), (64, 2048, 2048),
+                                   (4, 8192, 2048)])
+def test_every_tuner_candidate_gives_the_heuristics_bits(cuda, M, K, N):
+    from repro_torch.kernels.online_dot import tuning
+    x, w = _operands(cuda, M, K, N, seed=M + K)
+    base = tuning.heuristic_tiling(M, N, K, 16)
+    want = olm_matmul(x, w, n_bits=16, block_m=base.block_m,
+                      block_n=base.block_n, tb=base.tb)
+    assert torch.equal(want.view(torch.int32),
+                       olm_matmul(x, w, n_bits=16).view(torch.int32))
+    cands = tuning._candidates(M, N, K, 16, on_card=True)
+    assert base in cands and len(cands) >= 4
+    for c in cands:
+        got = olm_matmul(x, w, n_bits=16, k_tile=c.k_tile, block_m=c.block_m,
+                         block_n=c.block_n, tb=c.tb)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), c
+
+
+def _planned(monkeypatch):
+    plans = []
+    real = matmul_kernel.launch_plan
+
+    def spy(*a, **kw):
+        plans.append(real(*a, **kw))
+        return plans[-1]
+
+    monkeypatch.setattr(matmul_kernel, "launch_plan", spy)
+    return plans
+
+
+def test_pinned_blocks_launch_the_plan_they_name(cuda, monkeypatch):
+    plans = _planned(monkeypatch)
+    x, w = _operands(cuda, 6, 48, 40)
+    want = olm_matmul_ref(x, w, n_bits=16)
+    got = DotEngine(mode="olm16", block_m=2, block_n=16).dot(x, w)
+    assert (plans[-1].bm, plans[-1].bn) == (2, 16)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    got = olm_matmul(x, w, n_bits=16, quantize="host", block_m=2, block_n=4,
+                     tb=8)
+    assert (plans[-1].bm, plans[-1].bn, plans[-1].tb) == (2, 4, 8)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_host_kernel_replans_a_plan_that_misses_its_stage(cuda, monkeypatch):
+    # 1 x 1 x 256 fits K1's stage and not K2's at n = 32: K2 takes the
+    # planner's own plan, never the pinned one
+    plans = _planned(monkeypatch)
+    x, w = _operands(cuda, 3, 4096, 5)
+    got = olm_matmul(x, w, n_bits=32, quantize="host", block_m=1, block_n=1,
+                     tb=256)
+    used = plans[-1]
+    monkeypatch.undo()
+    assert (used.bm, used.bn, used.tb) != (1, 1, 256)
+    free = [matmul_kernel.launch_plan(3, 5, 4096, 32, host=True, vec=v)
+            for v in (False, True)]
+    assert (used.bm, used.bn, used.tb) in {(f.bm, f.bn, f.tb) for f in free}
+    want = olm_matmul_ref(x, w, n_bits=32)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_tune_writes_an_entry_named_for_the_card(cuda, tmp_path):
+    import json
+
+    from repro_torch.kernels.online_dot import tuning
+    path = str(tmp_path / "t.json")
+    cache = tuning.TuningCache(path)
+    best = tuning.tune(64, 256, 512, 16, cache)
+    data = json.loads(open(path).read())
+    assert data["card"]["name"] == torch.cuda.get_device_name(cuda)
+    assert data["card"]["sms"] == torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    entry = data["entries"][tuning.bucket_key(64, 256, 512, 16)]
+    assert entry["source"] == "measured" and entry["us"] > 0
+    assert tuning.get_tiling(64, 256, 512, 16, tuning.TuningCache(path)) \
+        == best.as_dict()
+
+
+@pytest.mark.parametrize("arch", ["llama_3_2_vision_11b",
+                                  "seamless_m4t_medium"])
+def test_cross_attention_model_on_card_matches_cpu(cuda, arch):
+    cfg = dataclasses.replace(smoke_config(arch), compute_dtype="float32",
+                              dot_mode="olm16")
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(seed=0)
+    gpu = Model(cfg, device=cuda)
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(cuda)
+
+    gparams = to(params)
+    g = torch.Generator().manual_seed(0)
+    key = "frames" if cfg.family == "encdec" else "patches"
+    batch = {"tokens": torch.randint(0, 512, (2, 6), generator=g),
+             key: torch.randn(2, cfg.n_frontend_tokens, cfg.d_model,
+                              generator=g)}
+    want, _, wmem = cpu.prefill(params, batch, cpu.init_cache(2, 8))
+    got, cache, mem = gpu.prefill(gparams, batch, gpu.init_cache(2, 8))
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-3
+    assert float((mem.cpu() - wmem).abs().max() / wmem.abs().max()) <= 1e-3
+    tok = batch["tokens"][:, -1]
+    pos = torch.full((2,), 6)
+    want, _ = cpu.decode_step(params, tok, pos, cpu.init_cache(2, 8), wmem)
+    got, _ = gpu.decode_step(gparams, tok, pos, gpu.init_cache(2, 8), mem)
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-3
