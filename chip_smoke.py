@@ -123,6 +123,28 @@ Phases, each printing its own lines:
                timed at their new GEMM shapes (the 2048-row cross K/V and
                encoder GEMMs on their first and last 64 rows).
 
+ 12. train   - InternLM2-1.8B at full published width and depth trained
+               on one synthetic batch (4 x 128) for 12 steps (f32 masters,
+               bf16 compute, remat="block"; gate: the loss down by more
+               than 0.05, every grad_norm finite), each step's wall,
+               tokens/s and the peak memory, the forward and backward's
+               peak with and without remat; microbatches=2 against 1 from
+               the same state (params within 5e-3); one step with
+               compressed gradients (the error state allocated, finite);
+               2 steps under olm16 and 2 under tpmm16 at 2 x 32 (K1, then
+               K5, launches == steps x (169 forward GEMMs + 144 recomputed
+               by remat: checkpoint stops before each layer's last GEMM,
+               whose output the backward does not need), every gradient
+               zero, every param bit-equal to
+               the decay-only update, the kernel's share of the wall);
+               then the train CLI on Mamba2-130M at full width (batch 8,
+               seq 256): 20 steps with checkpoints every 10 (the loss
+               improves), a resume to 30 (at step 20, the restored state
+               bit-equal to the saved one, the stream's batch 20) and a
+               straight 30-step run (steps 20-29 within 1e-3 of the
+               resumed run's losses).
+
+Each phase's wall is printed on a line of its own ("[wall] phase ...").
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 and prints no result; so does a machine without a CUDA card, and a
@@ -130,8 +152,10 @@ directory holding this script without the rest of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -298,6 +322,16 @@ MOE_DEPTH = (("mixtral_8x22b", 2), ("qwen3_moe_235b_a22b", 2))
 # forward over the prompt and over all CROSS_PROMPT + CROSS_DECODES tokens.
 CROSS_ARCHS = ("llama_3_2_vision_11b", "seamless_m4t_medium")
 CROSS_LANES, CROSS_PROMPT, CROSS_DECODES = 2, 12, 3
+# The train phase: InternLM2-1.8B at full width and depth, f32 masters,
+# bf16 compute, remat="block", overfitting one synthetic batch with the
+# reference test's optimizer settings (tests/test_distributed_train.py:
+# lr 3e-3, schedule_total 30, 12 steps); then 2 steps under each digit
+# mode at M = 64 rows per GEMM
+TRAIN = dict(arch="internlm2_1_8b", seed=0, batch=(4, 128), lr=3e-3,
+             total=30, steps=12, kernel_batch=(2, 32), kernel_steps=2)
+# and the train CLI at the reference example's settings
+# (examples/train_lm.py: batch 8, seq 256)
+CLI = dict(arch="mamba2_130m", batch=8, seq=256, lr=3e-3)
 # The replay phase: benchmarks/run.py::serve_faults_bench's engine with
 # its ladder's rungs replaced by olm16 ones, and its seed-0 workload and
 # fault plan. vocab=512 keeps the baseline's arrival schedule and prompt
@@ -481,8 +515,15 @@ def main() -> int:
     from repro_torch.kernels.tpmm.ops import (decompose_operands,
                                               tpmm_cost_model)
     from repro_torch.kernels.tpmm.ref import tpmm_ref
-    from repro_torch.models.model import Model
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.distributed.train import (build_train_step, cast_params,
+                                               init_train_state)
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.model import Model, lm_loss
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import cosine_schedule
     from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -498,7 +539,21 @@ def main() -> int:
                 "online_dot": k3.launches, "online_mul": k4.launches,
                 "tpmm": k5.launches}
 
+    walls, running = {}, []
+
+    def phase(name):
+        """Close the running phase, printing its wall on a line of its own,
+        and open `name` (None closes the last)."""
+        now = time.monotonic()
+        if running:
+            done, t0 = running.pop()
+            walls[done] = now - t0
+            print(f"[wall] phase {done}: {now - t0:.1f} s", flush=True)
+        if name is not None:
+            running.append((name, now))
+
     # 1. device --------------------------------------------------------
+    phase("device")
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi_line = smi("name,power.limit")
     clock_mhz = float(smi("clocks.max.sm").split()[0])
@@ -509,6 +564,7 @@ def main() -> int:
     rate = sms * INT_OPS_PER_SM_CLOCK * clock_mhz * 1e6
 
     # 2. build ---------------------------------------------------------
+    phase("build")
     t0 = time.monotonic()
     built = build.build([k12.SOURCE, k3.SOURCE, k4.SOURCE, k5.SOURCE])
     for b in built.values():
@@ -517,6 +573,7 @@ def main() -> int:
     print(f"[build] all kernels in {time.monotonic() - t0:.1f} s", flush=True)
 
     # 3. each kernel against its plain version, bit for bit -------------
+    phase("check")
     max_err = dict.fromkeys(read_counts(), 0.0)
 
     def hold(kernel, label, got, want):
@@ -778,6 +835,7 @@ def main() -> int:
                              "with the CPU")
 
     # 4. times ---------------------------------------------------------
+    phase("time")
     timed = {}
 
     def record(kernel, label, ms, plain_ms, byte_count, ops, op_rate,
@@ -939,6 +997,7 @@ def main() -> int:
     del x, w, ops, a8, b8
 
     # 5. serve ---------------------------------------------------------
+    phase("serve")
     _flush.clear()                           # keep the peak the serve's own
     torch.cuda.empty_cache()
     kernel_name = {"olm16": "olm_matmul_kernel", "tpmm16": "tpmm_kernel"}
@@ -1138,6 +1197,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. the host-quantize path and the digit-level API ------------------
+    phase("paths")
     layer = [(2048, 2048), (2048, 1024), (2048, 1024), (2048, 2048),
              (2048, 8192), (2048, 8192), (8192, 2048)]   # q k v o g u d
     gemms = [operands((4, K, N), 6 + i, dev) for i, (K, N) in enumerate(layer)]
@@ -1184,6 +1244,7 @@ def main() -> int:
         raise SystemExit("the digit-level API exceeds its documented error")
 
     # 7. the fault-tolerant serving path: a faulted replay ---------------
+    phase("replay")
     from repro_torch.serving import (FaultConfig, FaultInjector,
                                      ReplayConfig, build_fault_plan,
                                      build_workload, run_replay)
@@ -1341,6 +1402,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. the rest of the dense family -------------------------------------
+    phase("dense")
     from repro_torch.models import layers
     from repro_torch.models.model import lm_loss
     cfg = get_config(DENSE_ARCH)
@@ -1468,6 +1530,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 9. the recurrent and MoE families -----------------------------------
+    phase("families")
     from repro_torch.models import moe as moe_mod
     gc.collect()                # nothing of the dense phase may stay
     torch.cuda.empty_cache()
@@ -1677,6 +1740,7 @@ def main() -> int:
         moe_mod._route_row = real_route
 
     # 10. the autotuner: tune the serve's GEMM buckets, serve on them ------
+    phase("tune")
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(SERVE["arch"])
@@ -1748,6 +1812,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 11. the enc-dec and VLM families --------------------------------------
+    phase("crossattn")
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[crossattn] memory on the card before the phase: "
@@ -1846,6 +1911,287 @@ def main() -> int:
         del steps
         gc.collect()
         torch.cuda.empty_cache()
+
+    # 12. training ------------------------------------------------------------
+    phase("train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] memory on the card before the phase: "
+          f"{torch.cuda.memory_allocated()} bytes", flush=True)
+    cfg = get_config(TRAIN["arch"])
+    describe("train", cfg)
+    model = Model(cfg, device=dev)
+    B, S = TRAIN["batch"]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMDataset(
+        cfg, B, S, seed=TRAIN["seed"]).batch(0).items()}
+    opt_cfg = AdamWConfig(lr=TRAIN["lr"])
+
+    def train_steps(step_fn, box, n, tag, batch=batch):
+        """n synchronized steps from the state in the one-element list
+        `box`, which it takes, so that no caller holds a state two steps
+        old (three states of InternLM2-1.8B do not fit the card): (state,
+        [(loss, grad_norm, wall, peak memory)])."""
+        state, rows = box.pop(), []
+        for i in range(n):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            state, met = step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            peak = torch.cuda.max_memory_allocated()
+            rows.append((float(met["loss"]), float(met["grad_norm"]), wall,
+                         peak))
+            toks = batch["tokens"].numel()
+            print(f"[train] {tag} step {i}: loss {rows[-1][0]:.4f} grad_norm "
+                  f"{rows[-1][1]:.4f} lr {float(met['lr']):.3e}; wall "
+                  f"{wall:.3f} s, {toks / wall:.0f} tokens/s, peak memory "
+                  f"{peak} bytes", flush=True)
+        return state, rows
+
+    # (a) native at full width and depth, f32 masters, bf16 compute,
+    # remat="block": overfit one batch
+    t0 = time.monotonic()
+    box = [init_train_state(model, seed=TRAIN["seed"])]
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name}: state (params, m, v) on the card "
+          f"{torch.cuda.memory_allocated()} bytes, drawn in "
+          f"{time.monotonic() - t0:.1f} s; remat {cfg.remat}, batch {B} x "
+          f"{S}, lr {TRAIN['lr']}, schedule_total {TRAIN['total']}",
+          flush=True)
+    step_fn = build_train_step(model, opt_cfg=opt_cfg,
+                               schedule_total=TRAIN["total"])
+    state, rows = train_steps(step_fn, box, TRAIN["steps"], "native")
+    peak = max(r[3] for r in rows)
+    losses = [r[0] for r in rows]
+    steady = sorted(r[2] for r in rows[1:])[len(rows[1:]) // 2]
+    print(f"[train] {cfg.name} native: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {len(rows)} steps (gate: down by more than "
+          f"0.05); median step wall after the first {steady:.3f} s, "
+          f"{B * S / steady:.0f} tokens/s; peak memory {peak} bytes "
+          f"({peak / 2**30:.2f} GiB); {smi_line}", flush=True)
+    if not all(np.isfinite(r[1]) for r in rows):
+        raise SystemExit("train: a non-finite grad_norm")
+    if not losses[-1] < losses[0] - 0.05:
+        raise SystemExit(f"train: the loss went {losses[0]} -> {losses[-1]}")
+
+    # the forward and backward alone, with and without remat: what the
+    # graph holds after the forward, the peak, the wall (each twice, the
+    # second printed: the first call of a model warms its caches)
+    for remat in ("block", "none") * 2:
+        m = Model(dataclasses.replace(cfg, remat=remat), device=dev)
+        leaves, treedef = tree_flatten(state["params"])
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        loss, _ = lm_loss(m, cast_params(tree_unflatten(treedef, live), cfg),
+                          batch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        grads = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        print(f"[train] forward + backward, remat {remat}: wall {wall:.3f} "
+              f"s; after the forward the graph holds {held} bytes (the "
+              f"cast weights and the saved activations); peak "
+              f"{torch.cuda.max_memory_allocated() - base} bytes above the "
+              f"state", flush=True)
+        del m, leaves, live, loss, grads
+
+    # (b) microbatches = 2 from the state (a) ends in, against one batch
+    p1 = step_fn(state, batch)[0]["params"]
+    mb_fn = build_train_step(model, opt_cfg=opt_cfg, microbatches=2,
+                             schedule_total=TRAIN["total"])
+    two, _ = mb_fn(state, batch)
+    worst, close = 0.0, True
+    for a, b, p in zip(tree_leaves(p1), tree_leaves(two["params"]),
+                       tree_leaves(state["params"])):
+        worst = max(worst, float((a - b).abs().max() / (a - p).abs().max()))
+        close &= bool(torch.allclose(b, a, atol=5e-3, rtol=5e-3))
+    print(f"[train] microbatches 2 against 1 from step {TRAIN['steps']}: "
+          f"params within 5e-3 abs and rel (the gate) {close}; the largest "
+          f"difference {worst:.3e} of its leaf's largest update", flush=True)
+    if not close:
+        raise SystemExit("train: microbatches=2 disagrees with 1")
+    del p1, two
+
+    # (c) compressed gradients: one step, the error state allocated
+    cz_fn = build_train_step(model, opt_cfg=opt_cfg, compress_grads=True,
+                             schedule_total=TRAIN["total"])
+    cz, met = cz_fn(state, batch)
+    ef_finite = cz["ef"] is not None and all(
+        bool(torch.isfinite(e).all()) for e in tree_leaves(cz["ef"]))
+    print(f"[train] compress_grads: loss {float(met['loss']):.4f}, error "
+          f"state allocated and finite: {ef_finite} "
+          f"({len(tree_leaves(cz['ef'] or {}))} leaves)", flush=True)
+    if not (np.isfinite(float(met["loss"])) and ef_finite):
+        raise SystemExit("train: the compressed step failed")
+    del cz, met, state, step_fn, mb_fn, cz_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the kernel path: every GEMM of the forward through K1 (olm16) or
+    # K5 (tpmm16), and again through the checkpointed layers' recompute
+    per_pass = gemms_per_pass(cfg)
+    # remat runs each checkpointed layer's forward again in the backward,
+    # but PyTorch's checkpoint stops once it has every tensor the backward
+    # saved: a layer's last GEMM (the MLP's down projection) feeds only the
+    # residual add, which saves nothing, so it does not run again; the LM
+    # head is outside the checkpoints
+    recompute = per_pass - 1 - cfg.n_layers
+    B, S = TRAIN["kernel_batch"]
+    kbatch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMDataset(
+        cfg, B, S, seed=TRAIN["seed"]).batch(0).items()}
+    for mode, (kernel, module, attr) in path_kernel.items():
+        real, spans = getattr(module, attr), []
+
+        def bracketed(*a, _real=real, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _real(*a, **kw)
+            stop.record()
+            spans.append((start, stop))
+            return out
+
+        m = Model(cfg, DotEngine(mode=mode), device=dev)
+        box = [init_train_state(m, seed=TRAIN["seed"])]
+        fn = build_train_step(m, opt_cfg=opt_cfg,
+                              schedule_total=TRAIN["total"])
+        p0 = box[0]["params"]
+        setattr(module, attr, bracketed)
+        try:
+            reset_counts()
+            state, rows = train_steps(fn, box, TRAIN["kernel_steps"], mode,
+                                      batch=kbatch)
+            launched = read_counts()[kernel]
+        finally:
+            setattr(module, attr, real)
+        k_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+        wall = sum(r[2] for r in rows)
+        want = TRAIN["kernel_steps"] * (per_pass + recompute)
+        by_path.setdefault(kernel, {})[f"train {cfg.name} {mode}"] = launched
+        # the update of a zero gradient, recomputed in the step's op order:
+        # step 1 has lr 0, step 2 the decay alone
+        lr = opt_cfg.lr * cosine_schedule(
+            torch.tensor(1, dtype=torch.int32, device=dev),
+            total=TRAIN["total"])
+        zero_moments = all(not bool(t.any()) for t in tree_leaves(
+            (state["opt"]["m"], state["opt"]["v"])))
+        same = all(bits_equal(b, a - lr * (
+            torch.zeros_like(a) / (torch.sqrt(torch.zeros_like(a))
+                                   + opt_cfg.eps) + opt_cfg.weight_decay * a))
+            for a, b in zip(tree_leaves(p0), tree_leaves(state["params"])))
+        print(f"[train] {mode}: {kernel} launches {launched} for "
+              f"{TRAIN['kernel_steps']} steps x ({per_pass} forward GEMMs + "
+              f"{recompute} recomputed by remat, each layer's last not) = "
+              f"{want}; grad_norm "
+              f"{[r[1] for r in rows]}, moments all zero {zero_moments}; "
+              f"params bit-equal to the decay-only update {same}; "
+              f"{kernel} {k_s:.3f} s over {len(spans)} launches of "
+              f"{wall:.3f} s of step wall ({100 * k_s / wall:.1f}%)",
+              flush=True)
+        if launched != want:
+            raise SystemExit(f"train: {kernel} launched {launched} times for "
+                             f"{want} GEMMs")
+        if any(r[1] != 0.0 for r in rows) or not zero_moments:
+            raise SystemExit(f"train: a non-zero gradient under {mode}")
+        if not same:
+            raise SystemExit(f"train: {mode} params are not the decay's")
+        del m, state, fn, p0, spans
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, kbatch
+
+    # (e) the train CLI on Mamba2-130M, the reference example's settings:
+    # 20 steps with checkpoints, a resume to 30, a straight 30-step run
+    saved, restored, streamed = {}, [], []
+
+    class Recording(train_cli.CheckpointManager):
+        def save(self, step, tree, *, block=False):
+            saved[step] = [t.detach().clone() for t in tree_leaves(tree)]
+            super().save(step, tree, block=block)
+
+        def restore(self, tree_like, step=None, shardings=None):
+            out = super().restore(tree_like, step, shardings)
+            restored.append(tree_leaves(out))
+            return out
+
+    real_batch = SyntheticLMDataset.batch
+
+    def recorded_batch(self, step):
+        out = real_batch(self, step)
+        streamed.append((step, out["tokens"]))
+        return out
+
+    def cli(argv):
+        buf = io.StringIO()
+        train_cli.CheckpointManager = Recording
+        SyntheticLMDataset.batch = recorded_batch
+        try:
+            with contextlib.redirect_stdout(buf):
+                summary = train_cli.main(argv)
+        finally:
+            train_cli.CheckpointManager = train_cli_manager
+            SyntheticLMDataset.batch = real_batch
+        for line in buf.getvalue().splitlines():
+            print(f"[train] cli: {line}", flush=True)
+        steps = {int(m[1]): float(m[2]) for m in re.finditer(
+            r"^step +(\d+) loss (\S+)", buf.getvalue(), re.M)}
+        return summary, steps
+
+    train_cli_manager = train_cli.CheckpointManager
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--arch", CLI["arch"], "--batch", str(CLI["batch"]),
+                "--seq", str(CLI["seq"]), "--lr", str(CLI["lr"]),
+                "--log-every", "1"]
+        t0 = time.monotonic()
+        one, _ = cli(args + ["--steps", "20", "--ckpt-every", "10",
+                             "--ckpt-dir", f"{tmp}/resumed"])
+        t1 = time.monotonic()
+        at20 = saved.pop(20)
+        saved.clear()
+        streamed.clear()
+        two, resumed = cli(args + ["--steps", "30", "--ckpt-every", "10",
+                                   "--ckpt-dir", f"{tmp}/resumed",
+                                   "--resume"])
+        t2 = time.monotonic()
+        first_step, first_tokens = streamed[0]
+        same_state = len(restored) == 1 and len(restored[0]) == len(at20) and \
+            all(bits_equal(a, b) for a, b in zip(restored[0], at20))
+        stream = SyntheticLMDataset(get_config(CLI["arch"]), CLI["batch"],
+                                    CLI["seq"], seed=0).batch(20)["tokens"]
+        same_batch = np.array_equal(first_tokens, stream)
+        del at20, restored[:]
+        three, straight = cli(args + ["--steps", "30", "--ckpt-every", "1000",
+                                      "--ckpt-dir", f"{tmp}/straight"])
+        t3 = time.monotonic()
+    saved.clear()
+    rel = {k: abs(resumed[k] - straight[k]) / abs(straight[k])
+           for k in range(20, 30)}
+    print(f"[train] cli {CLI['arch']} (batch {CLI['batch']} x seq "
+          f"{CLI['seq']}, lr {CLI['lr']}): run 1 {one['steps']} steps in "
+          f"{t1 - t0:.1f} s, loss {one['loss_first']:.4f} -> "
+          f"{one['loss_last']:.4f}, improved {one['loss_improved']}; run 2 "
+          f"resumed at step {first_step} ({two['steps']} steps in "
+          f"{t2 - t1:.1f} s), restored state bit-equal to the saved one "
+          f"{same_state}, its first batch the stream's step 20 {same_batch}; "
+          f"run 3 straight {three['steps']} steps in {t3 - t2:.1f} s, steps "
+          f"20-29 within {max(rel.values()):.2e} of the resumed run's "
+          f"(gate 1e-3 relative)", flush=True)
+    if not one["loss_improved"]:
+        raise SystemExit("train: the CLI's loss did not improve")
+    if first_step != 20 or not same_state or not same_batch:
+        raise SystemExit("train: the resume did not continue the run")
+    if sorted(resumed) != list(range(20, 30)) or max(rel.values()) > 1e-3:
+        raise SystemExit("train: the resumed run left the straight run")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(None)
+    print(f"[wall] phases: {json.dumps({k: round(v, 1) for k, v in walls.items()})}",
+          flush=True)
 
     # the kernels line --------------------------------------------------
     src = "src/repro_torch/csrc/"

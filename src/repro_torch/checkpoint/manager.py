@@ -1,0 +1,161 @@
+"""Fault-tolerant checkpointing: atomic, keep-K, async (port of
+`repro/checkpoint/manager.py`).
+
+Layout, the reference's:
+  <dir>/step_00000100.tmp/...   (written first)
+  <dir>/step_00000100/          (atomic rename on completion)
+      manifest.json             step, tree structure, n_leaves, shapes,
+                                dtypes
+      shard_0.npz               leaf_{i}, in flattened tree order
+
+Properties:
+  * atomicity: a crash mid-write never corrupts the latest checkpoint
+    (readers only ever see fully renamed directories);
+  * keep-K garbage collection;
+  * async save (a background thread); every leaf is copied to the host
+    before the thread starts, so the next step cannot change a tensor
+    while it is written;
+  * a bf16 leaf, which has no numpy dtype, is stored as its 16-bit
+    pattern with "bfloat16" in the manifest and restored to bf16;
+  * the data pipeline's state is implicit: the synthetic pipeline is keyed
+    by (seed, step), so restoring `step` resumes the exact stream.
+
+Restoring onto another mesh (the reference's `shardings=`) waits for the
+sharded port (ROADMAP section 1, item 8).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from pathlib import Path
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_flatten, tree_str, tree_unflatten
+
+__all__ = ["CheckpointManager"]
+
+# torch dtypes numpy lacks, stored as a same-width integer bit pattern
+_BITS = {torch.bfloat16: torch.int16}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype in _BITS:
+        t = t.view(_BITS[t.dtype])
+    return t.to("cpu", copy=True).numpy()
+
+
+def _from_host(a: np.ndarray, dtype_name: str, like: torch.Tensor
+               ) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, copy=True))
+    saved = getattr(torch, dtype_name)
+    if saved in _BITS:
+        t = t.view(saved)
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str | Path, *, keep: int = 3,
+                 async_save: bool = True):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+
+    # ----------------- save -----------------
+    def save(self, step: int, tree: Any, *, block: bool = False) -> None:
+        leaves, treedef = tree_flatten(tree)
+        host = [(_to_host(l), _dtype_name(l.dtype)) for l in leaves]
+        desc = tree_str(tree)
+        if self._thread is not None:
+            self._thread.join()  # one in-flight save at a time
+        if self.async_save and not block:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, host, desc))
+            self._thread.start()
+        else:
+            self._write(step, host, desc)
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write(self, step: int, leaves, desc: str) -> None:
+        name = f"step_{step:08d}"
+        tmp = self.dir / (name + ".tmp")
+        final = self.dir / name
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        manifest = {
+            "step": step,
+            "treedef": desc,
+            "n_leaves": len(leaves),
+            "leaves": [{"shape": list(a.shape), "dtype": dt}
+                       for a, dt in leaves],
+        }
+        np.savez(tmp / "shard_0.npz",
+                 **{f"leaf_{i}": a for i, (a, _) in enumerate(leaves)})
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        if final.exists():
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        self._gc()
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        for s in steps[:-self.keep] if self.keep else []:
+            shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
+
+    # ----------------- restore -----------------
+    def all_steps(self):
+        out = []
+        for p in self.dir.glob("step_*"):
+            if p.suffix == ".tmp" or not p.is_dir():
+                continue
+            try:
+                out.append(int(p.name.split("_")[1]))
+            except ValueError:
+                continue
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Any:
+        """Restore into the structure of `tree_like`, each leaf on the
+        device and in the dtype of `tree_like`'s leaf."""
+        if shardings is not None:
+            raise NotImplementedError(
+                "restore(shardings=...): the port runs on one device; "
+                "elastic restore waits for the sharded port (ROADMAP "
+                "section 1, item 8)")
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        path = self.dir / f"step_{step:08d}"
+        leaves, treedef = tree_flatten(tree_like)
+        manifest = json.loads((path / "manifest.json").read_text())
+        n = manifest["n_leaves"]
+        if n != len(leaves):
+            raise ValueError(
+                f"checkpoint has {n} leaves, target structure has {len(leaves)}")
+        with np.load(path / "shard_0.npz") as data:
+            restored = [_from_host(data[f"leaf_{i}"], meta["dtype"], like)
+                        for i, (meta, like) in enumerate(
+                            zip(manifest["leaves"], leaves))]
+        return tree_unflatten(treedef, restored)

@@ -47,7 +47,7 @@ def smoke_config(arch: str) -> ModelConfig:
     the config has experts, an RG-LRU width of 128, an SSM state of 16 in
     heads of 32 and chunks of 8, 2 encoder layers and 16 frontend tokens
     where the config has them, and a window of 16 where it has one; two
-    pattern groups, or one and the remainder."""
+    pattern groups, or one and the remainder; no remat."""
     cfg = get_config(arch)
     pat_len = len(cfg.block_pattern)
     n_layers = max(2 * pat_len, pat_len + cfg.n_layers % pat_len)
@@ -64,4 +64,5 @@ def smoke_config(arch: str) -> ModelConfig:
         ssm_chunk=8,
         n_enc_layers=2 if cfg.n_enc_layers else 0,
         n_frontend_tokens=16 if cfg.n_frontend_tokens else 0,
-        sliding_window=16 if cfg.sliding_window else None)
+        sliding_window=16 if cfg.sliding_window else None,
+        remat="none")

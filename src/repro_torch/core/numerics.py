@@ -79,14 +79,35 @@ def _native_dot(eng: "DotEngine", x: torch.Tensor,
     return torch.matmul(x, w.to(x.dtype))
 
 
+class _DigitDot(torch.autograd.Function):
+    """A digit-mode GEMM as a node of the autograd graph. The forward is
+    the kernel (or, on a CPU operand, its plain version), bits unchanged.
+    The derivative is zero with respect to both operands: the reference's
+    oracle quantizes through `jnp.round`, whose derivative is 0, and no
+    Pallas kernel of the reference has a backward. So a loss through a
+    digit-mode GEMM stays attached to the graph, and every leaf behind it
+    gets a gradient tensor, zero exactly where the reference's is."""
+
+    @staticmethod
+    def forward(ctx, x, w, matmul_fn, n_bits):
+        ctx.operands = [(t.shape, t.dtype, t.device) for t in (x, w)]
+        lead = x.shape[:-1]
+        out = matmul_fn(x.reshape(-1, x.shape[-1]), w.to(torch.float32),
+                        n_bits=n_bits)
+        return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        gx, gw = (torch.zeros(s, dtype=d, device=v) for s, d, v in ctx.operands)
+        return gx, gw, None, None
+
+
 def _lowered_dot(eng: "DotEngine", x: torch.Tensor, w: torch.Tensor,
                  matmul_fn, n_bits: int) -> torch.Tensor:
     """Flatten the lead axes onto a 2-D tile, hand the weights over in f32
-    from their stored dtype, and restore the activation shape and dtype."""
-    lead = x.shape[:-1]
-    K = x.shape[-1]
-    out = matmul_fn(x.reshape(-1, K), w.to(torch.float32), n_bits=n_bits)
-    return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+    from their stored dtype, and restore the activation shape and dtype;
+    the derivative is zero (`_DigitDot`)."""
+    return _DigitDot.apply(x, w, matmul_fn, n_bits)
 
 
 def _tpmm_dot(eng: "DotEngine", x: torch.Tensor, w: torch.Tensor,

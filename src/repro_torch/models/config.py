@@ -77,6 +77,10 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     dot_mode: str = "native"              # any registered DotEngine mode
     tie_embeddings: bool = False
+    # "block" recomputes each pattern group's forward in the backward
+    # (torch.utils.checkpoint, the reference's jax.checkpoint); "none"
+    # keeps every activation
+    remat: str = "block"
 
     def __post_init__(self):
         if self.head_dim is None and self.n_heads:
@@ -101,6 +105,9 @@ class ModelConfig:
                              "'swiglu' or 'gelu'")
         if self.sliding_window is not None and self.sliding_window < 1:
             raise ValueError("sliding_window must be >= 1 (or None)")
+        if self.remat not in ("none", "block"):
+            raise ValueError(f"remat={self.remat!r}; expected 'none' or "
+                             "'block'")
         for f in ("param_dtype", "compute_dtype"):
             if getattr(self, f) not in _DTYPES:
                 raise ValueError(f"{f}={getattr(self, f)!r}; expected one "

@@ -60,7 +60,10 @@ def _route_row(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     E, K = cfg.n_experts, cfg.experts_per_token
     C = _capacity(T, cfg)
     dev = xt.device
-    gates = torch.softmax(torch.matmul(xt.to(torch.float32), router), dim=-1)
+    # the router in f32 whatever its dtype, as the reference's einsum
+    # promotes it (bf16 when a train step casts the stacked layers' leaves)
+    gates = torch.softmax(torch.matmul(xt.to(torch.float32),
+                                       router.to(torch.float32)), dim=-1)
     # jax.lax.top_k's order: descending, the lower index first among ties
     vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
     topw, topi = vals[:, :K], idx[:, :K]

@@ -154,7 +154,9 @@ def _rglru_coeffs(p: Params, u: torch.Tensor
                       + p["ba"].to(f32))
     i = torch.sigmoid(torch.matmul(u, p["wi"].to(u.dtype)).to(f32)
                       + p["bi"].to(f32))
-    log_a = RGLRU_C * r * F.logsigmoid(p["lam"].to(f32))[None, None]
+    # lam in its own dtype, as the reference's log_sigmoid takes it (bf16
+    # when a train step casts the stacked layers' leaves)
+    log_a = RGLRU_C * r * F.logsigmoid(p["lam"])[None, None]
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u.to(f32))
     return a, b
@@ -284,7 +286,7 @@ def ssd_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, eng: DotEngine,
     conv_out = F.silu(conv_out.to(f32)).to(x.dtype)
     xin, Bm, Cm = torch.split(conv_out, [din, N, N], dim=-1)
     dt = _softplus(dt.to(f32) + p["dt_bias"].to(f32)[None, None])
-    A = -torch.exp(p["a_log"].to(f32))                # (H,) negative rates
+    A = -torch.exp(p["a_log"])            # (H,) negative rates, a_log's dtype
     xh = xin.reshape(B, S, H, P)
 
     if state is not None and S == 1:

@@ -9,13 +9,15 @@
 
 The reference scans stacked pattern groups under jit; here the stack is a
 list of per-layer param dicts, in execution order (`cfg.layer_kinds`: the
-pattern groups, then the remainder), run by a Python loop.
+pattern groups, then the remainder), run by a Python loop, each group
+under activation checkpointing where the config asks for it (cfg.remat).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.numerics import DotEngine
 from .config import ModelConfig
@@ -141,11 +143,33 @@ def stack_apply(layers: List[Params], cfg: ModelConfig, x: torch.Tensor,
     `memory` for the cross-attention layers; causal=False for the
     encoder; `chunked` makes an S > 1 call a chunked-prefill write, see
     attention_apply). Returns (x, the aux loss summed over the layers in
-    that order, a 0-d f32 tensor: zero without experts)."""
+    that order, a 0-d f32 tensor: zero without experts).
+
+    Under cfg.remat == "block" and with no caches (the training path),
+    each pattern group runs under torch.utils.checkpoint, as the
+    reference wraps its scanned group body in jax.checkpoint: the backward
+    recomputes the group's forward instead of keeping its activations.
+    The remainder layers are outside the scan there, and are not
+    checkpointed here either. The bits do not change."""
+    kinds = cfg.layer_kinds
+    pat = len(cfg.block_pattern)
+    n_scan = cfg.pattern_groups * pat
+
+    def run(lo: int, hi: int, x, aux):
+        for i in range(lo, hi):
+            x, a = block_apply(layers[i], cfg, kinds[i], x, positions, eng,
+                               cache=None if caches is None else caches[i],
+                               memory=memory, causal=causal, chunked=chunked)
+            aux = aux + a
+        return x, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (kind, p) in enumerate(zip(cfg.layer_kinds, layers)):
-        x, a = block_apply(p, cfg, kind, x, positions, eng,
-                           cache=None if caches is None else caches[i],
-                           memory=memory, causal=causal, chunked=chunked)
-        aux = aux + a
-    return x, aux
+    remat = cfg.remat == "block" and caches is None
+    for lo in range(0, n_scan, pat):
+        if remat:
+            # the forward draws no random numbers: no RNG state to keep
+            x, aux = checkpoint(run, lo, lo + pat, x, aux,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux = run(lo, lo + pat, x, aux)
+    return run(n_scan, len(kinds), x, aux)

@@ -601,3 +601,57 @@ def test_cross_attention_model_on_card_matches_cpu(cuda, arch):
     want, _ = cpu.decode_step(params, tok, pos, cpu.init_cache(2, 8), wmem)
     got, _ = gpu.decode_step(gparams, tok, pos, gpu.init_cache(2, 8), mem)
     assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("remat", ["none", "block"])
+def test_olm16_train_step_launches_k1_and_gets_zero_grads(cuda, remat):
+    # every GEMM of the forward through K1 (and, under remat, each
+    # checkpointed layer's GEMMs but its last again in the backward); the
+    # digit GEMMs' derivative is zero, so the moments stay zero
+    from repro_torch.distributed.train import (build_train_step,
+                                               init_train_state)
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(smoke_config("internlm2_1_8b"), remat=remat)
+    model = Model(cfg, DotEngine(mode="olm16"), device=cuda)
+    state = init_train_state(model, seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    before = matmul_kernel.launches
+    state, met = build_train_step(model)(state, {"tokens": toks})
+    torch.cuda.synchronize()
+    per_layer = 7
+    gemms = cfg.n_layers * per_layer + 1
+    if remat == "block":
+        gemms += cfg.n_layers * (per_layer - 1)
+    assert matmul_kernel.launches - before == gemms
+    assert float(met["grad_norm"]) == 0.0
+    assert not any(bool(t.any()) for t in tree_leaves(
+        (state["opt"]["m"], state["opt"]["v"])))
+
+
+def test_native_train_step_on_card_matches_cpu(cuda):
+    from repro_torch.distributed.train import (build_train_step,
+                                               init_train_state)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(smoke_config("internlm2_1_8b"),
+                              compute_dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    card = Model(cfg, device=cuda)
+    s_cpu = init_train_state(cpu, seed=0)
+    s_cpu["opt"]["step"].fill_(50)         # a learning rate above zero
+    s_card = tree_map(lambda t: t.to(cuda), s_cpu)
+    toks = torch.randint(0, cfg.vocab_size, (4, 16),
+                         generator=torch.Generator().manual_seed(2))
+    opt = AdamWConfig(lr=1e-4)
+    s_cpu, m_cpu = build_train_step(cpu, opt_cfg=opt)(s_cpu, {"tokens": toks})
+    s_card, m_card = build_train_step(card, opt_cfg=opt)(
+        s_card, {"tokens": toks.to(cuda)})
+    for k in ("loss", "grad_norm", "lr"):
+        assert abs(float(m_card[k]) - float(m_cpu[k])) <= 1e-4 * max(
+            abs(float(m_cpu[k])), 1e-30), k
+    for a, b in zip(tree_leaves(s_card["params"]),
+                    tree_leaves(s_cpu["params"])):
+        err = (a.cpu() - b).abs().max() / b.abs().max()
+        assert float(err) <= 1e-4

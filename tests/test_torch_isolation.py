@@ -51,7 +51,9 @@ def test_port_modules_found():
             "inner_product.py", "hwmodel.py", "recurrent.py", "moe.py",
             "recurrentgemma_9b.py", "mamba2_130m.py", "mixtral_8x22b.py",
             "qwen3_moe_235b_a22b.py", "tuning.py", "shapes.py",
-            "llama_3_2_vision_11b.py", "seamless_m4t_medium.py"} <= names
+            "llama_3_2_vision_11b.py", "seamless_m4t_medium.py",
+            "adamw.py", "compression.py", "schedule.py", "synthetic.py",
+            "fault.py", "manager.py", "train.py", "tree.py"} <= names
 
 
 def test_degrade_ladder_resolves_modes_from_the_port_registry(monkeypatch):
