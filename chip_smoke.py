@@ -31,10 +31,10 @@ Phases, each printing its own lines:
                40, and K past 1024 lanes (streams of 64 and 128 bits),
                one launch each, and a configuration no kernel holds
                raising before any launch; K1 at the weight-bearing GEMM
-               shapes of ChatGLM3-6B (M of 4 and 64), Yi-34B and
+               shapes of ChatGLM3-6B (M of 4), Yi-34B and
                Qwen1.5-110B (M of 4; wide outputs on their first and last
                2048 columns), and at the eng.dot GEMM shapes of
-               RecurrentGemma-9B (M of 4, 7 and 64), Mamba2-130M,
+               RecurrentGemma-9B (M of 4 and 7), Mamba2-130M,
                Mixtral-8x22B and Qwen3-MoE-235B-A22B (M of 4; outputs
                wider than 32768 on their first and last 2048 columns,
                M = 64 on those columns only); K3 and K4 against the
@@ -143,6 +143,30 @@ Phases, each printing its own lines:
                bit-equal to the saved one, the stream's batch 20) and a
                straight 30-step run (steps 20-29 within 1e-3 of the
                resumed run's losses).
+ 13. shard   - the sharded path over two ranks that share the one card
+               (NCCL refuses two ranks on one device): two spawned
+               processes, both on cuda:0, in a gloo group on 127.0.0.1,
+               on ("data", "model") meshes; the single-device results
+               they are held against come from this process first.
+               (a) olm_matmul_sharded at InternLM2-1.8B's wq, wg, wd and
+               head at M = 64 under olm16, and wq under olm32t16, each
+               partitioned m, n and k over the (1, 2) mesh: m and n
+               bit-identical to one device's K1, k within
+               olm_error_bound, one K1 launch a call on each rank;
+               (b) SERVE's workload at InternLM2-1.8B's full width and
+               depth under olm16 through ServeEngine(engine=EngineSpec(
+               shard="n"), mesh=) on (1, 2): the serve phase's tokens,
+               K1 launches per rank == GEMMs issued, each rank's wall,
+               busy share and peak memory; (c) the sharded train step on
+               InternLM2-1.8B at full width with its depth cut to 4
+               layers (two train states share the card), native, 3 steps
+               of 4 x 128: on (1, 2) every param bit-equal to one
+               device's, on (2, 1) within 5e-3 and each step's loss,
+               grad_norm and the update's norm within SHARD_DATA_LIMITS
+               of one device's (relative); one olm16 step with
+               shard="n" (K1 launches per rank == GEMMs run, every
+               gradient zero); the params saved on (2, 1) restored onto
+               (1, 2) with the same bits.
 
 Each phase's wall is printed on a line of its own ("[wall] phase ...").
 The line before the last is a JSON object with one entry per kernel; the
@@ -261,8 +285,8 @@ K1_SLICE = 2048
 # The recurrent and MoE families: K1 at every weight-bearing (K, N) that
 # their eng.dot GEMMs give it (the MoE experts, the RG-LRU gates wa/wi and
 # the SSD contractions are plain matmuls, as in the reference). M = 4 is a
-# decode; RecurrentGemma also at M = 7 and 64, ragged exact-length prefill
-# rows. Outputs are held whole up to WHOLE_N columns at M of 4 and 7,
+# decode; RecurrentGemma also at M = 7, a ragged exact-length prefill
+# (K1's 64-row prefill is held at the serve shapes). Outputs are held whole up to WHOLE_N columns at M of 4 and 7,
 # elsewhere on their first and last K1_SLICE columns.
 FAMILY_KN = {
     "recurrentgemma_9b": ((4096, 4096), (4096, 256), (4096, 12288),
@@ -271,7 +295,7 @@ FAMILY_KN = {
     "mixtral_8x22b": ((6144, 6144), (6144, 1024), (6144, 32768)),
     "qwen3_moe_235b_a22b": ((4096, 4096), (4096, 256), (4096, 151936)),
 }
-RG_ROWS = (7, 64)
+RG_ROWS = (7,)
 WHOLE_N = 32768
 # The enc-dec and VLM families: K1 at the eng.dot (K, N) their GEMMs give
 # it that no earlier family did, at a 4-lane decode (heads wider than
@@ -349,6 +373,23 @@ REPLAY_WORKLOAD = dict(seed=0, n_requests=20, mean_interarrival_steps=2.0,
 REPLAY_CHUNK = 8
 REPLAY_REASONS = {"eos", "length", "max_len", "cache_full", "deadline",
                   "rejected", "numerics", "failed"}
+# The shard phase: two ranks on the one card. InternLM2-1.8B's (K, N) of
+# wq, wg, wd and the head at SHARD_ROWS rows under olm16 (and wq under
+# olm32t16), each partitioned m, n and k over the (1, 2) mesh; the train
+# half at full width with the depth cut to SHARD_TRAIN_LAYERS (a sharded
+# and a whole train state on the card at once).
+SHARD_RANKS, SHARD_ROWS = 2, 64
+SHARD_GEMMS = (((2048, 2048), "olm16"), ((2048, 8192), "olm16"),
+               ((8192, 2048), "olm16"), ((2048, 92544), "olm16"),
+               ((2048, 2048), "olm32t16"))
+SHARD_TRAIN_LAYERS, SHARD_TRAIN_STEPS = 4, 3
+# (c) on (2, 1): each step's loss and grad_norm, and the update's norm,
+# relative to one device's. The sound step read 2.6e-5, 1.1e-4 and 6.9e-3
+# on the H100 (the bf16 GEMMs of 256 rows and of 512 differ in their last
+# bits); a skipped sum over "data" 4.3e-3, 0.32 and 0.80, both ranks on
+# one rank's rows 6.8e-3, 0.44 and 0.80, a missing divide 2.6e-5, 1.0 and
+# 6.9e-3 (probes/sharded_train_faults.py)
+SHARD_DATA_LIMITS = {"loss": 2.5e-4, "grad_norm": 1e-3, "update": 5e-2}
 
 
 def gemms_per_pass(cfg, encoder: bool = False) -> int:
@@ -485,6 +526,295 @@ def ptxas_summary(log: str) -> str:
             f"{spills} bytes of spill stores, up to {max(smem)} bytes smem")
 
 
+def shard_rank(rank: int, world: int, port: int, tmp: str,
+               serve_tokens) -> None:
+    """One rank of the shard phase (a process of its own, on cuda:0, in a
+    gloo group of `world` ranks on 127.0.0.1). Holds (a)-(c) against the
+    single-device results the parent left in `tmp`, raises on any
+    disagreement, and writes its numbers to tmp/rank<r>.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.numerics import DotEngine, EngineSpec
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.distributed.collectives import gather_dtensor
+    from repro_torch.distributed.sharding import Sharder
+    from repro_torch.distributed.train import (build_train_step,
+                                               distribute_state,
+                                               gather_state,
+                                               init_train_state,
+                                               state_shardings)
+    from repro_torch.kernels.online_dot import matmul_kernel as k12
+    from repro_torch.kernels.online_dot.matmul import olm_error_bound
+    from repro_torch.kernels.online_dot.matmul_sharded import (
+        olm_matmul_sharded)
+    from repro_torch.launch.mesh import make_local_mesh, mesh_shape
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.tree import tree_leaves, tree_unflatten, tree_flatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    tag = f"[shard r{rank}]"
+    res = {"gemms": [], "launches": {}}
+
+    def say(msg):
+        print(f"{tag} {msg}", flush=True)
+
+    try:
+        meshes = {s: make_local_mesh(*s, device_type="cuda")
+                  for s in ((1, 2), (2, 1))}
+        say(f"backend {dist.get_backend()}, world {world}, meshes "
+            f"{[mesh_shape(m) for m in meshes.values()]}, device "
+            f"{torch.cuda.get_device_name(dev)}")
+        mesh = meshes[(1, 2)]
+
+        # (a) the sharded GEMMs against one device's K1 ------------------
+        ref = torch.load(os.path.join(tmp, "gemm.pt"))
+        for i, ((K, N), mode) in enumerate(SHARD_GEMMS):
+            n, p = mode_bits(mode)
+            x, w = operands((SHARD_ROWS, K, N), 100 + i, dev)
+            exact = (x.double() @ w.double())
+            lim = olm_error_bound(x, w, n_bits=n, trunc=p).double()
+            for part in ("m", "n", "k"):
+                torch.cuda.synchronize()
+                k12.launches = 0
+                t0 = time.monotonic()
+                out = olm_matmul_sharded(x, w, mesh=mesh, partition=part,
+                                         n_bits=n, trunc=p)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                launched = k12.launches
+                row = dict(shape=[SHARD_ROWS, K, N], mode=mode, part=part,
+                           wall_s=wall, k1_launches=launched)
+                if part in ("m", "n"):
+                    row["bit_identical"] = bits_equal(
+                        out, ref[f"{i}"].to(dev))
+                    # each rank receives the other ranks' blocks
+                    row["gather_bytes"] = (4 * SHARD_ROWS * N
+                                           * (world - 1) // world)
+                    ok = row["bit_identical"]
+                else:
+                    row["err_over_bound"] = float(
+                        ((out.double() - exact).abs() / lim).max())
+                    ok = row["err_over_bound"] <= 1.0
+                res["gemms"].append(row)
+                say(f"(a) {mode} ({SHARD_ROWS}, {K}) @ ({K}, {N}) over "
+                    f"{part}: wall {wall * 1e3:.3f} ms, K1 launches "
+                    f"{launched}, " + (
+                        f"bit-identical to one device {ok}, gathered "
+                        f"{row['gather_bytes']} bytes into this rank"
+                        if part != "k" else
+                        f"largest |err| / bound {row['err_over_bound']:.4f}"))
+                if not ok or launched != 1:
+                    raise RuntimeError(f"(a) {mode} {part} at ({K}, {N}) "
+                                       "disagrees or launched K1 "
+                                       f"{launched} times")
+            del x, w, exact, lim, out
+        res["launches"]["gemms"] = sum(r["k1_launches"]
+                                       for r in res["gemms"])
+        del ref
+
+        # (b) the serve, every GEMM's columns split over the two ranks ----
+        cfg = get_config(SERVE["arch"])
+        params = Model(cfg, device=dev).init(seed=SERVE["seed"])
+        model = Model(cfg, DotEngine(mode="olm16"), device=dev)
+
+        def seeded_engine():
+            engine = ServeEngine(model, params, slots=SERVE["slots"],
+                                 max_len=SERVE["max_len"],
+                                 kv_block_size=SERVE["block"], device=dev,
+                                 engine=EngineSpec(shard="n"), mesh=mesh)
+            rng = np.random.default_rng(SERVE["seed"])
+            lo, hi = SERVE["prompt"]
+            for rid in range(SERVE["requests"]):
+                prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(
+                    lo, hi + 1))).astype(np.int32)
+                engine.submit(Request(rid=rid, prompt=prompt,
+                                      max_new_tokens=SERVE["max_new"]))
+            return engine
+
+        engine = seeded_engine()
+        passes = []
+        for kind in ("prefill", "decode_step"):
+            real = getattr(engine.model, kind)
+
+            def counted(*a, _real=real, **kw):
+                passes.append(1)
+                return _real(*a, **kw)
+
+            setattr(engine.model, kind, counted)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k12.launches = 0
+        t0 = time.monotonic()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launched = k12.launches
+        peak = torch.cuda.max_memory_allocated()
+        gemms = len(passes) * gemms_per_pass(cfg)
+        tokens = [r.output for r in sorted(done, key=lambda r: r.rid)]
+        same = [list(map(int, t)) for t in tokens] == serve_tokens
+        busy, k1_s, n_events = device_busy(seeded_engine().run, "olm_matmul")
+        res["serve"] = dict(wall_s=wall, passes=len(passes), gemms=gemms,
+                            k1_launches=launched, same_tokens=same,
+                            peak_bytes=peak, busy_s=busy, k1_device_s=k1_s,
+                            device_kernels=n_events)
+        res["launches"]["serve"] = launched
+        say(f"(b) {cfg.name} ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}) served under olm16 with shard='n' on "
+            f"{mesh_shape(mesh)}: wall {wall:.3f} s (ends in "
+            f"torch.cuda.synchronize), {len(passes)} forward passes, GEMMs "
+            f"issued {gemms}, K1 launches {launched}; the serve phase's "
+            f"single-device tokens: {same}; peak memory {peak} bytes "
+            f"({peak / 2**30:.2f} GiB); profiled run: this rank's kernels "
+            f"kept the device busy {busy:.3f} s ({100 * busy / wall:.1f}% "
+            f"of the first run's wall), K1 {k1_s:.3f} s, {n_events} "
+            "kernels")
+        if launched != gemms or not same:
+            raise RuntimeError(f"(b) K1 launched {launched} times for "
+                               f"{gemms} GEMMs, same tokens {same}")
+        del params, model, engine, done
+        torch.cuda.empty_cache()
+
+        # (c) the sharded train step -------------------------------------
+        cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                                  n_layers=SHARD_TRAIN_LAYERS)
+        model = Model(cfg, device=dev)
+        B, S = TRAIN["batch"]
+        data = SyntheticLMDataset(cfg, B, S, seed=TRAIN["seed"])
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in data.batch(i).items()}
+                   for i in range(SHARD_TRAIN_STEPS)]
+        opt_cfg = AdamWConfig(lr=TRAIN["lr"])
+        want = torch.load(os.path.join(tmp, "train.pt"), mmap=True)
+        one = json.loads(Path(tmp, "train.json").read_text())
+        sharders, train = {}, {}
+        for shape, m in meshes.items():
+            sharders[shape] = sharder = Sharder(m, cfg)
+            sharder.set_batch(B)
+            state = distribute_state(sharder, init_train_state(
+                model, seed=TRAIN["seed"]))
+            step = build_train_step(model, sharder, opt_cfg=opt_cfg,
+                                    schedule_total=TRAIN["total"])
+            walls, seen = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                state, met = step(state, b)
+                torch.cuda.synchronize()
+                walls.append(time.monotonic() - t0)
+                seen.append([float(met["loss"]), float(met["grad_norm"])])
+            got = tree_leaves(gather_state(state["params"]))
+            # each step's loss and grad_norm, and the update (params
+            # after minus before) against one device's, relative
+            read = {
+                "loss": max(abs(a[0] - b[0]) / abs(b[0])
+                            for a, b in zip(seen, one["metrics"])),
+                "grad_norm": max(abs(a[1] - b[1]) / abs(b[1])
+                                 for a, b in zip(seen, one["metrics"])),
+                "update": sum(float((g.double() - r.to(dev).double())
+                                    .pow(2).sum())
+                              for g, r in zip(got, want)) ** 0.5
+                / one["update_norm"]}
+            if shape == (1, 2):
+                agree = all(bits_equal(g, r.to(dev))
+                            for g, r in zip(got, want))
+                worst = None
+            else:
+                # the sum over the data axis moves every one of these:
+                # probes/sharded_train_faults.py plants its faults
+                agree = all(torch.allclose(g, r.to(dev), atol=5e-3,
+                                           rtol=5e-3)
+                            for g, r in zip(got, want)) and all(
+                    read[k] <= SHARD_DATA_LIMITS[k] for k in read)
+                worst = max(float((g - r.to(dev)).abs().max())
+                            for g, r in zip(got, want))
+            train[str(shape)] = dict(walls_s=walls, metrics=seen,
+                                     agree=agree, worst_abs=worst, **read)
+            say(f"(c) {cfg.name} at {cfg.n_layers} layers on "
+                f"{mesh_shape(m)}: {SHARD_TRAIN_STEPS} steps of {B} x {S}, "
+                f"walls {[round(w, 3) for w in walls]} s, loss and "
+                f"grad_norm by step {seen}; relative to one device: "
+                f"loss {read['loss']!r}, grad_norm {read['grad_norm']!r}, "
+                f"update {read['update']!r}; params after the steps "
+                + ("bit-equal to one device's" if shape == (1, 2) else
+                   "within 5e-3 of one device's (largest |diff| "
+                   f"{worst:.3e}) and the readings within "
+                   f"{SHARD_DATA_LIMITS}") + f": {agree}")
+            if not agree:
+                raise RuntimeError(f"(c) {shape} disagrees with one device")
+            if shape == (2, 1):
+                # saved on (2, 1), restored onto (1, 2)
+                ckpt = CheckpointManager(os.path.join(tmp, "ckpt"),
+                                         async_save=False)
+                t0 = time.monotonic()
+                ckpt.save(SHARD_TRAIN_STEPS, {"params": state["params"]})
+                t1 = time.monotonic()
+                _, treedef = tree_flatten(state["params"])
+                like = {"params": tree_unflatten(treedef, got)}
+                back = ckpt.restore(like, shardings=state_shardings(
+                    sharders[(1, 2)], like))
+                t2 = time.monotonic()
+                same = all(bits_equal(gather_dtensor(r), g) for r, g in zip(
+                    tree_leaves(back), got))
+                placed = tree_leaves(back)[0].placements
+                train["restore"] = dict(same=same, save_s=t1 - t0,
+                                        restore_s=t2 - t1)
+                say(f"(c) params saved on (2, 1) in {t1 - t0:.1f} s and "
+                    f"restored onto (1, 2) ({placed}) in {t2 - t1:.1f} s: "
+                    f"bit-equal to what was saved {same}")
+                if not same:
+                    raise RuntimeError("(c) the elastic restore changed bits")
+                del back, like
+            del state, got, step
+            torch.cuda.empty_cache()
+        del want
+        # one olm16 step, every GEMM's columns split over the two ranks
+        per_pass = gemms_per_pass(cfg)
+        recompute = per_pass - 1 - cfg.n_layers
+        B, S = TRAIN["kernel_batch"]
+        kb = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMDataset(
+            cfg, B, S, seed=TRAIN["seed"]).batch(0).items()}
+        step = build_train_step(model, sharders[(1, 2)], opt_cfg=opt_cfg,
+                                schedule_total=TRAIN["total"],
+                                engine_spec=EngineSpec(mode="olm16",
+                                                       shard="n"))
+        state = distribute_state(sharders[(1, 2)], init_train_state(
+            model, seed=TRAIN["seed"]))
+        torch.cuda.synchronize()
+        k12.launches = 0
+        t0 = time.monotonic()
+        state, met = step(state, kb)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launched = k12.launches
+        zero = float(met["grad_norm"]) == 0.0
+        train["olm16"] = dict(wall_s=wall, k1_launches=launched,
+                              gemms=per_pass + recompute, zero_grads=zero)
+        res["launches"]["train"] = launched
+        res["train"] = train
+        say(f"(c) one olm16 step with shard='n' on (1, 2) at {B} x {S}: "
+            f"wall {wall:.3f} s, K1 launches {launched} for {per_pass} "
+            f"forward GEMMs + {recompute} recomputed by remat; grad_norm "
+            f"{float(met['grad_norm'])} (every gradient zero: {zero})")
+        if launched != per_pass + recompute or not zero:
+            raise RuntimeError(f"(c) olm16: {launched} K1 launches for "
+                               f"{per_pass + recompute} GEMMs, zero {zero}")
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -517,6 +847,7 @@ def main() -> int:
     from repro_torch.kernels.tpmm.ref import tpmm_ref
     from repro_torch.data.synthetic import SyntheticLMDataset
     from repro_torch.distributed.train import (build_train_step, cast_params,
+                                               gather_state,
                                                init_train_state)
     from repro_torch.launch import train as train_cli
     from repro_torch.models.model import Model, lm_loss
@@ -652,8 +983,8 @@ def main() -> int:
             hold("olm_matmul_fused", f"{label} columns {a}:{b}",
                  got[:, a:b].contiguous(), plain_olm16(xs, ws, a, b))
 
+    # (K1's 64-row prefill is held at the serve shapes above)
     for M, kns, arch in ((4, CHATGLM_KN, "chatglm3_6b"),
-                         (64, CHATGLM_KN, "chatglm3_6b"),
                          (4, CUT_KN, "yi_34b / qwen1_5_110b")):
         for K, N in kns:
             xs, ws = operands((M, K, N), 13, dev)
@@ -2107,16 +2438,22 @@ def main() -> int:
 
     # (e) the train CLI on Mamba2-130M, the reference example's settings:
     # 20 steps with checkpoints, a resume to 30, a straight 30-step run
-    saved, restored, streamed = {}, [], []
+    saved, restored, streamed, save_walls = {}, [], [], []
 
     class Recording(train_cli.CheckpointManager):
+        # the CLI's state rests as DTensors on its one-rank mesh: each leaf
+        # is recorded whole; each save call's wall is the time the loop
+        # waits in it (the write runs in the background unless it blocks)
         def save(self, step, tree, *, block=False):
-            saved[step] = [t.detach().clone() for t in tree_leaves(tree)]
+            saved[step] = [t.detach().clone()
+                           for t in tree_leaves(gather_state(tree))]
+            t0 = time.monotonic()
             super().save(step, tree, block=block)
+            save_walls.append(round(time.monotonic() - t0, 3))
 
         def restore(self, tree_like, step=None, shardings=None):
             out = super().restore(tree_like, step, shardings)
-            restored.append(tree_leaves(out))
+            restored.append(tree_leaves(gather_state(out)))
             return out
 
     real_batch = SyntheticLMDataset.batch
@@ -2180,13 +2517,98 @@ def main() -> int:
           f"{same_state}, its first batch the stream's step 20 {same_batch}; "
           f"run 3 straight {three['steps']} steps in {t3 - t2:.1f} s, steps "
           f"20-29 within {max(rel.values()):.2e} of the resumed run's "
-          f"(gate 1e-3 relative)", flush=True)
+          f"(gate 1e-3 relative); each save call's wall in s, in order "
+          f"(the last of each run blocks) {save_walls}", flush=True)
     if not one["loss_improved"]:
         raise SystemExit("train: the CLI's loss did not improve")
     if first_step != 20 or not same_state or not same_batch:
         raise SystemExit("train: the resume did not continue the run")
     if sorted(resumed) != list(range(20, 30)) or max(rel.values()) > 1e-3:
         raise SystemExit("train: the resumed run left the straight run")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. the sharded path over two ranks on the one card -----------------
+    phase("shard")
+    import socket
+
+    import torch.multiprocessing as mp
+    from repro_torch.kernels.online_dot.matmul_sharded import (
+        sharded_traffic)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the single-device results the ranks are held against: K1 at
+        # each GEMM, and the native train step over the cut model
+        refs = {}
+        for i, ((K, N), mode) in enumerate(SHARD_GEMMS):
+            n, p = mode_bits(mode)
+            x, w = operands((SHARD_ROWS, K, N), 100 + i, dev)
+            refs[f"{i}"] = olm_matmul(x, w, n_bits=n, trunc=p).cpu()
+            tr = {part: sharded_traffic(SHARD_ROWS, N, K, partition=part,
+                                        devices=SHARD_RANKS, n_bits=n,
+                                        trunc=p)
+                  for part in ("m", "n", "k")}
+            print(f"[shard] {mode} ({SHARD_ROWS}, {K}) @ ({K}, {N}): "
+                  f"sharded_traffic over {SHARD_RANKS}: local fused bytes "
+                  f"{ {k: v['local']['fused_bytes'] for k, v in tr.items()} }"
+                  f", collective bytes "
+                  f"{ {k: v['collective_bytes'] for k, v in tr.items()} }",
+                  flush=True)
+        torch.save(refs, os.path.join(tmp, "gemm.pt"))
+        del refs, x, w
+        cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                                  n_layers=SHARD_TRAIN_LAYERS)
+        describe("shard", cfg, cut=24)
+        model = Model(cfg, device=dev)
+        B, S = TRAIN["batch"]
+        data = SyntheticLMDataset(cfg, B, S, seed=TRAIN["seed"])
+        step_fn = build_train_step(model, opt_cfg=AdamWConfig(
+            lr=TRAIN["lr"]), schedule_total=TRAIN["total"])
+        state = init_train_state(model, seed=TRAIN["seed"])
+        start = tree_leaves(state["params"])
+        seen = []
+        t0 = time.monotonic()
+        for i in range(SHARD_TRAIN_STEPS):
+            state, met = step_fn(state, {k: torch.from_numpy(v).to(dev)
+                                         for k, v in data.batch(i).items()})
+            seen.append([met["loss"], met["grad_norm"]])
+        torch.cuda.synchronize()
+        seen = [[float(v) for v in m] for m in seen]
+        end = tree_leaves(state["params"])
+        # the norm of the whole update, the (2, 1) check's denominator
+        update = sum(float((e.double() - b.double()).pow(2).sum())
+                     for e, b in zip(end, start)) ** 0.5
+        print(f"[shard] one device: {SHARD_TRAIN_STEPS} steps in "
+              f"{time.monotonic() - t0:.3f} s, loss and grad_norm by step "
+              f"{seen}; update norm {update!r}; "
+              f"{sum(t.numel() for t in end)} params", flush=True)
+        torch.save([t.cpu() for t in end], os.path.join(tmp, "train.pt"))
+        Path(tmp, "train.json").write_text(json.dumps(
+            {"metrics": seen, "update_norm": update}))
+        del model, step_fn, state, met, start, end
+        gc.collect()
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        tokens = [[int(t) for t in out] for out in outputs["olm16"]]
+        t0 = time.monotonic()
+        # a rank that raises fails this call, and with it the script
+        mp.start_processes(shard_rank, args=(SHARD_RANKS, port, tmp, tokens),
+                           nprocs=SHARD_RANKS, join=True,
+                           start_method="spawn")
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(SHARD_RANKS)]
+        print(f"[shard] {SHARD_RANKS} ranks done in "
+              f"{time.monotonic() - t0:.1f} s (spawn included)", flush=True)
+    # K1's launches on each rank, by part of the phase
+    by_path["olm_matmul_fused"]["shard"] = {
+        f"rank {r}": res["launches"] for r, res in enumerate(ranks)}
+    rank_walls = {r: res["serve"]["wall_s"] for r, res in enumerate(ranks)}
+    print(f"[shard] serve wall by rank {rank_walls} s against the serve "
+          f"phase's "
+          f"single-device olm16 "
+          f"{serve_stats['serve olm16']['wall']:.3f} s; {smi_line}",
+          flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     phase(None)

@@ -18,10 +18,15 @@ Properties:
   * a bf16 leaf, which has no numpy dtype, is stored as its 16-bit
     pattern with "bfloat16" in the manifest and restored to bf16;
   * the data pipeline's state is implicit: the synthetic pipeline is keyed
-    by (seed, step), so restoring `step` resumes the exact stream.
-
-Restoring onto another mesh (the reference's `shardings=`) waits for the
-sharded port (ROADMAP section 1, item 8).
+    by (seed, step), so restoring `step` resumes the exact stream;
+  * a sharded state (DTensor leaves) is saved whole: every rank calls
+    `save`, the leaves are gathered and copied to the host, and rank 0
+    writes them (in the background thread, as above); the ranks meet at
+    a barrier once the write is done, in the next `save`, `wait` or
+    `restore`, which every rank calls;
+  * elastic restore: `restore(shardings=)` places each whole leaf onto
+    the mesh and placements given, which need not be those it was saved
+    from.
 """
 from __future__ import annotations
 
@@ -71,25 +76,44 @@ class CheckpointManager:
         self.keep = keep
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
+        # a sharded save's ranks still to meet once it is written
+        self._barrier = False
 
     # ----------------- save -----------------
     def save(self, step: int, tree: Any, *, block: bool = False) -> None:
         leaves, treedef = tree_flatten(tree)
+        sharded = any(_is_dtensor(l) for l in leaves)
+        if sharded:
+            from repro_torch.distributed.collectives import gather_dtensor
+            leaves = [gather_dtensor(l) if _is_dtensor(l) else l
+                      for l in leaves]
         host = [(_to_host(l), _dtype_name(l.dtype)) for l in leaves]
         desc = tree_str(tree)
-        if self._thread is not None:
-            self._thread.join()  # one in-flight save at a time
-        if self.async_save and not block:
+        self.wait()  # one in-flight save at a time
+        writes = True
+        if sharded:
+            import torch.distributed as dist
+            self._barrier = True
+            writes = dist.get_rank() == 0
+        if not (self.async_save and not block):
+            if writes:
+                self._write(step, host, desc)
+            self.wait()
+        elif writes:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host, desc))
             self._thread.start()
-        else:
-            self._write(step, host, desc)
 
     def wait(self):
+        """Until the last save is on disk (on every rank of a sharded
+        save)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
 
     def _write(self, step: int, leaves, desc: str) -> None:
         name = f"step_{step:08d}"
@@ -137,12 +161,13 @@ class CheckpointManager:
     def restore(self, tree_like: Any, step: Optional[int] = None,
                 shardings: Any = None) -> Any:
         """Restore into the structure of `tree_like`, each leaf on the
-        device and in the dtype of `tree_like`'s leaf."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...): the port runs on one device; "
-                "elastic restore waits for the sharded port (ROADMAP "
-                "section 1, item 8)")
+        device and in the dtype of `tree_like`'s leaf. `shardings`, a tree
+        of tree_like's structure whose leaves have a `mesh` and
+        `placements` (distributed.sharding.NamedSharding) or are None,
+        places each whole leaf with `distribute_tensor` (a DTensor; every
+        rank keeps its block): a mesh of another shape than the one the
+        state was saved from is elastic re-sharding on load."""
+        self.wait()
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -158,4 +183,34 @@ class CheckpointManager:
             restored = [_from_host(data[f"leaf_{i}"], meta["dtype"], like)
                         for i, (meta, like) in enumerate(
                             zip(manifest["leaves"], leaves))]
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+            restored = [r if s is None else distribute_tensor(
+                r, s.mesh, s.placements, src_data_rank=None)
+                for r, s in zip(restored, _sharding_leaves(shardings,
+                                                           treedef))]
         return tree_unflatten(treedef, restored)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _sharding_leaves(shardings, treedef) -> list:
+    """The leaves of `shardings` in treedef's order, a None leaf kept (a
+    None leaf of the state's structure is an empty subtree there)."""
+    out = []
+
+    def walk(node, spec):
+        if isinstance(spec, dict):
+            for k in spec:
+                walk(node[k], spec[k])
+        elif isinstance(spec, (list, tuple)):
+            for n, s in zip(node, spec):
+                walk(n, s)
+        elif spec is not None:
+            out.append(node)
+
+    walk(shardings, treedef)
+    return out

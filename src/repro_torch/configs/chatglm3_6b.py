@@ -17,4 +17,5 @@ CONFIG = ModelConfig(
     qkv_bias=True,
     rope_style="half",
     block_pattern=("attn",),
+    sharding_profile="tp",
 )

@@ -14,4 +14,5 @@ CONFIG = ModelConfig(
     d_ff=8192,
     vocab_size=92544,
     block_pattern=("attn",),
+    sharding_profile="tp",
 )

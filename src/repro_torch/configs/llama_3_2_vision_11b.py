@@ -19,4 +19,5 @@ CONFIG = ModelConfig(
     vocab_size=128256,
     block_pattern=("attn", "attn", "attn", "attn", "cross"),
     n_frontend_tokens=1024,
+    sharding_profile="fsdp_tp",
 )

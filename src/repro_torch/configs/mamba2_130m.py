@@ -22,4 +22,5 @@ CONFIG = ModelConfig(
     conv_width=4,
     block_pattern=("ssm",),
     tie_embeddings=True,
+    sharding_profile="tp",
 )

@@ -18,4 +18,6 @@ CONFIG = ModelConfig(
     experts_per_token=2,
     sliding_window=4096,
     block_pattern=("attn",),
+    sharding_profile="fsdp_tp",
+    moe_sharding="tp",   # 8 experts < 16-way model axis: TP inside experts
 )

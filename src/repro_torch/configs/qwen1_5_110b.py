@@ -15,4 +15,5 @@ CONFIG = ModelConfig(
     vocab_size=152064,
     qkv_bias=True,
     block_pattern=("attn",),
+    sharding_profile="fsdp_tp",
 )

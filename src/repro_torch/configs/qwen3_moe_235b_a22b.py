@@ -18,4 +18,6 @@ CONFIG = ModelConfig(
     n_experts=128,
     experts_per_token=8,
     block_pattern=("attn",),
+    sharding_profile="fsdp_tp",
+    moe_sharding="ep",
 )

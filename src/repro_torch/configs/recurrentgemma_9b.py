@@ -20,4 +20,5 @@ CONFIG = ModelConfig(
     block_pattern=("rec", "rec", "attn"),
     rnn_width=4096,
     conv_width=4,
+    sharding_profile="fsdp_tp",
 )

@@ -21,4 +21,5 @@ CONFIG = ModelConfig(
     mlp_type="gelu",
     block_pattern=("xdec",),
     n_frontend_tokens=1024,
+    sharding_profile="tp",
 )

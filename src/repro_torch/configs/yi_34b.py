@@ -14,4 +14,5 @@ CONFIG = ModelConfig(
     d_ff=20480,
     vocab_size=64000,
     block_pattern=("attn",),
+    sharding_profile="fsdp_tp",
 )

@@ -22,9 +22,9 @@ activation dtype first; the output returns in the activation dtype.
 
 `EngineSpec` is the one declarative description of an engine, and
 `resolve_engine(spec, base=)` turns it into a DotEngine; `DotEngine.spec()`
-is the inverse. The mesh-sharded fields (`mesh`, `shard`, `shard_axis`)
-are kept for the reference's signature and refused until the sharded
-GEMMs are ported (ROADMAP section 1, item 8).
+is the inverse. With both `mesh` (a DeviceMesh) and `shard` set, the olm
+GEMMs run sharded over the mesh's `shard_axis`
+(kernels/online_dot/matmul_sharded); the other modes ignore the mesh.
 """
 from __future__ import annotations
 
@@ -147,6 +147,15 @@ def _olm_dot(eng: "DotEngine", x: torch.Tensor, w: torch.Tensor,
     tiling = {k: v for k, v in (("k_tile", eng.k_tile),
                                 ("block_m", eng.block_m),
                                 ("block_n", eng.block_n)) if v is not None}
+    if eng.mesh is not None and eng.shard is not None:
+        # the sharded front-end resolves tiling="auto" against the LOCAL
+        # shard shapes (pinned knobs still win)
+        from repro_torch.kernels.online_dot.matmul_sharded import (
+            olm_matmul_sharded)
+        return _lowered_dot(eng, x, w, functools.partial(
+            olm_matmul_sharded, mesh=eng.mesh, partition=eng.shard,
+            axis=eng.shard_axis, trunc=trunc, tiling=eng.tiling,
+            **tiling), n_bits)
     if eng.tiling == "auto":
         from repro_torch.kernels.online_dot.tuning import get_tiling
         auto = get_tiling(math.prod(x.shape[:-1]), w.shape[-1],
@@ -207,6 +216,15 @@ class DotEngine:
     # normalized to a sorted tuple of pairs so the engine stays hashable.
     layer_modes: Union[Mapping[str, str],
                        Tuple[Tuple[str, str], ...], None] = None
+    # Mesh-sharded dispatch: when BOTH mesh (a DeviceMesh) and shard are
+    # set, the olm GEMMs run through olm_matmul_sharded over the mesh's
+    # shard_axis. shard names the partitioned GEMM dim: "m"/"n" are
+    # bit-identical to one device, "k" sums f32 partials (within
+    # olm_error_bound, in another order). The other modes ignore all
+    # three.
+    mesh: Any = None
+    shard: Optional[str] = None       # None | "m" | "n" | "k"
+    shard_axis: str = "model"         # mesh axis the shard maps over
 
     _ROLES = frozenset({"attn", "mlp", "head"})
 
@@ -219,6 +237,10 @@ class DotEngine:
             raise ValueError(
                 f"unknown DotEngine tiling {self.tiling!r}; expected "
                 "None (static knobs / kernel defaults) or 'auto'")
+        if self.shard not in (None, "m", "n", "k"):
+            raise ValueError(
+                f"unknown DotEngine shard {self.shard!r}; expected None "
+                "or one of 'm', 'n', 'k'")
         if self.layer_modes is not None:
             pairs = tuple(sorted(dict(self.layer_modes).items()))
             if bad := {r for r, _ in pairs} - self._ROLES:
@@ -255,7 +277,8 @@ class DotEngine:
         return EngineSpec(
             mode=self.mode, k_tile=self.k_tile, block_m=self.block_m,
             block_n=self.block_n, tiling=self.tiling,
-            layer_modes=self.layer_modes)
+            layer_modes=self.layer_modes, mesh=self.mesh, shard=self.shard,
+            shard_axis=self.shard_axis)
 
     def dot(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """x (..., K) @ w (K, N) -> (..., N), in this engine's numerics."""
@@ -279,12 +302,6 @@ class _Unset:
 
 
 _UNSET = _Unset()
-
-# The sharded GEMMs are not ported yet: a spec that asks for them raises
-# instead of silently serving on one device.
-_SHARD_FIELDS = ("mesh", "shard", "shard_axis")
-_NO_SHARDING = ("the port runs on one device: mesh/shard/shard_axis wait "
-                "for the sharded GEMMs (ROADMAP section 1, item 8)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -314,7 +331,7 @@ class EngineSpec:
     block_n: Any = _UNSET
     tiling: Any = _UNSET
     layer_modes: Any = _UNSET
-    # Distributed front-end: refused (see _NO_SHARDING) unless unset.
+    # Distributed front-end (DotEngine.mesh/shard/shard_axis).
     mesh: Any = _UNSET
     shard: Any = _UNSET
     shard_axis: Any = _UNSET
@@ -330,10 +347,6 @@ class EngineSpec:
         if self.trunc is not None and self.n_bits is None:
             raise ValueError(
                 "EngineSpec: trunc= requires n_bits= (structural naming)")
-        if bad := [f for f in _SHARD_FIELDS
-                   if getattr(self, f) is not _UNSET]:
-            raise NotImplementedError(f"EngineSpec({', '.join(bad)}=...): "
-                                      f"{_NO_SHARDING}")
         if isinstance(self.layer_modes, Mapping):
             object.__setattr__(self, "layer_modes",
                                tuple(sorted(self.layer_modes.items())))
@@ -347,22 +360,20 @@ class EngineSpec:
 
 # DotEngine fields an EngineSpec can override (same names on both).
 _SPEC_ENGINE_FIELDS = ("k_tile", "block_m", "block_n", "tiling",
-                       "layer_modes")
+                       "layer_modes", "mesh", "shard", "shard_axis")
 
 
 def resolve_engine(spec: EngineSpec, base: Optional[DotEngine] = None,
                    mesh=None) -> DotEngine:
     """Resolve an EngineSpec into a concrete DotEngine.
 
-    Field resolution order: explicit spec field > ``base`` engine field >
-    DotEngine default. The mode comes from ``spec.mode``, or is derived
-    from ``spec.n_bits`` / ``spec.trunc`` (``olm{n}`` / ``olm{n}t{p}``) and
-    validated against the registry; with neither set, the base engine's
-    mode (or the DotEngine default) stands. ``mesh=`` is refused until the
-    sharded GEMMs are ported.
+    Field resolution order: explicit spec field > ``mesh=`` argument
+    (mesh only) > ``base`` engine field > DotEngine default. The mode
+    comes from ``spec.mode``, or is derived from ``spec.n_bits`` /
+    ``spec.trunc`` (``olm{n}`` / ``olm{n}t{p}``) and validated against
+    the registry; with neither set, the base engine's mode (or the
+    DotEngine default) stands.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"resolve_engine(mesh=...): {_NO_SHARDING}")
     if base is not None and not isinstance(base, DotEngine):
         raise TypeError(f"base must be a DotEngine, got {type(base).__name__}")
     kw = ({} if base is None else
@@ -378,6 +389,8 @@ def resolve_engine(spec: EngineSpec, base: Optional[DotEngine] = None,
                 f"resolves to unregistered mode {name!r}; registered: "
                 f"{', '.join(sorted(_MODES))}")
         kw["mode"] = name
+    if mesh is not None:
+        kw["mesh"] = mesh
     for name in _SPEC_ENGINE_FIELDS:
         v = getattr(spec, name)
         if v is not _UNSET:

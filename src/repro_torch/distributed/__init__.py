@@ -1,3 +1,3 @@
-"""Training on one device: the train step and fault handling (own copies
-of `repro/distributed/`; the sharded pieces wait for ROADMAP section 1,
-item 8)."""
+"""Training and sharding: the train step (on one device or over a mesh),
+the Sharder's rules, the collectives of the sharded path and fault
+handling (own copies of `repro/distributed/`)."""

@@ -1,4 +1,4 @@
-"""The train, prefill and decode step builders on one device (port of
+"""The train, prefill and decode step builders (port of
 `repro/distributed/train.py`).
 
 build_train_step: loss + grad + AdamW update, with
@@ -11,9 +11,22 @@ build_train_step: loss + grad + AdamW update, with
     compute dtype before the forward (`cast_params`), and the gradients
     reach the f32 masters through the cast.
 
-The reference's mesh pieces (the sharder, `with_sharding_constraint`,
-`jit_*`, `train_state_specs`) wait for the sharded port (ROADMAP
-section 1, item 8); an EngineSpec naming a mesh or a shard is refused.
+With a `Sharder` it stands in for the reference's `jit_train_step`: the
+state rests as DTensors with the placements of `train_state_specs`
+(`distribute_state`), and each step
+  * casts this rank's param shards to the compute dtype, then gathers
+    them whole (the cast before the gather, as `_cast_params` pins it);
+  * runs the forward and backward on this rank's rows of the batch (its
+    block along the axes `batch_spec` splits the batch over);
+  * sums the gradients over those axes and divides by their size, as
+    the microbatches divide;
+  * compresses (compress_grads) and takes the global norm on the whole
+    gradients, then runs AdamW on this rank's shards.
+An `engine_spec` with `shard=` runs every olm GEMM of the step through the
+mesh-sharded front-end on the sharder's mesh. The collectives are the
+c10d calls of `distributed.collectives`. The reference's
+`with_sharding_constraint` hints have no eager counterpart.
+
 A digit-mode engine (olm*, tpmm*) runs its kernel on every GEMM of the
 forward, and its derivative is zero, as the reference's
 (core/numerics.py `_DigitDot`).
@@ -27,13 +40,19 @@ import torch
 from repro_torch.core.numerics import EngineSpec, resolve_engine
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model, lm_loss
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
+                                     global_norm)
 from repro_torch.optim.compression import ef_compress_tree
 from repro_torch.optim.schedule import cosine_schedule
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.tree import (flatten_like, tree_flatten, tree_map,
+                              tree_unflatten)
+from .collectives import (all_reduce_sum, gather_dims, gather_dtensor,
+                          shard_dims)
+from .sharding import NamedSharding, Sharder, spec_leaves
 
 __all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
-           "init_train_state", "cast_params"]
+           "init_train_state", "cast_params", "train_state_specs",
+           "distribute_state", "gather_state", "state_shardings"]
 
 
 def init_train_state(model: Model, seed: int = 0) -> Dict[str, Any]:
@@ -43,6 +62,45 @@ def init_train_state(model: Model, seed: int = 0) -> Dict[str, Any]:
         "opt": adamw_init(params),
         "ef": None,  # error-feedback state, created on first compressed step
     }
+
+
+def train_state_specs(sharder: Sharder, state) -> Dict[str, Any]:
+    """The spec of every leaf of the train state: m, v and the error
+    state take their param's, the step is replicated."""
+    pspecs = sharder.param_specs(state["params"])
+    return {
+        "params": pspecs,
+        "opt": {"m": pspecs, "v": pspecs, "step": ()},
+        "ef": None if state["ef"] is None else pspecs,
+    }
+
+
+def state_shardings(sharder: Sharder, state) -> Dict[str, Any]:
+    """The NamedSharding of every leaf of `state` under train_state_specs
+    on the sharder's mesh (CheckpointManager.restore's `shardings`).
+    `state` may hold only some of the train state's entries (the params
+    alone, say)."""
+    _, treedef = tree_flatten(state)
+    specs = train_state_specs(sharder, {"ef": None, **state})
+    return tree_unflatten(treedef, [
+        NamedSharding(sharder.mesh, sharder.placements(spec))
+        for spec in spec_leaves(specs, state)])
+
+
+def distribute_state(sharder: Sharder, state) -> Dict[str, Any]:
+    """The whole train state (the same on every rank) as DTensors at rest:
+    each rank keeps its block of every leaf under train_state_specs."""
+    from torch.distributed.tensor import distribute_tensor
+    return tree_map(lambda t, s: distribute_tensor(
+        t, s.mesh, s.placements, src_data_rank=None),
+        state, state_shardings(sharder, state))
+
+
+def gather_state(tree) -> Any:
+    """Every DTensor leaf of a tree gathered whole, on every rank."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t: gather_dtensor(t) if isinstance(t, DTensor)
+                    else t, tree)
 
 
 def cast_params(params, cfg: ModelConfig):
@@ -74,6 +132,7 @@ def cast_params(params, cfg: ModelConfig):
 
 def build_train_step(
     model: Model,
+    sharder: Optional[Sharder] = None,
     *,
     opt_cfg: Optional[AdamWConfig] = None,
     microbatches: int = 1,
@@ -85,19 +144,26 @@ def build_train_step(
     reference's: loss, aux, ppl_proxy (the last microbatch's), grad_norm,
     lr and loss_total (the mean over microbatches of loss + aux term).
 
+    sharder=None steps on one device. With a Sharder the state is the
+    one `distribute_state` gives and the step is the sharded one (module
+    docstring); every rank calls it with the whole batch.
+
     engine_spec: an optional numerics override for the run, resolved
-    against the model's engine (core.numerics.resolve_engine)."""
+    against the model's engine on the sharder's mesh
+    (core.numerics.resolve_engine)."""
     if engine_spec is not None:
-        model = Model(model.cfg, resolve_engine(engine_spec, base=model.eng),
-                      device=model.device)
+        model = Model(model.cfg, resolve_engine(
+            engine_spec, base=model.eng,
+            mesh=None if sharder is None else sharder.mesh),
+            device=model.device)
     cfg = model.cfg
     opt_cfg = opt_cfg or AdamWConfig()
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, prepare):
         leaves, treedef = tree_flatten(params)
         live = [p.detach().requires_grad_(True) for p in leaves]
         loss, metrics = lm_loss(
-            model, cast_params(tree_unflatten(treedef, live), cfg), batch)
+            model, prepare(tree_unflatten(treedef, live)), batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         if missing := [i for i, g in enumerate(grads) if g is None]:
             raise RuntimeError(f"leaves {missing} of the params got no "
@@ -105,31 +171,37 @@ def build_train_step(
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_unflatten(treedef, list(grads))
 
+    def accumulated(params, batch, prepare):
+        """(loss, metrics, f32-summed grads / mb) over the microbatches;
+        the gradient of a leaf comes in the leaf's dtype."""
+        if microbatches == 1:
+            return grads_of(params, batch, prepare)
+        B = next(iter(batch.values())).shape[0]
+        if B % microbatches:
+            raise ValueError(f"batch {B} does not split into "
+                             f"{microbatches} microbatches")
+        grads = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+        for k in range(microbatches):
+            # the reference's (B, ...) -> (B/mb, mb, ...) reshape,
+            # swapped: microbatch k is rows k, k + mb, ...
+            loss, metrics, g = grads_of(
+                params, {n: v[k::microbatches] for n, v in batch.items()},
+                prepare)
+            grads = tree_map(torch.add, grads, g)
+            loss_sum = loss_sum + loss
+        mb = torch.tensor(float(microbatches), device=model.device)
+        return loss_sum / mb, metrics, tree_map(lambda g: g / mb, grads)
+
+    def on_device(batch):
+        return {k: torch.as_tensor(v, device=model.device)
+                for k, v in batch.items()}
+
     def train_step(state, batch):
         params = state["params"]
-        batch = {k: torch.as_tensor(v, device=model.device)
-                 for k, v in batch.items()}
-        if microbatches > 1:
-            B = next(iter(batch.values())).shape[0]
-            if B % microbatches:
-                raise ValueError(f"batch {B} does not split into "
-                                 f"{microbatches} microbatches")
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=model.device)
-            for k in range(microbatches):
-                # the reference's (B, ...) -> (B/mb, mb, ...) reshape,
-                # swapped: microbatch k is rows k, k + mb, ...
-                loss, metrics, g = grads_of(
-                    params, {n: v[k::microbatches] for n, v in batch.items()})
-                grads = tree_map(torch.add, grads, g)
-                loss_sum = loss_sum + loss
-            mb = torch.tensor(float(microbatches), device=model.device)
-            grads = tree_map(lambda g: g / mb, grads)
-            loss = loss_sum / mb
-        else:
-            loss, metrics, grads = grads_of(params, batch)
+        loss, metrics, grads = accumulated(
+            params, on_device(batch), lambda p: cast_params(p, cfg))
 
         ef = state["ef"]
         if compress_grads:
@@ -141,7 +213,88 @@ def build_train_step(
         metrics = {**metrics, **opt_metrics, "loss_total": loss}
         return {"params": new_params, "opt": new_opt, "ef": ef}, metrics
 
-    return train_step
+    if sharder is None:
+        return train_step
+
+    mesh = sharder.mesh
+    # each param's spec, in flattened order (the shapes of a meta init)
+    shapes = Model(cfg, device="meta").init(0)
+    specs = spec_leaves(sharder.param_specs(shapes), shapes)
+
+    def sharded_step(state, batch):
+        from torch.distributed.tensor import DTensor
+
+        def local(t):
+            return t.to_local()
+
+        def rest(t, like):
+            return DTensor.from_local(t, like.device_mesh, like.placements,
+                                      run_check=False, shape=like.shape,
+                                      stride=like.stride())
+
+        dt_params = state["params"]
+        params = tree_map(local, dt_params)
+        leaves, treedef = tree_flatten(params)
+        # the cast on this rank's shards, then the gather
+        whole = tree_unflatten(treedef, [
+            gather_dims(t, spec, mesh) for t, spec in zip(
+                flatten_like(cast_params(params, cfg), treedef), specs)])
+        # this rank's rows: its block along the axes the batch is split
+        # over (the whole batch where they have size 1)
+        bspecs = sharder.batch_specs(batch)
+        rows = {k: shard_dims(v, bspecs[k], mesh)
+                for k, v in on_device(batch).items()}
+        loss, metrics, grads = accumulated(whole, rows, lambda p: p)
+        # gradients of the cast leaves come in the compute dtype: the
+        # master's dtype is where the single-device cast's backward puts
+        # them
+        full = [g.to(p.dtype) for g, p in zip(
+            flatten_like(grads, treedef), leaves)]
+        bax = sharder.batch_spec()[0]
+        bax = (bax,) if isinstance(bax, str) else tuple(bax or ())
+        n = 1
+        scalars = [v.clone() for v in (loss, metrics["loss"], metrics["aux"])]
+        for a in bax:
+            n *= sharder.shape[a]
+            for t in full + scalars:
+                all_reduce_sum(t, mesh, a)
+        if n > 1:
+            div = torch.tensor(float(n), device=model.device)
+            full = [g / div for g in full]
+            loss, loss_m, aux = (v / div for v in scalars)
+            metrics = {**metrics, "loss": loss_m, "aux": aux,
+                       "ppl_proxy": torch.exp(torch.clamp(loss_m, max=20.0))}
+        grads = tree_unflatten(treedef, full)
+
+        ef = state["ef"]
+        if compress_grads:
+            ef_whole = None if ef is None else tree_map(gather_dtensor, ef)
+            grads, ef_whole = ef_compress_tree(grads, ef_whole)
+            ef = tree_unflatten(treedef, [
+                rest(shard_dims(e, spec, mesh).contiguous(), like)
+                for e, spec, like in zip(flatten_like(ef_whole, treedef),
+                                         specs, tree_flatten(dt_params)[0])])
+        # the norm of the whole gradients, as one device takes it
+        gnorm = global_norm(grads)
+        g_local = tree_unflatten(treedef, [
+            shard_dims(g, spec, mesh) for g, spec in zip(
+                flatten_like(grads, treedef), specs)])
+        opt = {"m": tree_map(local, state["opt"]["m"]),
+               "v": tree_map(local, state["opt"]["v"]),
+               "step": local(state["opt"]["step"])}
+        lr_scale = cosine_schedule(opt["step"], total=schedule_total)
+        new_params, new_opt, opt_metrics = adamw_update(
+            opt_cfg, g_local, opt, params, lr_scale, grad_norm=gnorm)
+        new_state = {
+            "params": tree_map(rest, new_params, dt_params),
+            "opt": {"m": tree_map(rest, new_opt["m"], dt_params),
+                    "v": tree_map(rest, new_opt["v"], dt_params),
+                    "step": rest(new_opt["step"], state["opt"]["step"])},
+            "ef": ef}
+        metrics = {**metrics, **opt_metrics, "loss_total": loss}
+        return new_state, metrics
+
+    return sharded_step
 
 
 def build_prefill_step(model: Model):

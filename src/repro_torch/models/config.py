@@ -77,9 +77,15 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     dot_mode: str = "native"              # any registered DotEngine mode
     tie_embeddings: bool = False
+    # how distributed/sharding.Sharder places the weights on a mesh:
+    # "tp" (over `model` alone) or "fsdp_tp" (the non-TP dim over `data`
+    # too); a MoE layer's experts over `model` ("ep") or its d_ff ("tp")
+    sharding_profile: str = "tp"
+    moe_sharding: str = "ep"
     # "block" recomputes each pattern group's forward in the backward
-    # (torch.utils.checkpoint, the reference's jax.checkpoint); "none"
-    # keeps every activation
+    # (torch.utils.checkpoint, the reference's jax.checkpoint); "none" and
+    # "full" keep every activation: the reference takes "full" and acts on
+    # "block" alone
     remat: str = "block"
 
     def __post_init__(self):
@@ -105,9 +111,9 @@ class ModelConfig:
                              "'swiglu' or 'gelu'")
         if self.sliding_window is not None and self.sliding_window < 1:
             raise ValueError("sliding_window must be >= 1 (or None)")
-        if self.remat not in ("none", "block"):
-            raise ValueError(f"remat={self.remat!r}; expected 'none' or "
-                             "'block'")
+        if self.remat not in ("none", "block", "full"):
+            raise ValueError(f"remat={self.remat!r}; expected 'none', "
+                             "'block' or 'full'")
         for f in ("param_dtype", "compute_dtype"):
             if getattr(self, f) not in _DTYPES:
                 raise ValueError(f"{f}={getattr(self, f)!r}; expected one "

@@ -60,7 +60,9 @@ class Model:
 
     def init(self, seed: int = 0) -> Params:
         cfg, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # device="meta" gives the shapes and dtypes alone (nothing drawn)
+        gen = None if dev.type == "meta" else torch.Generator(
+            device=dev).manual_seed(seed)
         params: Params = {
             "embed": embedding_init(gen, cfg, dev),
             "layers": [block_init(gen, cfg, kind, dev)

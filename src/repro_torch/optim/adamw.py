@@ -48,10 +48,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(cfg: AdamWConfig, grads, opt_state, params, lr_scale=1.0
+def adamw_update(cfg: AdamWConfig, grads, opt_state, params, lr_scale=1.0,
+                 grad_norm=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """Returns (new_params, new_opt_state, {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    """Returns (new_params, new_opt_state, {"grad_norm", "lr"}).
+    grad_norm: the global norm to clip by, where `grads` are shards of
+    the gradients it was taken on (default: global_norm(grads))."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     dev = gnorm.device
 
     def f32(v):

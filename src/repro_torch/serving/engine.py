@@ -197,8 +197,11 @@ class ServeEngine:
         declarative form of the legacy dot_mode / dot_tiling /
         quality_tiers / degrade_ladder keywords, resolved against the
         model's engine; passing both raises. Either way the numerics
-        resolve through core.numerics.resolve_engine. `mesh=` is refused:
-        the sharded GEMMs are not ported."""
+        resolve through core.numerics.resolve_engine. `mesh=` (a
+        DeviceMesh) with `shard` set in the spec routes the olm GEMMs
+        through the mesh-sharded front-end, tiers included
+        (kernels/online_dot/matmul_sharded): every rank runs the whole
+        engine and gets every output."""
         dev = resolve_device(device)
         if dev != model.device:
             raise ValueError(f"engine device {dev} but the model lives on "

@@ -3,7 +3,9 @@ reference's (`repro.core.numerics`): the same specs resolve to engines
 with the same fields, the `_UNSET` sentinel inherits where an explicit
 None clears a pin, the error cases raise the same errors, and a
 ServeEngine built from a spec equals one built from the legacy keywords.
-The mesh-sharded fields are refused (the sharded GEMMs are not ported).
+The mesh-sharded fields resolve as the reference's, and a mesh without a
+shard is inert (the sharded GEMMs themselves are held in
+test_torch_sharded_matmul.py).
 Cases follow tests/test_distributed_matmul.py::TestEngineSpec and
 tests/test_dot_engine.py::TestServingWiring.
 """
@@ -16,13 +18,15 @@ import torch
 from repro.core import numerics as jnum
 from repro_torch.core import numerics as tnum
 from repro_torch.core.numerics import DotEngine, EngineSpec, resolve_engine
+from repro_torch.launch.mesh import make_abstract_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import Request, ServeEngine
 
-# The fields both packages' DotEngine carry (the reference adds its TPU
-# deployment knobs and the mesh fields).
-FIELDS = ("mode", "k_tile", "block_m", "block_n", "tiling", "layer_modes")
+# The fields both packages' DotEngine carry but the mesh (the reference
+# adds its TPU deployment knobs).
+FIELDS = ("mode", "k_tile", "block_m", "block_n", "tiling", "layer_modes",
+          "shard", "shard_axis")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -39,7 +43,8 @@ def _fields(eng):
 
 ENGINES = [dict(), dict(mode="olm16"), dict(mode="olm32t16", tiling="auto"),
            dict(mode="olm24", k_tile=8, block_m=16, block_n=8),
-           dict(mode="olm16", layer_modes={"head": "olm32"})]
+           dict(mode="olm16", layer_modes={"head": "olm32"}),
+           dict(mode="olm16", shard="k", shard_axis="data")]
 
 
 @pytest.mark.parametrize("kw", ENGINES, ids=lambda kw: kw.get("mode", "-"))
@@ -94,10 +99,25 @@ def test_dict_fields_normalize_and_hash_as_the_reference():
 
 @pytest.mark.parametrize("field", ["mesh", "shard", "shard_axis"])
 def test_sharding_fields_are_refused(field):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        EngineSpec(**{field: "m"})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        resolve_engine(EngineSpec(mode="olm16"), mesh=object())
+    # no longer refused: each sharding field resolves as the reference's
+    value = {"mesh": make_abstract_mesh((2,), ("model",)), "shard": "m",
+             "shard_axis": "data"}[field]
+    eng = resolve_engine(EngineSpec(mode="olm16", **{field: value}))
+    ref = jnum.resolve_engine(jnum.EngineSpec(mode="olm16",
+                                              **{field: value}))
+    assert getattr(eng, field) is value or getattr(eng, field) == value
+    assert _fields(eng) == _fields(ref)
+    assert resolve_engine(eng.spec()) == eng
+    # resolve_engine(mesh=) sets the mesh; the spec's own mesh wins
+    mesh = make_abstract_mesh((4,), ("model",))
+    via = resolve_engine(EngineSpec(mode="olm16", shard="n"), mesh=mesh)
+    assert via.mesh is mesh and via.shard == "n"
+    assert resolve_engine(EngineSpec(**{field: value}),
+                          mesh=mesh).mesh is (value if field == "mesh"
+                                              else mesh)
+    for mod in (tnum, jnum):
+        with pytest.raises(ValueError, match="unknown DotEngine shard"):
+            mod.DotEngine(mode="olm16", shard="q")
 
 
 def _model(mode="native"):
@@ -134,8 +154,12 @@ def test_engine_and_legacy_keywords_are_exclusive():
     with pytest.raises(ValueError, match="not both"):
         ServeEngine(model, params, engine=EngineSpec(mode="olm16"),
                     dot_mode="olm16", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServeEngine(model, params, mesh=object(), device="cpu")
+    # mesh= without a shard is inert: the same engine numerics and tokens
+    mesh = make_abstract_mesh((2,), ("model",))
+    e_mesh, out_mesh = _run(model, params, mesh=mesh)
+    e_one, out_one = _run(model, params)
+    assert e_mesh.model.eng.mesh is mesh and e_mesh.model.eng.shard is None
+    assert out_mesh == out_one
 
 
 def test_spec_carries_serving_fields():

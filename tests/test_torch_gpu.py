@@ -655,3 +655,67 @@ def test_native_train_step_on_card_matches_cpu(cuda):
                     tree_leaves(s_cpu["params"])):
         err = (a.cpu() - b).abs().max() / b.abs().max()
         assert float(err) <= 1e-4
+
+
+# The shard phase's (a) of chip_smoke.py: InternLM2-1.8B's wq, wg, wd and
+# head at 64 rows, olm16 (and wq under olm32t16), each partitioned m, n
+# and k over a (1, 2) mesh of two ranks that share the card (a gloo group
+# on 127.0.0.1; NCCL refuses two ranks on one device).
+SHARD_GEMMS = (((2048, 2048), 16, None), ((2048, 8192), 16, None),
+               ((8192, 2048), 16, None), ((2048, 92544), 16, None),
+               ((2048, 2048), 32, 16))
+
+
+def _sharded_gemm_rank(rank, world, port, out_dir):
+    import json
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.kernels.online_dot.matmul import olm_error_bound
+    from repro_torch.kernels.online_dot.matmul_sharded import (
+        olm_matmul_sharded)
+    from repro_torch.launch.mesh import make_local_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = make_local_mesh(1, world, device_type="cuda")
+        for (K, N), n, p in SHARD_GEMMS:
+            x, w = _operands(dev, 64, K, N, seed=K + N)
+            single = olm_matmul(x, w, n_bits=n, trunc=p)
+            exact = x.double() @ w.double()
+            lim = olm_error_bound(x, w, n_bits=n, trunc=p).double()
+            for part in ("m", "n", "k"):
+                before = matmul_kernel.launches
+                got = olm_matmul_sharded(x, w, mesh=mesh, partition=part,
+                                         n_bits=n, trunc=p)
+                torch.cuda.synchronize()
+                ok = (torch.equal(got.view(torch.int32),
+                                  single.view(torch.int32))
+                      if part != "k" else
+                      bool(((got.double() - exact).abs() <= lim).all()))
+                out[f"{K}x{N} n{n} t{p} {part}"] = [
+                    ok, matmul_kernel.launches - before]
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_gemms_over_two_ranks_on_the_card(cuda, tmp_path):
+    import json
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_sharded_gemm_rank, args=(2, port, str(tmp_path)),
+                       nprocs=2, join=True, start_method="spawn")
+    for r in range(2):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert len(res) == 3 * len(SHARD_GEMMS)
+        # m/n bit-identical and k within the bound; one K1 launch a call
+        assert all(v == [True, 1] for v in res.values()), (r, res)

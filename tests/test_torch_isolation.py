@@ -53,7 +53,9 @@ def test_port_modules_found():
             "qwen3_moe_235b_a22b.py", "tuning.py", "shapes.py",
             "llama_3_2_vision_11b.py", "seamless_m4t_medium.py",
             "adamw.py", "compression.py", "schedule.py", "synthetic.py",
-            "fault.py", "manager.py", "train.py", "tree.py"} <= names
+            "fault.py", "manager.py", "train.py", "tree.py",
+            "matmul_sharded.py", "mesh.py", "constraints.py", "sharding.py",
+            "collectives.py"} <= names
 
 
 def test_degrade_ladder_resolves_modes_from_the_port_registry(monkeypatch):

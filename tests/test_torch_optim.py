@@ -348,13 +348,20 @@ def test_checkpoint_mismatch_and_shardings_raise(tmp_path):
     mgr.save(1, {"x": torch.zeros(3)})
     with pytest.raises(ValueError, match="leaves"):
         mgr.restore({"x": torch.zeros(3), "y": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mgr.restore({"x": torch.zeros(3)}, shardings={"x": None})
+    # shardings= with a None leaf restores that leaf whole, as without
+    assert torch.equal(mgr.restore({"x": torch.ones(3)},
+                                   shardings={"x": None})["x"],
+                       torch.zeros(3))
 
 
 def test_remat_is_a_config_field_of_the_reference():
     assert smoke_config("internlm2_1_8b").remat == "none"
     assert dataclasses.replace(smoke_config("mamba2_130m"),
                                remat="block").remat == "block"
+    # "full" is accepted by both packages (and acts as "none": only
+    # "block" checkpoints, test_torch_train.py::test_remat_full_is_none)
+    for smoke in (smoke_config, jax_smoke_config):
+        assert dataclasses.replace(smoke("internlm2_1_8b"),
+                                   remat="full").remat == "full"
     with pytest.raises(ValueError, match="remat"):
-        dataclasses.replace(smoke_config("mamba2_130m"), remat="full")
+        dataclasses.replace(smoke_config("mamba2_130m"), remat="layer")

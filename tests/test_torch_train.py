@@ -412,6 +412,22 @@ def test_remat_block_changes_no_bit(arch, over, seq):
     assert all(torch.equal(a, b) for a, b in zip(g0, g1))
 
 
+def test_remat_full_is_none():
+    # the reference takes remat="full" and checkpoints under "block"
+    # alone (repro/models/transformer.py), so a step under "full" is a
+    # step under "none", bit for bit
+    cfg = dataclasses.replace(smoke_config("internlm2_1_8b"), n_layers=2)
+    batch = torch_batch(cfg, seed=2)
+    out = []
+    for remat in ("none", "full"):
+        m = Model(dataclasses.replace(cfg, remat=remat), device="cpu")
+        state, met = build_train_step(m)(init_train_state(m, seed=1), batch)
+        out.append((met["loss"], tree_leaves(state)))
+    (l0, s0), (l1, s1) = out
+    assert torch.equal(l0, l1) and len(s0) == len(s1)
+    assert all(torch.equal(a, b) for a, b in zip(s0, s1))
+
+
 def test_prefill_and_decode_steps_are_the_models():
     cfg = dataclasses.replace(smoke_config("internlm2_1_8b"), n_layers=1)
     tm = Model(cfg, device="cpu")
@@ -428,5 +444,18 @@ def test_prefill_and_decode_steps_are_the_models():
 
 
 def test_a_sharded_engine_spec_is_refused():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        EngineSpec(mode="olm16", shard="m")
+    # no longer refused: with no sharder (no mesh) shard= is inert, as a
+    # reference engine with a shard and no mesh is, and the step is the
+    # unsharded olm16 step bit for bit
+    cfg = dataclasses.replace(smoke_config("internlm2_1_8b"), n_layers=1)
+    tm = Model(cfg, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in short_batch().items()}
+    out = []
+    for spec in (EngineSpec(mode="olm16", shard="m"),
+                 EngineSpec(mode="olm16")):
+        state, met = build_train_step(tm, engine_spec=spec)(
+            init_train_state(tm, seed=1), batch)
+        out.append((met["loss"], tree_leaves(state)))
+    (l0, s0), (l1, s1) = out
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(s0, s1))

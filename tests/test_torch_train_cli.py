@@ -1,7 +1,8 @@
 """The port's train CLI (`python -m repro_torch.launch.train`) on the CPU at
 smoke size: the reference's printed lines and JSON summary, checkpoints,
 --resume at the saved step of the exact data stream, a clean exit on
-SIGTERM, and the flags that wait for the sharded port refused."""
+SIGTERM, --dot-shard on the one-rank mesh and --production-mesh stopping
+before its first step."""
 import json
 import os
 import re
@@ -104,15 +105,39 @@ def test_sigterm_saves_the_next_step_and_exits_cleanly(tmp_path, capsys):
     assert signal.getsignal(signal.SIGTERM) == handler   # handed back
 
 
-@pytest.mark.parametrize("flag", [["--dot-shard", "m"], ["--production-mesh"]],
+@pytest.mark.parametrize("flag", [["--dot-shard", "n"], ["--production-mesh"]],
                          ids=["dot-shard", "production-mesh"])
-def test_mesh_flags_are_refused(flag, tmp_path, capsys):
-    with pytest.raises(SystemExit) as exc:
-        train_cli.main([*ARGS, "--steps", "1", "--ckpt-dir", str(tmp_path),
-                        *flag])
-    assert exc.value.code == 2
-    assert "item 8" in capsys.readouterr().err
-    assert not list(tmp_path.iterdir())
+def test_mesh_flags_are_refused(flag, tmp_path, capsys, monkeypatch):
+    # no longer refused. --dot-shard n trains on the one-rank mesh with
+    # every olm GEMM through the sharded front-end; --production-mesh
+    # builds the 16x16 specs and stops before the first step, the world
+    # lacking its 256 ranks
+    if flag[0] == "--production-mesh":
+        with pytest.raises(RuntimeError, match="needs 256 ranks"):
+            train_cli.main([*ARGS, "--steps", "1", "--ckpt-dir",
+                            str(tmp_path), *flag])
+        out = capsys.readouterr().out
+        assert "production mesh {'data': 16, 'model': 16}" in out
+        assert not step_lines(out) and not list(tmp_path.iterdir())
+        return
+    from repro_torch.kernels.online_dot import matmul_sharded
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(kw["partition"])
+        return real(*a, **kw)
+
+    real = matmul_sharded.olm_matmul_sharded
+    monkeypatch.setattr(matmul_sharded, "olm_matmul_sharded", counted)
+    summary = train_cli.main([*ARGS[:-2], "--seq", "16", "--batch", "1",
+                              "--steps", "1", "--dot-mode", "olm16",
+                              "--ckpt-dir", str(tmp_path), *flag])
+    out = capsys.readouterr().out
+    assert "mesh {'data': 1, 'model': 1} over 1 rank(s), backend gloo" in out
+    assert summary["steps"] == 1 and np.isfinite(summary["loss_last"])
+    assert [float(g) for _, _, g, _ in step_lines(out)] == [0.0]
+    assert calls and set(calls) == {"n"}
+    assert CheckpointManager(tmp_path / "mamba2-130m").all_steps() == [1]
 
 
 def test_dot_mode_trains_through_the_digit_gemms(tmp_path, capsys):
@@ -126,3 +151,21 @@ def test_dot_mode_trains_through_the_digit_gemms(tmp_path, capsys):
     assert [float(g) for _, _, g, _ in lines] == [0.0]
     assert CheckpointManager(tmp_path / "mamba2-130m").all_steps() == [1]
     assert np.isfinite(summary["loss_last"])
+
+
+@pytest.mark.parametrize("flag, device, local_world, cards, want", [
+    ("auto", "cpu", 2, 0, "gloo"),
+    ("auto", "cuda:0", 1, 1, "gloo"),
+    ("auto", "cuda:0", 2, 1, "gloo"),
+    ("auto", "cuda:0", 4, 4, "nccl"),
+    ("gloo", "cuda:0", 4, 4, "gloo"),
+    ("nccl", "cuda:0", 1, 1, "nccl"),
+])
+def test_backend_follows_the_cards(flag, device, local_world, cards, want,
+                                   monkeypatch):
+    # NCCL where each rank of the host has a card of its own; gloo where
+    # the ranks share a card, run on the CPU or are one; --backend wins
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    backend, why = train_cli.pick_backend(flag, torch.device(device),
+                                          local_world)
+    assert backend == want and why

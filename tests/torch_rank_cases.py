@@ -1,0 +1,275 @@
+"""Cases that the ranks of the sharded tests run, in processes spawned by
+`tests/test_torch_sharded_matmul.py` and `tests/test_torch_sharded_train.py`
+(a spawned process imports this module, which imports no JAX)."""
+import os
+import socket
+
+import numpy as np
+import torch
+
+from repro_torch.core.numerics import TRUNCATED_SPECS, DotEngine
+
+FULL_WIDTHS = (8, 16, 24, 32)
+ALL_CASES = [(n, None) for n in FULL_WIDTHS] + list(TRUNCATED_SPECS)
+PARTS = ("m", "n", "k")
+ROW_SIZE = 64        # results/baseline/BENCH_olm_matmul_distributed.json's
+SWEEP_SIZE = 32      # tests/test_distributed_matmul.py's
+
+
+def label(n, p):
+    return f"olm{n}" if p is None else f"olm{n}t{p}"
+
+
+def row_operands():
+    # benchmarks/distributed_worker.py's inputs
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((ROW_SIZE, ROW_SIZE)).astype(np.float32)
+    w = rng.standard_normal((ROW_SIZE, ROW_SIZE)).astype(np.float32)
+    return x, w
+
+
+def sweep_operands():
+    rng = np.random.default_rng(0xD15C)
+    x = rng.standard_normal((SWEEP_SIZE, SWEEP_SIZE)).astype(np.float32)
+    w = rng.standard_normal((SWEEP_SIZE, SWEEP_SIZE)).astype(np.float32)
+    return x, w
+
+
+def lead_operands():
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((4, 8, 32)).astype(np.float32)
+    w = rng.standard_normal((32, 32)).astype(np.float32)
+    return x, w
+
+
+def matmul_rank(rank, world, port, out_dir):
+    """One rank: every sharded case, its outputs saved to out_dir."""
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import (gather_dims,
+                                                     gather_dtensor,
+                                                     shard_dims)
+    from repro_torch.distributed.sharding import Sharder
+    from repro_torch.kernels.online_dot.matmul_sharded import (
+        olm_matmul_sharded)
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out, errors = {}, {}
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(world), mesh_dim_names=(
+            "model",))
+        for tag, (x, w) in (("row", row_operands()),
+                            ("sweep", sweep_operands())):
+            x, w = torch.from_numpy(x), torch.from_numpy(w)
+            for n, p in ALL_CASES:
+                for part in PARTS:
+                    out[f"{tag}/{label(n, p)}/{part}"] = olm_matmul_sharded(
+                        x, w, mesh=mesh, partition=part, n_bits=n, trunc=p)
+        x, w = (torch.from_numpy(a) for a in sweep_operands())
+        for part in ("m", "n"):
+            out[f"auto/{part}"] = olm_matmul_sharded(
+                x, w, mesh=mesh, partition=part, n_bits=16, tiling="auto")
+        for name, call in (
+                ("divisibility", lambda: olm_matmul_sharded(
+                    torch.ones(12, 16), torch.ones(16, 16), mesh=mesh,
+                    partition="m", n_bits=16)),
+                ("unknown_axis", lambda: olm_matmul_sharded(
+                    x, w, mesh=mesh, partition="m", axis="nope",
+                    n_bits=16))):
+            try:
+                call()
+            except ValueError as e:
+                errors[name] = str(e)
+        # DotEngine(mesh=, shard=) dispatch
+        for part in ("m", "n"):
+            out[f"engine/{part}"] = DotEngine(
+                mode="olm16", mesh=mesh, shard=part).dot(x, w)
+        out["engine/k/olm32t16"] = DotEngine(
+            mode="olm32t16", mesh=mesh, shard="k").dot(x, w)
+        out["engine/auto/n"] = DotEngine(
+            mode="olm16", mesh=mesh, shard="n", tiling="auto").dot(x, w)
+        out["engine/inert"] = DotEngine(mode="olm16", mesh=mesh).dot(x, w)
+        x3, w3 = (torch.from_numpy(a) for a in lead_operands())
+        out["engine/lead3d"] = DotEngine(
+            mode="olm16", mesh=mesh, shard="m").dot(x3, w3)
+        # the collectives on a 2 x 4 mesh: a dim over both axes, a dim
+        # over one, DTensor's chunks and the gathers
+        mesh2 = make_local_mesh(2, 4, device_type="cpu")
+        sharder = Sharder(mesh2, smoke_config("internlm2_1_8b"))
+        full = torch.arange(16 * 12, dtype=torch.float32).reshape(16, 12)
+        for name, spec in (("both", (("data", "model"), None)),
+                           ("split", ("data", "model")),
+                           ("model", (None, "model"))):
+            pl = sharder.placements(spec)
+            mine = shard_dims(full, spec, mesh2)
+            dt = distribute_tensor(full, mesh2, pl, src_data_rank=None)
+            out[f"coll/{name}/chunk"] = torch.tensor(
+                torch.equal(mine, dt.to_local()))
+            out[f"coll/{name}/gather"] = torch.tensor(
+                torch.equal(gather_dims(mine, spec, mesh2), full))
+            out[f"coll/{name}/dtensor"] = torch.tensor(
+                torch.equal(gather_dtensor(dt), full))
+    finally:
+        torch.save({"out": out, "errors": errors},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+
+
+# ---------------------------------------------------------------- training
+TRAIN_STEPS = 3
+TRAIN_BATCH, TRAIN_SEQ = 4, 16
+CLI_ARGS = ["--arch", "internlm2_1_8b", "--smoke", "--batch", "4", "--seq",
+            "16", "--device", "cpu", "--steps", "3", "--log-every", "1",
+            "--ckpt-every", "100"]
+
+
+def train_config():
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    return dataclasses.replace(smoke_config("internlm2_1_8b"), n_layers=2)
+
+
+def train_batches(cfg, n=TRAIN_STEPS):
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    data = SyntheticLMDataset(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    return [{k: torch.from_numpy(v) for k, v in data.batch(i).items()}
+            for i in range(n)]
+
+
+def run_steps(step, state, batches):
+    """(the state after the steps, each step's loss and grad_norm as
+    (steps, 2) f32)."""
+    seen = []
+    for b in batches:
+        state, met = step(state, b)
+        seen.append(torch.stack([met["loss"], met["grad_norm"]]))
+    return state, torch.stack(seen)
+
+
+def train_rank(rank, world, port, out_dir):
+    """One rank: the sharded train step on the (1, 2) and (2, 1) meshes, a
+    checkpoint saved on (2, 1) and restored on (1, 2), an olm16 step with
+    shard="n", and the train CLI over the two ranks."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.numerics import EngineSpec
+    from repro_torch.distributed.sharding import Sharder
+    from repro_torch.distributed.train import (build_train_step,
+                                               distribute_state,
+                                               gather_state,
+                                               init_train_state,
+                                               state_shardings,
+                                               train_state_specs)
+    from repro_torch.kernels.online_dot import matmul_sharded
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+    from torch.distributed.tensor import DTensor
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    cfg = train_config()
+    model = Model(cfg, device="cpu")
+    batches = train_batches(cfg)
+    out = {}
+    try:
+        meshes = {s: make_local_mesh(*s, device_type="cpu")
+                  for s in ((1, 2), (2, 1))}
+        sharders = {}
+        for shape, mesh in meshes.items():
+            sharders[shape] = sharder = Sharder(mesh, cfg)
+            sharder.set_batch(TRAIN_BATCH)
+            state = distribute_state(sharder, init_train_state(model, 0))
+            out[f"{shape}/at_rest"] = torch.tensor(all(
+                isinstance(t, DTensor) for t in tree_leaves(state)))
+            out[f"{shape}/local_numel"] = torch.tensor(sum(
+                t.to_local().numel() for t in tree_leaves(state["params"])))
+            state, seen = run_steps(build_train_step(model, sharder),
+                                    state, batches)
+            out[f"{shape}/params"] = tree_leaves(gather_state(
+                state["params"]))
+            out[f"{shape}/metrics"] = seen
+            if shape == (2, 1):
+                saved = state
+                specs = train_state_specs(sharder, state)
+                out["specs/keys"] = repr((sorted(specs), sorted(
+                    specs["opt"]), specs["opt"]["step"], specs["ef"]))
+        # saved on (2, 1), restored onto (1, 2): the same bits (rank 0
+        # writes in the background; restore waits for it on every rank)
+        ckpt = CheckpointManager(os.path.join(out_dir, "ckpt"))
+        ckpt.save(TRAIN_STEPS, saved)
+        like = distribute_state(sharders[(1, 2)],
+                                init_train_state(model, 1))
+        restored = ckpt.restore(like, shardings=state_shardings(
+            sharders[(1, 2)], like))
+        out["restore/placements"] = repr(
+            tree_leaves(restored["params"])[0].placements)
+        out["restore/same"] = torch.tensor(all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves(gather_state(restored)),
+                tree_leaves(gather_state(saved)))))
+        # the params alone, as a subtree of the train state
+        ckpt = CheckpointManager(os.path.join(out_dir, "ckpt_params"))
+        ckpt.save(TRAIN_STEPS, {"params": saved["params"]})
+        like = {"params": like["params"]}
+        restored = ckpt.restore(like, shardings=state_shardings(
+            sharders[(1, 2)], like))
+        out["restore/params_same"] = torch.tensor(all(
+            torch.equal(a, b) for a, b in zip(
+                tree_leaves(gather_state(restored)),
+                tree_leaves(gather_state(saved["params"])))))
+        # compressed gradients on (1, 2)
+        state, _ = run_steps(build_train_step(
+            model, sharders[(1, 2)], compress_grads=True),
+            distribute_state(sharders[(1, 2)], init_train_state(model, 0)),
+            batches[:2])
+        out["compress/params"] = tree_leaves(gather_state(state["params"]))
+        out["compress/ef"] = tree_leaves(gather_state(state["ef"]))
+        # one olm16 step with every GEMM sharded over n on (1, 2)
+        calls = []
+        real = matmul_sharded.olm_matmul_sharded
+
+        def counted(*a, **kw):
+            calls.append(kw["partition"])
+            return real(*a, **kw)
+
+        matmul_sharded.olm_matmul_sharded = counted
+        try:
+            step = build_train_step(model, sharders[(1, 2)],
+                                    engine_spec=EngineSpec(mode="olm16",
+                                                           shard="n"))
+            state, met = step(distribute_state(
+                sharders[(1, 2)], init_train_state(model, 0)),
+                {k: v[:1, :8] for k, v in batches[0].items()})
+        finally:
+            matmul_sharded.olm_matmul_sharded = real
+        out["olm16/calls"] = repr(calls)
+        out["olm16/grad_norm"] = met["grad_norm"]
+        out["olm16/params"] = tree_leaves(gather_state(state["params"]))
+        # the train CLI over the two ranks: a (2, 1) mesh, --dot-shard n
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summary = train_cli.main([*CLI_ARGS, "--dot-shard", "n",
+                                      "--ckpt-dir",
+                                      os.path.join(out_dir, "cli")])
+        out["cli/summary"] = repr(summary)
+        out["cli/stdout"] = buf.getvalue()
+    finally:
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
