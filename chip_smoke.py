@@ -10,6 +10,16 @@ Phases, each printing its own lines:
   1. device  - the card's name, count, power limit and SM clock;
   2. build   - every kernel, compiled with nvcc for sm_90a from the sources
                in the checkout, all sources at once (ptxas summary, seconds);
+  2b. lint   - the static analyzer's card half (repro_torch.analysis):
+               the SASS contracts over `cuobjdump -sass` of the four
+               builds (no MUFU transcendental, no .FTZ, no f32 atomic add
+               in K1/K2), each kernel's registers and spills from ptxas,
+               every registry plan and every results/tuning_torch.json
+               entry against the card's own answer (the shared memory the
+               kernel asks for equal to the plan's, at least one block an
+               SM; K4's static shared memory against ptxas's for each of
+               its instances), and one small launch of each kernel for its
+               output dtype; any violation fails the run;
   3. check   - each kernel against its plain version on the card, bit for
                bit: olm_matmul_fused (K1) and olm_matmul_host (K2), against
                it and against each other, at every olm width and tier on a
@@ -30,7 +40,15 @@ Phases, each printing its own lines:
                than the datapath too), in its int64 lane, n of 36 and
                40, and K past 1024 lanes (streams of 64 and 128 bits),
                one launch each, and a configuration no kernel holds
-               raising before any launch; K1 at the weight-bearing GEMM
+               raising before any launch; F6's configurations (the
+               selection condition holds, the residual leaves int32 or
+               is not proven in it: K4 at (n, delta, t) = (24, 2, 4),
+               (28, 2, 4) and (24, 3, 4), K3 at (24, 2, 4) with K of
+               256, at least 2^16 lanes each) bit-equal in int64 lanes,
+               and (32, 2, 5) raising before any launch; K1 and K2 at
+               more row blocks than grid y holds (F7: 524,317 rows), on
+               rows at both ends and across the z boundary; K1 at the
+               weight-bearing GEMM
                shapes of ChatGLM3-6B (M of 4), Yi-34B and
                Qwen1.5-110B (M of 4; wide outputs on their first and last
                2048 columns), and at the eng.dot GEMM shapes of
@@ -166,9 +184,18 @@ Phases, each printing its own lines:
                of one device's (relative); one olm16 step with
                shard="n" (K1 launches per rank == GEMMs run, every
                gradient zero); the params saved on (2, 1) restored onto
-               (1, 2) with the same bits.
+               (1, 2) with the same bits;
+  14. examples - the port's four examples (examples/*_torch.py) on the
+               card at their documented settings, imported and run in
+               this process: the quickstart, the numerics walk-through
+               (K5 at tpmm8/16/24, K1 against its plain version, an olm16
+               MLP and a tpmm16 smoke model), the batched serve under
+               paged and contiguous KV, and the Mamba2-130M train twin at
+               8 x 256 for 20 steps at lr 3e-3, whose loss must improve;
+               the kernels' launches counted for the path.
 
-Each phase's wall is printed on a line of its own ("[wall] phase ...").
+Each phase's wall is printed on a line of its own ("[wall] phase ..."),
+and their sum after the last.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 and prints no result; so does a machine without a CUDA card, and a
@@ -179,6 +206,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import io
 import json
 import os
@@ -265,13 +293,35 @@ GENERAL_DOT = (tuple((K, kw) for K in (33, 2048) for kw in GENERAL_CONFIGS)
 # A configuration no kernel holds (the residual's bound leaves int64): a
 # CUDA operand must raise before any launch.
 UNHELD = dict(n=36, delta=1)
+# F6: the selection condition holds but the residual leaves int32 (the
+# first two) or the overflow prover cannot show it stays there (the
+# third): the general kernels run them in int64 lanes, which must give the
+# plain version's digits over at least 2^16 lanes (K4 at GENERAL_MUL_B
+# rows, K3 at F6_DOT's B x K); (32, 2, 5)'s bound leaves int64 too, so no
+# kernel holds it and a CUDA operand must raise before any launch.
+F6_CONFIGS = (dict(n=24, delta=2, t=4), dict(n=28, delta=2, t=4),
+              dict(n=24, delta=3, t=4))
+F6_DOT = (256, dict(n=24, delta=2, t=4), 256)      # (K, keywords, B)
+F6_UNHELD = dict(n=32, delta=2, t=5)
+# F7: K1/K2 at more row blocks (of 8 rows) than grid y holds, 65,535: the
+# rows past it run in grid z. Checked on TALL_ROWS rows at both ends and
+# across the boundary.
+TALL = (65535 * 8 + 37, 16, 3)                     # (M, K, N)
+TALL_ROWS = 64
 GENERAL_DOT_B = 61
 # one time each: K4 at delay 4 and in the int64 lane, K3 at delay 4 and
 # K3 past 1024 lanes
 GENERAL_TIMED = ((None, dict(n=16, delta=4), MUL_B),
                  (None, dict(n=24, t=1), MUL_B),          # the int64 lane
+                 (None, dict(n=24, delta=2, t=4), MUL_B),  # F6, int64
                  (256, dict(n=16, delta=4), DOT_B),
+                 (256, dict(n=24, delta=2, t=4), DOT_B),   # F6, int64
                  (2048, dict(n=16), 512))
+# The examples phase: each twin with its arguments (the train twin cut to
+# 20 steps at the train phase's CLI learning rate).
+EXAMPLES = (("quickstart_torch", []), ("online_numerics_matmul_torch", []),
+            ("serve_batched_torch", []),
+            ("train_lm_torch", ["--steps", "20", "--lr", "3e-3"]))
 # The rest of the dense family. K1 at ChatGLM3-6B's weight-bearing (K, N):
 # q/o, k/v (2 KV heads of 128), gate/up, down and the 65024-wide head; at
 # Yi-34B's and Qwen1.5-110B's k/v, down and heads. At M = 4 ChatGLM3's
@@ -821,6 +871,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
+    from repro_torch.analysis import registry as lint_registry
+    from repro_torch.analysis import sass as lint_sass
+    from repro_torch.analysis import smem as lint_smem
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.core.inner_product import online_dot as oracle_dot
     from repro_torch.core.numerics import DotEngine
@@ -903,6 +956,65 @@ def main() -> int:
               f"{ptxas_summary(b.log)}")
     print(f"[build] all kernels in {time.monotonic() - t0:.1f} s", flush=True)
 
+    # 2b. the static analyzer's card half -------------------------------
+    phase("lint")
+    violations, reports, exempt = lint_sass.run()
+    print(f"[lint] SASS contracts over cuobjdump -sass of "
+          f"{', '.join(reports)}: {len(violations)} violation(s); "
+          f"instructions of the compiler's IEEE division slow path (the "
+          f"subroutine FCHK calls, exempt): {exempt}", flush=True)
+    for kernel, row in lint_sass.summarize(reports).items():
+        print(f"[lint] {kernel}: {row['instances']} instances, registers "
+              f"{row['registers'][0]}-{row['registers'][1]}, spill stores "
+              f"{row['spill_stores']} B, spill loads {row['spill_loads']} B, "
+              f"static smem up to {row['smem']} B")
+    geometry = {"olm_matmul_fused": k12.geometry,
+                "olm_matmul_host": k12.geometry, "online_dot": k3.geometry,
+                "tpmm": k5.geometry}
+    cases = lint_registry.iter_cases() + lint_smem.tuning_cases()
+    held = 0
+    for case in cases:
+        violations += lint_smem.check_plan(case)
+        if case.kernel in geometry:
+            violations += lint_smem.check_geometry(case,
+                                                   geometry[case.kernel])
+            held += 1
+    mul = [k for k in reports["online_mul.cu"] if "online_mul_kernel" in k]
+    print(f"[lint] {len(cases)} launch plans ({len(cases) - held} registry "
+          f"plans of K4 held against ptxas's static shared memory of its "
+          f"{len(mul)} instances, {len(lint_smem.tuning_cases())} "
+          f"tuning_torch.json entries) against Hopper's limits; {held} "
+          f"against the card's own shared memory and occupancy", flush=True)
+    x, w = operands((5, 70, 37), 31, dev)
+    xd, yd = digits((37, 16, 16), 32, dev)
+    ap, bp, sa, sb = decompose_operands(x, w, n_bits=16)
+    outputs = {
+        "olm_matmul_fused": k12.olm_matmul_fused(x, w, n=16),
+        "olm_matmul_host": olm_matmul(x, w, n_bits=16, quantize="host"),
+        "online_dot": k3.online_dot_kernel(xd, yd, OnlinePrecision(n=16)),
+        "online_mul": k4.online_mul_kernel(xd[:, 0].contiguous(),
+                                           yd[:, 0].contiguous(),
+                                           OnlinePrecision(n=16)),
+        "tpmm": k5.tpmm_kernel(ap, bp, sa, sb, n_bits=16)}
+    torch.cuda.synchronize()
+    for kernel, out in outputs.items():
+        violations += lint_sass.check_dtype(kernel, str(out.dtype),
+                                            where=f"{kernel} small launch")
+    print(f"[lint] output dtypes of one small launch each: "
+          f"{ {k: str(v.dtype) for k, v in outputs.items()} }", flush=True)
+    if violations:
+        kinds = {}
+        for v in violations:
+            kinds.setdefault((v.contract, v.detail.split(": ")[-1].split()[0]),
+                             v)
+        for (contract, what), v in kinds.items():
+            print(f"[lint] {contract} ({what}), first at {v.where}: "
+                  f"{v.detail}", flush=True)
+        raise SystemExit(f"the lint phase found {len(violations)} "
+                         f"violation(s) of {len(kinds)} kinds")
+    print("[lint] no violation", flush=True)
+    del x, w, xd, yd, ap, bp, outputs
+
     # 3. each kernel against its plain version, bit for bit -------------
     phase("check")
     max_err = dict.fromkeys(read_counts(), 0.0)
@@ -962,6 +1074,23 @@ def main() -> int:
     for shape in SERVE_SHAPES:
         hold_both(f"olm16 M,K,N={shape}", *operands(shape, 2, dev), 16)
         torch.cuda.empty_cache()
+    # F7: row blocks past grid y's 65,535 continue in grid z
+    M, K, N = TALL
+    xs, ws = operands(TALL, 23, dev)
+    grids = [k12.launch_plan(M, N, K, 16, host=host).launch_grid
+             for host in (False, True)]
+    fused = olm_matmul(xs, ws, n_bits=16)
+    host = olm_matmul(xs, ws, n_bits=16, quantize="host")
+    edge = 65535 * 8
+    for a, b in ((0, TALL_ROWS), (edge - TALL_ROWS // 2, edge + TALL_ROWS // 2),
+                 (M - TALL_ROWS, M)):
+        want = olm_matmul_ref(xs[a:b].contiguous(), ws, n_bits=16)
+        hold("olm_matmul_fused", f"olm16 M,K,N={TALL} rows {a}:{b} (launch "
+             f"grid {grids[0]})", fused[a:b].contiguous(), want)
+        hold("olm_matmul_host", f"olm16 M,K,N={TALL} rows {a}:{b} (launch "
+             f"grid {grids[1]})", host[a:b].contiguous(), want)
+    del xs, ws, fused, host, want
+    torch.cuda.empty_cache()
 
     def plain_olm16(xs, ws, a=0, b=None):
         """The plain olm16 version on columns a:b of w, PLAIN_OUTPUTS
@@ -1095,21 +1224,45 @@ def main() -> int:
              online_dot_batch_ref(xd, yd, n=cfg.n, delta=cfg.delta, t=cfg.t,
                                   truncated=cfg.truncated,
                                   tail_gating=cfg.tail_gating))
-    cfg = OnlinePrecision(**UNHELD)
-    xd, yd = digits((GENERAL_DOT_B, 4, cfg.n), 5, dev)
-    before = (k3.launches, k4.launches)
-    for api, call in (("online_mul", lambda: online_mul(
-            xd[:, 0].contiguous(), yd[:, 0].contiguous(), cfg)),
-                      ("online_dot", lambda: online_dot(xd, yd, cfg))):
-        try:
-            call()
-        except ValueError as e:
-            print(f"[check] {api} {UNHELD}: raises before any launch "
-                  f"({str(e)[:60]}...)", flush=True)
-        else:
-            raise SystemExit(f"{api} {UNHELD} did not raise")
-    if (k3.launches, k4.launches) != before:
-        raise SystemExit(f"{UNHELD} launched a kernel")
+    # F6: the general kernels' int64 lanes where the residual leaves int32
+    for kw in F6_CONFIGS:
+        cfg = OnlinePrecision(**kw)
+        bits = k4.check_config(cfg)[2]
+        xd, yd = digits((GENERAL_MUL_B, cfg.n), 40 + cfg.n, dev)
+        before = k4.launches
+        got, _ = online_mul(xd, yd, cfg)
+        if k4.launches != before + 1:
+            raise SystemExit(f"online_mul {kw} did not launch its kernel")
+        want, _ = online_mul_batch_ref(xd, yd, **kw)
+        hold("online_mul", f"F6 B={GENERAL_MUL_B} lanes {kw} "
+             f"({k4.route(cfg)} kernel, {bits}-bit lanes)", got, want)
+    K, kw, B = F6_DOT
+    cfg = OnlinePrecision(**kw)
+    bits = k4.check_config(cfg)[2]
+    xd, yd = digits((B, K, cfg.n), 41, dev)
+    before = k3.launches
+    got, _ = online_dot(xd, yd, cfg)
+    if k3.launches != before + 1:
+        raise SystemExit(f"online_dot K={K} {kw} did not launch its kernel")
+    hold("online_dot", f"F6 B={B} K={K} ({B * K} lanes) {kw} "
+         f"({k3.route(cfg, K)} kernel, {bits}-bit lanes)", got,
+         online_dot_batch_ref(xd, yd, **kw))
+    for unheld in (UNHELD, F6_UNHELD):
+        cfg = OnlinePrecision(**unheld)
+        xd, yd = digits((GENERAL_DOT_B, 4, cfg.n), 5, dev)
+        before = (k3.launches, k4.launches)
+        for api, call in (("online_mul", lambda: online_mul(
+                xd[:, 0].contiguous(), yd[:, 0].contiguous(), cfg)),
+                          ("online_dot", lambda: online_dot(xd, yd, cfg))):
+            try:
+                call()
+            except ValueError as e:
+                print(f"[check] {api} {unheld}: raises before any launch "
+                      f"({str(e)[:60]}...)", flush=True)
+            else:
+                raise SystemExit(f"{api} {unheld} did not raise")
+        if (k3.launches, k4.launches) != before:
+            raise SystemExit(f"{unheld} launched a kernel")
     del xd, yd, got, want
 
     subrow = x.clone()
@@ -2611,9 +2764,53 @@ def main() -> int:
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 14. the port's examples --------------------------------------------
+    phase("examples")
+    reset_counts()
+    results = {}
+    for example, argv in EXAMPLES:
+        t0 = time.monotonic()
+        spec = importlib.util.spec_from_file_location(
+            f"example_{example}", ROOT / "examples" / f"{example}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            results[example] = module.main(argv)
+        torch.cuda.synchronize()
+        tail = text.getvalue().strip().splitlines()[-2:]
+        print(f"[examples] {example} {' '.join(argv)}: "
+              f"{time.monotonic() - t0:.1f} s; " + " | ".join(tail),
+              flush=True)
+    counts = read_counts()
+    for kernel, n in counts.items():
+        by_path.setdefault(kernel, {})["examples"] = n
+    numerics = results["online_numerics_matmul_torch"]
+    paged, contig = results["serve_batched_torch"]
+    if not (numerics["olm_bitwise"] and numerics["finite"]
+            and numerics["launches"]["olm_matmul_fused"] > 0
+            and numerics["launches"]["tpmm"] > 0):
+        raise SystemExit(f"the numerics example failed its checks: "
+                         f"{numerics}")
+    if not (paged["n"] == contig["n"] == 10 and paged["kv"]["integrity_ok"]
+            and contig["kv"]["integrity_ok"]):
+        raise SystemExit("the serve example did not answer its 10 requests "
+                         "with its caches intact")
+    if not results["train_lm_torch"]["loss_improved"]:
+        raise SystemExit("the train example's loss did not improve")
+    print(f"[examples] launches over the phase {counts}; numerics on "
+          f"{numerics['device']}: K1 == plain bitwise, olm16 MLP rel "
+          f"{numerics['mlp_rel']:.2e}, tpmm16 argmax agreement "
+          f"{numerics['argmax_agree']:.3f}; serve KV resident paged "
+          f"{paged['kv']['kv_bytes_resident']} B against contiguous "
+          f"{contig['kv']['kv_bytes_resident']} B; train loss "
+          f"{results['train_lm_torch']['loss_first']:.4f} -> "
+          f"{results['train_lm_torch']['loss_last']:.4f}", flush=True)
     phase(None)
     print(f"[wall] phases: {json.dumps({k: round(v, 1) for k, v in walls.items()})}",
           flush=True)
+    print(f"[wall] sum of phases: {sum(walls.values()):.1f} s", flush=True)
 
     # the kernels line --------------------------------------------------
     src = "src/repro_torch/csrc/"
@@ -2648,8 +2845,9 @@ def main() -> int:
                       for r in timed[kernel] if r is not head]})
     print(smi_line)
     print(json.dumps({"kernels": entries}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -11,9 +11,9 @@ lane) in exact Python integers over random digit pairs and the all-ones
 and alternating operands, and prints for each configuration the lanes
 whose values leave int32, the largest |value| / 2^S seen, and the
 datapath the kernels run it in (kernels/online_mul/kernel.py
-`lane_bits`: 32 bits only where the selection bounds the residual,
-|V| < (2 + 2^(1 - delta)) 2^S). Plain Python and numpy; runs anywhere in
-about a minute:
+`lane_bits`: 32 bits only where the selection condition holds and
+kernels/common.py's `prove_schedule` shows every value within 31
+bits). Plain Python and numpy; runs anywhere in about a minute:
 
     python3 probes/int32_headroom.py [--lanes 1000]
 """
@@ -38,7 +38,10 @@ CONFIGS = (dict(n=16), dict(n=32), dict(n=16, delta=4), dict(n=16, t=3),
            dict(n=32, delta=1), dict(n=34, delta=1), dict(n=36, delta=1),
            dict(n=16, t=1), dict(n=24, t=1), dict(n=32, t=1),
            dict(n=40, t=1), dict(n=24, truncated=False),
-           dict(n=16, delta=2), dict(n=28, delta=2, t=3))
+           dict(n=16, delta=2), dict(n=28, delta=2, t=3),
+           # F6: the selection condition holds, the residual grows
+           dict(n=24, delta=2, t=4), dict(n=28, delta=2, t=4),
+           dict(n=32, delta=2, t=5), dict(n=24, delta=3, t=4))
 
 
 def lane_peak(x, y, cfg: OnlinePrecision, sched, S: int) -> int:

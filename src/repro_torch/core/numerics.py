@@ -271,6 +271,12 @@ class DotEngine:
         """Names of all registered modes."""
         return tuple(sorted(_MODES))
 
+    @staticmethod
+    def mode_table() -> Tuple[DotMode, ...]:
+        """Registered modes with their error/cost documentation (the
+        source of the README mode table)."""
+        return tuple(_MODES[m] for m in sorted(_MODES))
+
     def spec(self) -> "EngineSpec":
         """This engine as an EngineSpec: every field pinned, so
         ``resolve_engine(eng.spec()) == eng`` (round-trip contract)."""
@@ -283,6 +289,12 @@ class DotEngine:
     def dot(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """x (..., K) @ w (K, N) -> (..., N), in this engine's numerics."""
         return _MODES[self.mode].fn(self, x, w)
+
+    def einsum(self, spec: str, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+        """A plain einsum in the operands' dtype, whatever the mode, as the
+        reference's is (attention's score and value contractions)."""
+        return torch.einsum(spec, a, b)
 
 
 class _Unset:

@@ -71,6 +71,7 @@ constexpr int kLanes = 16;                 // most lanes of a K tile
 constexpr int kSlice = 17;                 // stride of a slice's 16 lanes
 constexpr int kMaxThreads = 256;
 constexpr int kMaxSmem = 232448;           // 227 KB, the most a block may ask
+constexpr unsigned kMaxGridY = 65535;      // grid y's (and z's) limit
 
 __host__ __device__ constexpr int round16(int b) { return (b + 15) & ~15; }
 
@@ -222,7 +223,11 @@ olm_matmul_kernel(const Args a) {
   const int t = threadIdx.x;
   const int xs = bm * tb;                  // x slices, then w slices
   const int groups = (bm + bn) * tb;
-  const int row0 = blockIdx.y * bm, col0 = blockIdx.x * bn;
+  // Row blocks past 65,535 (grid y's limit) continue in grid z; the
+  // z-slice's blocks past M return at once, the whole block together.
+  const long long by = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+  if (by * bm >= a.M) return;
+  const int row0 = (int)by * bm, col0 = blockIdx.x * bn;
   const int chunks = (a.T + tb - 1) / tb;
 
   // Start copying chunk c's operands into the stage.
@@ -371,7 +376,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream, int* smem_out,
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_out, kern,
                                                          threads, smem);
   }
-  const dim3 grid((a.N + a.bn - 1) / a.bn, (a.M + a.bm - 1) / a.bm);
+  const unsigned rows = (a.M + a.bm - 1) / a.bm;
+  const dim3 grid((a.N + a.bn - 1) / a.bn, rows < kMaxGridY ? rows : kMaxGridY,
+                  (rows + kMaxGridY - 1) / kMaxGridY);
   kern<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }

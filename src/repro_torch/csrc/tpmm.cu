@@ -362,17 +362,26 @@ struct Args {
   int M, N, K, levels, plane_bits, splits, k_split;
   bool vec;
   cudaStream_t stream;
+  // set by tpmm_geometry: report the instance's shared memory and blocks
+  // an SM holds instead of launching
+  int* smem_out;
+  int* blocks_out;
 };
 
 template <int D, int LV, bool GEMM>
 cudaError_t launch(const Args& x) {
   using T = Tile<D, LV, GEMM>;
-  const long long tiles_m = (x.M + T::BM - 1) / T::BM;
-  if (tiles_m > 65535) return cudaErrorInvalidValue;
   auto kern = tpmm_kernel<D, LV, GEMM>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return err;
+  if (x.smem_out) {
+    *x.smem_out = T::kSmem;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(x.blocks_out, kern,
+                                                         kThreads, T::kSmem);
+  }
+  const long long tiles_m = (x.M + T::BM - 1) / T::BM;
+  if (tiles_m > 65535) return cudaErrorInvalidValue;
   const unsigned tiles_n = (x.N + T::BN - 1) / T::BN;
   const dim3 grid(tiles_n, (unsigned)tiles_m, x.splits);
   kern<<<grid, kThreads, T::kSmem, x.stream>>>(
@@ -389,6 +398,27 @@ cudaError_t by_levels(const Args& x) {
   }
   return x.M <= kGemvRows ? launch<D, 2 * D - 1, false>(x)
                           : launch<D, 2 * D - 1, true>(x);
+}
+
+cudaError_t by_planes(int D, const Args& x) {
+  switch (D) {
+    case 1: return by_levels<1>(x);
+    case 2: return by_levels<2>(x);
+    case 3: return by_levels<3>(x);
+    case 4: return by_levels<4>(x);
+    case 5: return by_levels<5>(x);
+    case 6: return by_levels<6>(x);
+    case 7: return by_levels<7>(x);
+    case 8: return by_levels<8>(x);
+    case 9: return by_levels<9>(x);
+    case 10: return by_levels<10>(x);
+    case 11: return by_levels<11>(x);
+    case 12: return by_levels<12>(x);
+    case 13: return by_levels<13>(x);
+    case 14: return by_levels<14>(x);
+    case 15: return by_levels<15>(x);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -417,26 +447,26 @@ extern "C" int tpmm(const int8_t* a, const int8_t* bt, const float* sa,
   // boundary; otherwise the masked byte-wise load.
   const bool vec = (K & 15) == 0 && ((uintptr_t)a & 15) == 0 &&
                    ((uintptr_t)bt & 15) == 0;
-  const Args x{a, bt, sa, sb, out, ws, M, N, K, levels, plane_bits, splits,
-               k_split, vec, static_cast<cudaStream_t>(stream)};
-  switch (D) {
-    case 1: return (int)by_levels<1>(x);
-    case 2: return (int)by_levels<2>(x);
-    case 3: return (int)by_levels<3>(x);
-    case 4: return (int)by_levels<4>(x);
-    case 5: return (int)by_levels<5>(x);
-    case 6: return (int)by_levels<6>(x);
-    case 7: return (int)by_levels<7>(x);
-    case 8: return (int)by_levels<8>(x);
-    case 9: return (int)by_levels<9>(x);
-    case 10: return (int)by_levels<10>(x);
-    case 11: return (int)by_levels<11>(x);
-    case 12: return (int)by_levels<12>(x);
-    case 13: return (int)by_levels<13>(x);
-    case 14: return (int)by_levels<14>(x);
-    case 15: return (int)by_levels<15>(x);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Args x{a, bt, sa, sb, out, ws, M, N, K, levels, plane_bits,
+               splits, k_split, vec, static_cast<cudaStream_t>(stream),
+               nullptr, nullptr};
+  return (int)by_planes(D, x);
+}
+
+// tpmm_geometry: the dynamic shared memory a block of the launch for D
+// planes, M rows and `levels` levels asks for (its Tile's kSmem), and how
+// many such blocks an SM holds. Launches nothing. Returns a cudaError_t.
+extern "C" int tpmm_geometry(int D, int M, int levels, int* smem,
+                             int* blocks) {
+  if (D < 1 || D > kMaxPlanes || M < 1 || levels < 1 ||
+      levels > 2 * D - 1 || smem == nullptr || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Args x{};
+  x.M = M;
+  x.levels = levels;
+  x.smem_out = smem;
+  x.blocks_out = blocks;
+  return (int)by_planes(D, x);
 }
 
 // The output tile (rows, columns) a launch for D planes, M rows and

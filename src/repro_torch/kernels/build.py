@@ -21,7 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "Built", "build", "load"]
+__all__ = ["CSRC", "BUILD_ROOT", "NVCC_FLAGS", "Built", "build", "built_path",
+           "load"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -53,7 +54,9 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(source: str) -> Path:
+def built_path(source: str) -> Path:
+    """Where the library of `source` at its current sources and flags lives
+    (built or not)."""
     h = hashlib.sha256((CSRC / source).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
@@ -69,7 +72,7 @@ def build(sources: Sequence[str]) -> Dict[str, Built]:
     out: Dict[str, Built] = {}
     running = {}
     for source in sources:
-        lib = _target(source)
+        lib = built_path(source)
         if lib.exists():
             log = lib.with_suffix(".log")
             out[source] = Built(source, lib, log.read_text()

@@ -1,9 +1,13 @@
 """Shared schedule, quantization and decoding plumbing of the digit-serial
 kernels (port of `repro/kernels/common.py`).
 
-Every function here is plain PyTorch and is used twice: by the plain
-versions the CPU runs, and as the specification the CUDA kernels
-(`csrc/*.cu`) reproduce bit for bit.
+Every tensor function here is plain PyTorch and is used twice: by the
+plain versions the CPU runs, and as the specification the CUDA kernels
+(`csrc/*.cu`) reproduce bit for bit. Which integer datapath holds a
+schedule is decided here too: `checked_schedule` / `fits_int32` guard the
+live slices coarsely, and `prove_schedule` (Eq. 8, the reference
+analyzer's walk; `analysis/overflow.py` holds its contracts) proves every
+value of the recurrence within a bit width.
 
 Subnormal inputs are flushed to zero before any scale is taken. The
 reference runs on XLA:CPU and on the TPU, and both treat a float32
@@ -15,6 +19,8 @@ to its reference on those inputs.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -25,6 +31,7 @@ __all__ = [
     "schedule_arrays",
     "checked_schedule",
     "fits_int32",
+    "prove_schedule",
     "resolve_use_pallas",
     "pad_to_multiple",
     "flush_subnormals",
@@ -73,12 +80,122 @@ def checked_schedule(cfg: OnlinePrecision) -> tuple[np.ndarray, int]:
 
 
 def fits_int32(cfg: OnlinePrecision) -> bool:
-    """Predicate form of `checked_schedule`."""
+    """Predicate form of `checked_schedule`: a spot check on the
+    schedule's plateau, which `prove_schedule` makes exact."""
     try:
         checked_schedule(cfg)
     except ValueError:
         return False
     return True
+
+
+# Symbolic worst-case magnitude propagation (Eq. 8): an interval walk of
+# the exact integer recurrence (the reference's `mul_digit_loop`, which
+# the CUDA lanes of csrc/olm_digits.cuh reproduce bit for bit), operation
+# for operation: the arriving-digit register writes, the SELECTOR mux
+# term, the arithmetic-shift truncations (whose toward-minus-infinity
+# rounding can GROW a negative magnitude by 2^drop - 1: that slack is
+# modeled), the V = 2W + append update, and the selection-cased residual
+# after the z_j * 2^S subtraction, over all n + delta steps of the Fig. 7
+# schedule. It is strictly finer than `checked_schedule`, so everything
+# `fits_int32` accepts at the paper's (delta, t) = (3, 2) comes out
+# proven; `online_mul.kernel.lane_bits` runs in int32 only what it proves.
+
+_G_ZERO = 62   # granule sentinel for an exactly-zero quantity
+
+
+def _ival(mag: int, granule: int) -> tuple[int, int]:
+    """Interval element: value v satisfies |v| <= mag AND v is a multiple
+    of 2^granule. Tracking the granule keeps the walk tight: floor_at is
+    *exact* on values already aligned to its drop, so slack only enters
+    where the real datapath truncates real bits."""
+    return (mag, granule if mag else _G_ZERO)
+
+
+def _add(a, b):
+    return _ival(a[0] + b[0], min(a[1], b[1]))
+
+
+def _shr(a, k: int):
+    """Arithmetic shift right by k (floor): exact when aligned, else the
+    floor of a negative value rounds away from zero by < 1."""
+    m, g = a
+    if g >= k:
+        return _ival(m >> k, g - k)
+    return _ival(-((-m) >> k), 0)   # ceil(m / 2^k)
+
+
+def _floor_at(a, drop: int):
+    """The datapath's floor_at: truncate below 2^drop toward -inf. Exact on
+    aligned values; otherwise the magnitude bound rounds up to the next
+    multiple of 2^drop."""
+    m, g = a
+    if drop <= 0 or g >= drop:
+        return a
+    return _ival(-((-m) >> drop) << drop, drop)
+
+
+@functools.lru_cache(maxsize=1024)
+def prove_schedule(cfg: OnlinePrecision) -> tuple[int, str]:
+    """Worst-case bit width any architectural quantity of the integer digit
+    recurrence reaches under `cfg`'s T(j) schedule.
+
+    Returns (bits, detail): bits is the width needed (<= 31 means every
+    intermediate provably fits int32, sign bit excluded); detail names the
+    widest quantity and the step it peaks at. The walk is a sound
+    over-approximation: digits range over their full {-1,0,1} domain
+    independently and the z_j selection is a case union, so any real digit
+    pattern's trajectory lies inside the tracked intervals. Defined where
+    delay >= 1 and 1 <= t <= S (where `lane_bits` asks); a shift past that
+    raises ValueError, as the reference's does."""
+    sched = [int(v) for v in schedule_arrays(cfg)]
+    S = max(sched)
+    n, delta, t = cfg.n, cfg.delta, cfg.t
+    X = Y = W = _ival(0, _G_ZERO)
+    peak, peak_detail = 0, "all-zero datapath"
+
+    def note(a, what: str, step: int):
+        nonlocal peak, peak_detail
+        if a[0] > peak:
+            peak = a[0]
+            peak_detail = f"{what} at step {step} (j={step - delta})"
+
+    for s in range(n + delta):
+        j = s - delta
+        T = sched[s]
+        q = s + 1                       # arriving digit position
+        dig = 1 if 1 <= q <= n else 0   # |x_q|, |y_q| <= 1 while in range
+        drop = max(S - T, 0)
+        live = q <= min(T, S) and dig
+        wq = _ival(1 << max(S - q, 0), max(S - q, 0)) if live else _ival(0, 0)
+        note(wq, "digit weight wq", s)
+        Yf = _add(Y, wq)                # Y + yn*wq, |yn| <= 1
+        note(Yf, "Y register after append", s)
+        term = _add(X, Yf)              # X*yn + Yf*xn, digit mul <= identity
+        note(term, "SELECTOR mux term", s)
+        append = _floor_at(_shr(term, delta), drop)
+        Xf = _add(X, wq)
+        note(Xf, "X register after append", s)
+        X = _floor_at(Xf, drop)
+        Y = _floor_at(Yf, drop)
+        V = _add(_ival(2 * W[0], W[1] + 1), append)
+        note(V, "residual V = 2W + append", s)
+        if j >= 0:
+            note(_ival(1 << S, S), "output digit weight 2^S", s)
+            # selection cases on vq = V >> (S - t): z_j in {-1,0,1}.
+            # z_j = 0 only while |V| < thr; the +-1 subtraction leaves
+            # |V - 2^S| <= max(V_max - 2^S, 2^S - thr) when reachable.
+            thr = 2 << (S - t)
+            m = min(V[0], thr)
+            if V[0] >= thr:
+                m = max(m, V[0] - (1 << S), (1 << S) - thr)
+            w_pre = _ival(m, min(V[1], S))
+        else:
+            w_pre = V
+        W = _floor_at(w_pre, drop)
+        note(W, "residual W after truncation", s)
+    return peak.bit_length(), f"{peak_detail}: |.| <= {peak} " \
+                              f"({peak.bit_length()} bits; S={S})"
 
 
 def resolve_use_pallas(cfg: OnlinePrecision, use_pallas: bool | None) -> bool:

@@ -39,7 +39,8 @@ from .ref import adder_tree, tree_levels
 
 __all__ = ["olm_matmul", "olm_matmul_ref", "olm_error_bound",
            "digit_traffic", "DEFAULT_K_TILE", "DEFAULT_BLOCK_M",
-           "DEFAULT_BLOCK_N", "ULP_PER_LANE", "WIDE_DECODE_ULP"]
+           "DEFAULT_BLOCK_N", "DEFAULT_QUANTIZE", "ULP_PER_LANE",
+           "WIDE_DECODE_ULP"]
 
 # Array width: lanes reduced by one adder tree. A numerics parameter: it
 # sets the quantization slice and the tree depth, so it stays 16.
@@ -50,6 +51,11 @@ DEFAULT_K_TILE = 16
 # exact-int ledger uses the same defaults.
 DEFAULT_BLOCK_M = 8
 DEFAULT_BLOCK_N = 8
+
+# Where the operands are quantized by default: "kernel" fuses it into K1,
+# so no digit grid reaches device memory; "host" quantizes first and ships
+# the grids to K2. Both give the same bits (one quantizer specification).
+DEFAULT_QUANTIZE = "kernel"
 
 # Per-lane error ledger in output ulp at 2^-n: 2 quantized operands plus
 # 1.1 of multiplier truncation, rounded up.
@@ -163,7 +169,7 @@ def olm_matmul_ref(x: torch.Tensor, w: torch.Tensor, *, n_bits: int = 16,
 
 def olm_matmul(x: torch.Tensor, w: torch.Tensor, *, n_bits: int = 16,
                k_tile: int = DEFAULT_K_TILE, trunc: int | None = None,
-               quantize: str = "kernel", block_m: int | None = None,
+               quantize: str = DEFAULT_QUANTIZE, block_m: int | None = None,
                block_n: int | None = None,
                tb: int | None = None) -> torch.Tensor:
     """Matmul through the fused online inner-product array; (M, N) float32.

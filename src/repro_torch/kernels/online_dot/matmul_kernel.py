@@ -30,7 +30,7 @@ from .ref import tree_levels
 
 __all__ = ["olm_matmul_fused", "olm_matmul_host", "launches",
            "host_launches", "SOURCE", "MAX_K_TILE", "Plan", "launch_plan",
-           "smem_bytes", "fits", "geometry", "int_ops"]
+           "smem_bytes", "fits", "geometry", "int_ops", "MAX_GRID_Y"]
 
 SOURCE = "olm_matmul.cu"
 MAX_K_TILE = 16            # lanes of one tile: L <= 4 tree levels
@@ -41,6 +41,8 @@ MAX_K_TILE = 16            # lanes of one tile: L <= 4 tree levels
 MAX_THREADS = 256
 SLICE = 17
 SMEM_PER_BLOCK = 232448    # 227 KB: the most a block may ask for
+# Grid y's (and z's) limit: row blocks past it continue in grid z.
+MAX_GRID_Y = 65535
 # Blocks an SM should have to run before the plan stops trading columns
 # of a block for K tiles of it.
 FILL_BLOCKS_PER_SM = 3
@@ -88,8 +90,9 @@ def smem_bytes(n: int, host: bool, vec: bool, bm: int, bn: int,
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """One launch: blocks of bm rows x bn columns x tb K tiles (one thread
-    each) on a grid of grid_x column blocks by grid_y row blocks; every
-    block walks the T tiles in `chunks` chunks of tb."""
+    each) on a grid of grid_x column blocks by grid_y row blocks (launched
+    as `launch_grid`); every block walks the T tiles in `chunks` chunks of
+    tb."""
     bm: int
     bn: int
     tb: int
@@ -103,6 +106,13 @@ class Plan:
     @property
     def threads(self) -> int:
         return self.bm * self.bn * self.tb
+
+    @property
+    def launch_grid(self) -> tuple:
+        """(x, y, z) of the launch: row blocks past MAX_GRID_Y continue in
+        z (csrc/olm_matmul.cu; the blocks past M of the last z return)."""
+        return (self.grid_x, min(self.grid_y, MAX_GRID_Y),
+                -(-self.grid_y // MAX_GRID_Y))
 
     def rows_of(self, by: int, M: int) -> range:
         return range(by * self.bm, min(M, (by + 1) * self.bm))

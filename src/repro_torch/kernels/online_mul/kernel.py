@@ -21,12 +21,12 @@ import torch
 
 from repro_torch.core.precision import OnlinePrecision
 from repro_torch.kernels import build
-from repro_torch.kernels.common import checked_schedule
+from repro_torch.kernels.common import checked_schedule, prove_schedule
 from repro_torch.kernels.online_dot.matmul_kernel import OPS_DIGIT, OPS_STEP
 
 __all__ = ["online_mul_kernel", "launches", "SOURCE", "check_config",
            "holds", "route", "lane_bits", "recurrence_peak", "int_ops",
-           "OPS_PACK"]
+           "OPS_PACK", "ROWS", "MAX_STATIC_SMEM", "static_smem"]
 
 SOURCE = "online_mul.cu"
 
@@ -39,6 +39,20 @@ launches = 0
 DELTA, EST = 3, 2
 MAX_DIGITS = 32
 ANY_STEPS = 64
+# The unrolled kernel's block: ROWS rows, one thread each, whose x and y
+# digit rows it stages in static shared memory at a stride of n | 1 words
+# (csrc/online_mul.cu kRows).
+ROWS = 128
+# The most static shared memory a block may hold.
+MAX_STATIC_SMEM = 48 * 1024
+
+
+def static_smem(n: int) -> int:
+    """Static shared memory of a block of the unrolled kernel at n digits
+    (what ptxas reports for online_mul_kernel<n>; the lint phase holds
+    the two equal)."""
+    return 2 * ROWS * (n | 1) * 4
+
 
 # int32 operations per operand digit to pack both operands into masks and
 # to unpack the product digit (counted from csrc/online_mul.cu).
@@ -92,24 +106,35 @@ def recurrence_peak(cfg: OnlinePrecision, sched, scale: int) -> int:
 
 def lane_bits(cfg: OnlinePrecision, sched, S: int) -> int | None:
     """The datapath the general lane (olm_digits.cuh `lane_any`) runs
-    `cfg` in: 32 bits where the selection bounds the residual, 64 where it
-    may not but no value of the plain version (at scale 2^(n + delta),
+    `cfg` in: 32 bits where the residual provably stays in int32, 64 where
+    it may not but no value of the plain version (at scale 2^(n + delta),
     so none of the kernel's either) can leave int64 (`recurrence_peak`),
     else None: no kernel holds it.
 
-    The selection bounds the residual when 3 * 2^-t + 2^(1 - delta) <= 1
-    and t <= n + delta: the estimate's truncation (2^-t), its thresholds
-    (+-2^(1 - t)) and the largest append (2^(1 - delta)) then keep
-    |V| < (2 + 2^(1 - delta)) 2^S, inside the 8 * 2^S that
-    `checked_schedule`'s three bits of headroom give int32, and the Eq. 8
-    working precision keeps the truncation inside that slack. The paper's
-    (3, 2) sits on that boundary. Delays below 2 and estimates of one
-    digit do not meet it, and their residual does leave int32 at large n
-    (probes/int32_headroom.py counts such lanes); the int64 lane gives
-    the plain version's digits there."""
+    32 bits takes two conditions. First, the selection must bound the
+    residual at all: 3 * 2^-t + 2^(1 - delta) <= 1 and t <= n + delta
+    (the estimate's truncation 2^-t, its thresholds +-2^(1 - t) and the
+    largest append 2^(1 - delta) against the digit's weight). That leaves
+    out delays below 2 and estimates of one digit. It does not bound |V|
+    by a constant times 2^S: the selection threshold is 2 * 2^(S - t),
+    which at t >= 3 lies well under 2^S, so the residual can grow step by
+    step (at (n, delta, t) = (24, 2, 4) to some 2^17 * 2^S;
+    probes/int32_headroom.py). Second, therefore, the overflow prover
+    (`common.prove_schedule`, the walk of this recurrence that the
+    reference's analyzer makes) must show every value within 31 bits; its
+    walk is defined where the estimate fits the datapath (t <= S). It
+    proves the paper's (3, 2) at every n `checked_schedule` admits; other
+    configurations it cannot prove run in the 64-bit lane, with the same
+    digits.
+
+    The 64-bit verdict keeps its own walk, `recurrence_peak`: it takes any
+    scale (here the plain version's 2^(n + delta), not 2^S) and covers
+    what the prover's walk is not defined for, delays below 1 and
+    estimates of t <= 0 or t > S, which the 64-bit lane runs."""
     n, delta, t = cfg.n, cfg.delta, cfg.t
     if (t <= n + delta
-            and 3 * Fraction(1, 2) ** t + Fraction(2) ** (1 - delta) <= 1):
+            and 3 * Fraction(1, 2) ** t + Fraction(2) ** (1 - delta) <= 1
+            and t <= S and prove_schedule(cfg)[0] <= 31):
         return 32
     if recurrence_peak(cfg, sched, n + delta) < 1 << 63:
         return 64
@@ -132,9 +157,10 @@ def check_config(cfg: OnlinePrecision) -> tuple:
     if bits is None:
         raise ValueError(
             f"n={cfg.n} delta={cfg.delta} t={cfg.t}: the selection does not "
-            "bound the residual (3 * 2^-t + 2^(1 - delta) > 1) and its "
-            "bound leaves int64 at the plain version's scale 2^(n + delta); "
-            "no CUDA kernel runs it")
+            "bound the residual within int32 (3 * 2^-t + 2^(1 - delta) > 1, "
+            "or prove_schedule proves no 31-bit bound) and its bound "
+            "leaves int64 at the plain version's scale 2^(n + delta); no "
+            "CUDA kernel runs it")
     return (ctypes.c_int * len(sched))(*(int(v) for v in sched)), S, bits
 
 

@@ -27,7 +27,8 @@ import torch
 from repro_torch.kernels import build
 from .ref import kept_levels
 
-__all__ = ["tpmm_kernel", "launches", "SOURCE", "tile_shape", "split_plan"]
+__all__ = ["tpmm_kernel", "launches", "SOURCE", "tile_shape", "split_plan",
+           "smem_bytes", "geometry", "THREADS"]
 
 SOURCE = "tpmm.cu"
 
@@ -39,6 +40,8 @@ launches = 0
 BK = 64
 GEMV_ROWS = 16
 WARPS = 8
+THREADS = 32 * WARPS
+MAX_SMEM = 227 * 1024      # csrc/tpmm.cu kMaxSmem
 # A split plan aims at WAVES blocks per SM (two fit on one at tpmm16) and
 # gives each split at least MIN_SPLIT_K bytes of K.
 WAVES = 2
@@ -56,6 +59,15 @@ def tile_shape(M: int, D: int, levels: int) -> tuple:
     mt = 2 if lv <= 8 else 1
     nt = 1 if lv > 8 else 4 if lv <= 2 else 2 if lv <= 4 else 1
     return 2 * mt * 16, WARPS // 2 * nt * 8
+
+
+def smem_bytes(M: int, D: int, levels: int) -> int:
+    """Dynamic shared memory of a block (csrc/tpmm.cu `Tile::kSmem`, which
+    `geometry` reports on the card): a ring of 3 K steps of every plane's
+    tile rows where it fits, else 2."""
+    bm, bn = tile_shape(M, D, levels)
+    stage = D * (bm + bn) * BK
+    return (3 if 3 * stage <= MAX_SMEM else 2) * stage
 
 
 def split_plan(M: int, N: int, K: int, D: int, levels: int, plane_bits: int,
@@ -89,7 +101,23 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.tpmm_geometry.argtypes = [i, i, i, p, p]
+        lib.tpmm_geometry.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def geometry(D: int, M: int, levels: int) -> tuple:
+    """(shared memory bytes, blocks an SM holds) of a block of the launch
+    for D planes, M rows and `levels` kept levels, as the card reports
+    them."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    err = _lib().tpmm_geometry(D, M, levels, ctypes.byref(smem),
+                               ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"tpmm_geometry failed: cudaError {err} "
+                           f"(D={D} M={M} levels={levels})")
+    return smem.value, blocks.value
 
 
 def tpmm_kernel(a_planes: torch.Tensor, b_planes: torch.Tensor,

@@ -20,7 +20,8 @@ from repro_torch.core.precision import OnlinePrecision
 from repro_torch.kernels.online_dot import kernel as dot_kernel
 from repro_torch.kernels.online_dot.ops import online_dot
 from repro_torch.kernels.online_dot.ops import runs_kernel as dot_runs
-from repro_torch.kernels.common import checked_schedule, resolve_use_pallas
+from repro_torch.kernels.common import (checked_schedule, prove_schedule,
+                                        resolve_use_pallas)
 from repro_torch.kernels.online_dot.ref import adder_tree, tree_levels
 from repro_torch.kernels.online_mul import kernel as mul_kernel
 from repro_torch.kernels.online_mul.ops import online_mul
@@ -68,6 +69,7 @@ def test_dispatch_sends_the_configuration_to_a_kernel(kw, K, route):
     (dict(n=36, delta=1), 8),          # the residual's bound leaves int64
     (dict(n=32, delta=1), 8),
     (dict(n=32, t=1), 8),
+    (dict(n=32, delta=2, t=5), 8),     # F6: int32 not proven, int64 neither
     (dict(n=16), 1 << 57),             # a stream of 16 + 114 digits
 ])
 def test_cases_outside_the_kernels_are_decided_before_any_launch(kw, K):
@@ -94,7 +96,8 @@ def _lane_any(x, y, cfg, sched, S, bits):
     """csrc/olm_digits.cuh `lane_any` at a `bits`-bit datapath, step for
     step: the host's constants (`step_consts`, kernel.launch_any's lift),
     the sign-filling shifts it spells out, and the word's wrap (the peak
-    |value| is returned too)."""
+    |value| of the registers X and Y, the term, V and W is returned
+    too)."""
     n, delta, t = cfg.n, cfg.delta, cfg.t
     top = bits - 1
     shift = min(S - t, top)
@@ -109,10 +112,11 @@ def _lane_any(x, y, cfg, sched, S, bits):
         Yf = _wrap(Y + yd * wq, bits)
         term = _wrap(X * yd + Yf * xd, bits)
         append = (term >> delta if delta >= 0 else term >> top) & keep
+        peak = max(peak, abs(X * yd + Yf * xd), abs(X + xd * wq), abs(Yf),
+                   abs(2 * W + append))
         X = _wrap(X + xd * wq, bits) & keep
         Y = Yf & keep
         V = _wrap(2 * W + append, bits)
-        peak = max(peak, abs(X * yd + Yf * xd), abs(2 * W + append))
         if j >= 0:
             vq = V >> shift if shift >= 0 else max(-2, min(V, 2)) * lift
             zj = 1 if vq >= 2 else (0 if vq >= -2 else -1)
@@ -120,6 +124,7 @@ def _lane_any(x, y, cfg, sched, S, bits):
             z[j] = zj
         else:
             W = V & keep
+        peak = max(peak, abs(W))
     return z, peak
 
 
@@ -128,7 +133,13 @@ LANE_CONFIGS = [dict(n=16), dict(n=16, delta=4), dict(n=16, t=3),
                 dict(n=2, delta=0, t=5, truncated=False), dict(n=4, t=7),
                 dict(n=5, t=8), dict(n=8, t=-3), dict(n=16, t=-40),
                 dict(n=16, delta=2, t=1), dict(n=8, delta=0),
-                dict(n=24, t=1), dict(n=16, t=1)]
+                dict(n=24, t=1), dict(n=16, t=1),
+                # F6: the selection condition holds, but the residual
+                # grows past int32 (the first two) or the prover cannot
+                # show it does not (the third): all three run in the
+                # 64-bit lane
+                dict(n=24, delta=2, t=4), dict(n=28, delta=2, t=4),
+                dict(n=24, delta=3, t=4)]
 
 
 @pytest.mark.parametrize("kw", LANE_CONFIGS, ids=lambda kw: "-".join(
@@ -150,6 +161,36 @@ def test_general_lane_replay_matches_the_plain_version(kw):
     lanes = [_lane_any(a, b, cfg, sched, S, bits) for a, b in zip(x, y)]
     assert np.array_equal(np.array([z for z, _ in lanes]), want.numpy())
     assert max(p for _, p in lanes) <= bound
+
+
+@pytest.mark.parametrize("delta", [1, 2, 3, 4, 5])
+def test_the_int32_lane_is_proven_by_the_overflow_prover(delta):
+    # F6: lane_bits picks 32 bits only where the prover's walk of the
+    # recurrence shows every value within 31 bits, and that walk is sound:
+    # the exact replay (a 64-bit datapath, which these values cannot
+    # leave) of random, all-ones and alternating lanes of every such
+    # configuration stays inside the bits it proves
+    rng = np.random.default_rng(delta)
+    proven = 0
+    for n in range(max(4, delta + 1), 33):
+        ones = np.ones(n, np.int64)
+        alt = np.resize(np.array([1, -1], np.int64), n)
+        for t in range(1, 6):
+            cfg = OnlinePrecision(n=n, delta=delta, t=t)
+            sched, S = checked_schedule(cfg)
+            if mul_kernel.lane_bits(cfg, sched, S) != 32:
+                continue
+            bits = prove_schedule(cfg)[0]
+            assert bits <= 31, (n, delta, t)
+            pairs = [(ones, ones), (ones, -ones), (alt, alt), (alt, ones),
+                     *zip(rng.integers(-1, 2, (96, n)),
+                          rng.integers(-1, 2, (96, n)))]
+            peak = max(_lane_any(a, b, cfg, sched, S, 64)[1]
+                       for a, b in pairs)
+            assert peak < 1 << bits <= 1 << 31, (n, delta, t, peak, bits)
+            proven += 1
+    # a delay of 1 never runs in int32; the others do at some n and t
+    assert (proven == 0) == (delta == 1)
 
 
 @pytest.mark.parametrize("truncated", [True, False])

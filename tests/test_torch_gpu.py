@@ -285,7 +285,10 @@ GENERAL_CONFIGS = [dict(n=16, delta=4), dict(n=16, t=3),
                    dict(n=8, delta=-1), dict(n=12, delta=-3, t=1),
                    dict(n=2, delta=0, t=5, truncated=False), dict(n=4, t=7),
                    dict(n=5, t=8), dict(n=16, t=-40), dict(n=24, t=1),
-                   dict(n=16, t=1)]
+                   dict(n=16, t=1),
+                   # F6: int64 lanes where the residual leaves int32
+                   dict(n=24, delta=2, t=4), dict(n=28, delta=2, t=4),
+                   dict(n=24, delta=3, t=4)]
 DOT_CONFIGS = GENERAL_CONFIGS[:5] + GENERAL_CONFIGS[7:]
 
 

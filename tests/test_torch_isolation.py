@@ -1,6 +1,8 @@
 """The port stands alone: no module of `src/repro_torch/`, no script of
-`probes/` and not `chip_smoke.py` imports JAX or the JAX package, and its
-entry points run on the CUDA card unless the caller asks for the CPU."""
+`probes/`, not `tools/olmlint_torch.py`, no port example
+(`examples/*_torch.py`) and not `chip_smoke.py` imports JAX or the JAX
+package, and its entry points run on the CUDA card unless the caller asks
+for the CPU."""
 import ast
 import dataclasses
 import pathlib
@@ -14,7 +16,9 @@ from repro_torch.serving.engine import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-         + sorted((ROOT / "probes").glob("*.py")) + [ROOT / "chip_smoke.py"])
+         + sorted((ROOT / "probes").glob("*.py"))
+         + sorted((ROOT / "examples").glob("*_torch.py"))
+         + [ROOT / "tools" / "olmlint_torch.py", ROOT / "chip_smoke.py"])
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -55,7 +59,10 @@ def test_port_modules_found():
             "adamw.py", "compression.py", "schedule.py", "synthetic.py",
             "fault.py", "manager.py", "train.py", "tree.py",
             "matmul_sharded.py", "mesh.py", "constraints.py", "sharding.py",
-            "collectives.py"} <= names
+            "collectives.py", "contracts.py", "overflow.py", "registry.py",
+            "smem.py", "sass.py", "ast_lint.py", "olmlint_torch.py",
+            "quickstart_torch.py", "online_numerics_matmul_torch.py",
+            "serve_batched_torch.py", "train_lm_torch.py"} <= names
 
 
 def test_degrade_ladder_resolves_modes_from_the_port_registry(monkeypatch):
