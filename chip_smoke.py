@@ -192,7 +192,21 @@ Phases, each printing its own lines:
                MLP and a tpmm16 smoke model), the batched serve under
                paged and contiguous KV, and the Mamba2-130M train twin at
                8 x 256 for 20 steps at lr 3e-3, whose loss must improve;
-               the kernels' launches counted for the path.
+               the kernels' launches counted for the path;
+  15. dryrun  - the dry run (launch/dryrun.py), which walks one rank's
+               step on meta tensors: (a) held against the card on a
+               one-rank mesh for the train phase's configuration
+               (InternLM2-1.8B as published, 4 x 128, f32 masters, remat
+               "block") and a prefill (4 x 128) and a decode step of it
+               with bf16 serve params: the walk's dot FLOPs equal to
+               FlopCounterMode's over the card's step, its peak live bytes
+               within 5% of torch.cuda.max_memory_allocated(), its
+               roofline bound at most 1.05 x the card's synchronized wall;
+               (b) production cells over a fake world of 256 or 512
+               ranks, in subprocesses (InternLM2-1.8B train_4k on 16 x 16
+               and 2 x 16 x 16, Mixtral-8x22B decode_32k, Mamba2-130M
+               long_500k), each record's line printed. No kernel runs:
+               the dry run runs the native GEMMs.
 
 Each phase's wall is printed on a line of its own ("[wall] phase ..."),
 and their sum after the last.
@@ -322,6 +336,21 @@ GENERAL_TIMED = ((None, dict(n=16, delta=4), MUL_B),
 EXAMPLES = (("quickstart_torch", []), ("online_numerics_matmul_torch", []),
             ("serve_batched_torch", []),
             ("train_lm_torch", ["--steps", "20", "--lr", "3e-3"]))
+# The dryrun phase. (a) The walk (launch/dryrun.py) held against the card
+# on a one-rank mesh: the train phase's configuration (InternLM2-1.8B as
+# published, f32 masters, remat "block", one 4 x 128 batch) and a prefill
+# and a decode step of it with bf16 serve params at that batch and a
+# 128-slot cache. The walk's FLOPs must equal FlopCounterMode's over the
+# card's step, its peak be within DRYRUN_PEAK_TOL of the card's, and its
+# roofline bound be at most DRYRUN_BOUND_SLACK x the card's wall. (b) The
+# dry run's production cells, each command in a subprocess of its own (the
+# smoke process never holds a fake default group), all at once on the
+# host's CPU while (a) holds the card.
+DRYRUN_CARD = (("train", 4, 128), ("prefill", 4, 128), ("decode", 4, 128))
+DRYRUN_PEAK_TOL, DRYRUN_BOUND_SLACK = 0.05, 1.05
+DRYRUN_CELLS = (("internlm2_1_8b", "train_4k", "--both-meshes"),
+                ("mixtral_8x22b", "decode_32k"),
+                ("mamba2_130m", "long_500k"))
 # The rest of the dense family. K1 at ChatGLM3-6B's weight-bearing (K, N):
 # q/o, k/v (2 KV heads of 128), gate/up, down and the 65024-wide head; at
 # Yi-34B's and Qwen1.5-110B's k/v, down and heads. At M = 4 ChatGLM3's
@@ -2454,6 +2483,8 @@ def main() -> int:
           f"0.05); median step wall after the first {steady:.3f} s, "
           f"{B * S / steady:.0f} tokens/s; peak memory {peak} bytes "
           f"({peak / 2**30:.2f} GiB); {smi_line}", flush=True)
+    # the dryrun phase prints them beside its own one-rank step
+    train_native = {"peak": peak, "wall": steady}
     if not all(np.isfinite(r[1]) for r in rows):
         raise SystemExit("train: a non-finite grad_norm")
     if not losses[-1] < losses[0] - 0.05:
@@ -2807,6 +2838,88 @@ def main() -> int:
           f"{contig['kv']['kv_bytes_resident']} B; train loss "
           f"{results['train_lm_torch']['loss_first']:.4f} -> "
           f"{results['train_lm_torch']['loss_last']:.4f}", flush=True)
+    # 15. the dry run held against the card --------------------------------
+    phase("dryrun")
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCase
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    out_dir = tempfile.mkdtemp(prefix="dryrun_torch_")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, *more, "--out", out_dir], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape, *more in DRYRUN_CELLS]
+    try:
+        # (a) the walk against the card, one rank
+        cfg = get_config(TRAIN["arch"])
+        for kind, Bd, Sd in DRYRUN_CARD:
+            case = ShapeCase(f"card_{kind}", Sd, Bd, kind)
+            got = dryrun.hold_against_card(cfg, case)
+            pred, card = got["walk"], got["card"]
+            terms = pred["terms"]
+            peak_rel = pred["bytes_per_device"]["peak"] / card["peak"] - 1
+            bound_s = terms["bound_s"]
+            print(f"[dryrun] {cfg.name} {kind} {Bd} x {Sd} on a one-rank "
+                  f"mesh: FLOPs walk {pred['flops']} card {card['flops']}; "
+                  f"peak walk {pred['bytes_per_device']['peak']} B card "
+                  f"{card['peak']} B ({peak_rel:+.2%}; gate "
+                  f"{DRYRUN_PEAK_TOL:.0%}); bound {terms['dominant']} "
+                  f"{bound_s * 1e3:.3f} ms (compute {terms['compute_s'] * 1e3:.3f}"
+                  f", memory {terms['memory_s'] * 1e3:.3f}) against the "
+                  f"card's wall {card['wall_s'] * 1e3:.3f} ms (walls "
+                  f"{[round(w * 1e3, 3) for w in card['walls_s']]}), "
+                  f"{bound_s / card['wall_s']:.3f} of it (gate "
+                  f"{DRYRUN_BOUND_SLACK}); walk bytes {pred['bytes']}, "
+                  f"{pred['ops']} ops; {smi_line}", flush=True)
+            if kind == "train":
+                print(f"[dryrun] the train phase's single-device step of "
+                      f"this configuration: peak {train_native['peak']} B, "
+                      f"median wall {train_native['wall'] * 1e3:.1f} ms",
+                      flush=True)
+            if pred["flops"] != card["flops"]:
+                raise SystemExit(f"dryrun: the walk's FLOPs of the {kind} "
+                                 f"step are not the card's")
+            if abs(peak_rel) > DRYRUN_PEAK_TOL:
+                raise SystemExit(f"dryrun: the walk's peak of the {kind} "
+                                 f"step is {peak_rel:+.2%} off the card's")
+            if bound_s > DRYRUN_BOUND_SLACK * card["wall_s"]:
+                raise SystemExit(f"dryrun: the {kind} step's roofline bound "
+                                 f"exceeds the card's wall")
+            gc.collect()
+            torch.cuda.empty_cache()
+        # (b) the production cells
+        for proc, (arch, shape, *more) in zip(procs, DRYRUN_CELLS):
+            text, _ = proc.communicate(timeout=600)
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith(("OK", "SKIP", "FAIL"))]
+            for ln in lines:
+                print(f"[dryrun] {ln}", flush=True)
+            want = 2 if more else 1
+            if proc.returncode != 0 or sum(
+                    ln.startswith("OK") for ln in lines) != want:
+                raise SystemExit(f"dryrun: {arch} x {shape} failed (exit "
+                                 f"{proc.returncode}): {text[-2000:]}")
+        for f in sorted(Path(out_dir).glob("*.json")):
+            rec = json.loads(f.read_text())
+            print(f"[dryrun] record {f.name}: peak "
+                  f"{rec['bytes_per_device']['peak']} B a rank, fits "
+                  f"{rec['fits']}, flops {rec['flops']}, collectives "
+                  f"{rec['collectives']['per_axis']}, "
+                  f"{rec['roofline']['dominant']} "
+                  f"{rec['roofline']['bound_s']:.4g} s", flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    counts = read_counts()
+    for kernel, n in counts.items():
+        by_path.setdefault(kernel, {})["dryrun"] = n
+    print(f"[dryrun] launches over the phase {counts} (the dry run runs the "
+          f"native GEMMs, as the reference's does)", flush=True)
     phase(None)
     print(f"[wall] phases: {json.dumps({k: round(v, 1) for k, v in walls.items()})}",
           flush=True)

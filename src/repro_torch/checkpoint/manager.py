@@ -197,20 +197,21 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def _sharding_walk(node, spec, out) -> None:
+    # a module function, not a closure: see repro_torch/tree.py
+    if isinstance(spec, dict):
+        for k in spec:
+            _sharding_walk(node[k], spec[k], out)
+    elif isinstance(spec, (list, tuple)):
+        for n, s in zip(node, spec):
+            _sharding_walk(n, s, out)
+    elif spec is not None:
+        out.append(node)
+
+
 def _sharding_leaves(shardings, treedef) -> list:
     """The leaves of `shardings` in treedef's order, a None leaf kept (a
     None leaf of the state's structure is an empty subtree there)."""
-    out = []
-
-    def walk(node, spec):
-        if isinstance(spec, dict):
-            for k in spec:
-                walk(node[k], spec[k])
-        elif isinstance(spec, (list, tuple)):
-            for n, s in zip(node, spec):
-                walk(n, s)
-        elif spec is not None:
-            out.append(node)
-
-    walk(shardings, treedef)
+    out: list = []
+    _sharding_walk(shardings, treedef, out)
     return out

@@ -66,42 +66,43 @@ def gemm_partition_specs(partition: str, axis: str = "model"):
     return _specs(partition, axis)
 
 
+def _path_walk(node, path, out) -> None:
+    # a module function, not a closure: see repro_torch/tree.py
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _path_walk(node[k], path + (str(k),), out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _path_walk(v, path + (str(i),), out)
+    elif node is not None:
+        out.append(("/".join(path), node))
+
+
 def path_leaves(tree) -> list:
     """[(path, leaf)] of a tree in flattened order; a path joins dict keys
     and list indices with "/", as the reference's `_path_str`."""
-    out = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (str(k),))
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, path + (str(i),))
-        elif node is not None:
-            out.append(("/".join(path), node))
-
-    walk(tree, ())
+    out: list = []
+    _path_walk(tree, (), out)
     return out
+
+
+def _spec_walk(node, spec, out) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _spec_walk(node[k], spec[k], out)
+    elif isinstance(node, (list, tuple)):
+        for n, s in zip(node, spec):
+            _spec_walk(n, s, out)
+    elif node is not None:
+        out.append(spec)
 
 
 def spec_leaves(specs, like) -> list:
     """The spec of each leaf of `like`, in flattened order, from `specs`:
     a tree of like's structure with a spec in place of each leaf (a spec
     is a tuple, so such a tree cannot be flattened on its own)."""
-    out = []
-
-    def walk(node, spec):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], spec[k])
-        elif isinstance(node, (list, tuple)):
-            for n, s in zip(node, spec):
-                walk(n, s)
-        elif node is not None:
-            out.append(spec)
-
-    walk(like, specs)
+    out: list = []
+    _spec_walk(like, specs, out)
     return out
 
 

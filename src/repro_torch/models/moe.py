@@ -82,8 +82,12 @@ def _route_row(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
            - torch.searchsorted(se, se, side="left"))
     keep = pos < C
     slot = torch.where(keep, se * C + pos, torch.full_like(se, E * C))
+    # a scatter over every assignment, no boolean index: the shapes depend
+    # on T alone (a meta walk has no values to count). A dropped
+    # assignment writes the empty mark T to the sink slot E * C, which the
+    # plan cuts off.
     buf_tok = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
-    buf_tok[slot[keep]] = st[keep]
+    buf_tok.scatter_(0, slot, torch.where(keep, st, torch.full_like(st, T)))
     return buf_tok[:-1], slot, st, sw, keep, aux
 
 

@@ -19,34 +19,40 @@ class _Leaf:
 LEAF = _Leaf()
 
 
+# The walks below are module functions that take their accumulator as an
+# argument. A nested function that calls itself is a reference cycle (the
+# function and the closure cell that names it) that holds whatever the
+# closure holds, here every leaf, until the cyclic collector runs, which
+# device memory does not prompt.
+
+def _flatten(node, leaves: List[Any]):
+    if isinstance(node, dict):
+        return {k: _flatten(node[k], leaves) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_flatten(v, leaves) for v in node)
+    if node is None:
+        return None
+    leaves.append(node)
+    return LEAF
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves in order, the structure with each leaf replaced by LEAF)."""
     leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
-        if node is None:
-            return None
-        leaves.append(node)
-        return LEAF
 
-    return leaves, walk(tree)
+def _build(node, it):
+    if isinstance(node, dict):
+        return {k: _build(v, it) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return None if node is None else next(it)
 
 
 def tree_unflatten(treedef, leaves) -> Any:
     it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return None if node is None else next(it)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, LEAF) is not LEAF:
         raise ValueError("more leaves than the structure holds")
     return out

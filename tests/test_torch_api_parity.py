@@ -21,8 +21,6 @@ NO_MODULE = {
                               "its CUDA sources in analysis/sass.py",
     "analysis/vmem.py": "the TPU's VMEM model; the port checks Hopper's "
                         "launch limits in analysis/smem.py",
-    "launch/dryrun.py": "the dry run is the last slice of the port",
-    "launch/roofline.py": "the dry run is the last slice of the port",
 }
 
 # (module, name) -> reason, for public names the port's module lacks
@@ -70,10 +68,9 @@ NOT_PORTED = {
         "the reference's scanned stack; the port keeps a list of layers",
     ("models/transformer.py", "stack_cache_init"):
         "the reference's scanned stack; the port keeps a list of caches",
-    ("launch/shapes.py", "input_specs"):
-        "used only by the dry run, the last slice of the port",
-    ("launch/shapes.py", "cells_for"):
-        "used only by the dry run, the last slice of the port",
+    ("launch/roofline.py", "hlo_walk"):
+        "walks TPU HLO text; the port's dry run counts its own ops as they "
+        "run (roofline.walk)",
 }
 
 

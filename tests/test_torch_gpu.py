@@ -722,3 +722,25 @@ def test_sharded_gemms_over_two_ranks_on_the_card(cuda, tmp_path):
         assert len(res) == 3 * len(SHARD_GEMMS)
         # m/n bit-identical and k within the bound; one K1 launch a call
         assert all(v == [True, 1] for v in res.values()), (r, res)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_dryrun_walk_holds_against_the_card(cuda, kind):
+    """chip_smoke.py's dryrun checks (a), at InternLM2-1.8B's full width with
+    its depth cut to 2 layers, 4 x 128, on a one-rank mesh: the walk's dot
+    FLOPs equal to FlopCounterMode's over the card's step, its peak live
+    bytes within 5% of torch.cuda.max_memory_allocated(), its roofline
+    bound at most 1.05 x the card's synchronized wall."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCase
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"), n_layers=2)
+    got = dryrun.hold_against_card(cfg, ShapeCase(f"card_{kind}", 128, 4,
+                                                  kind))
+    pred, card = got["walk"], got["card"]
+    seen = (pred["flops"], card["flops"], pred["bytes_per_device"],
+            card["peak"], pred["terms"]["bound_s"], card["wall_s"])
+    assert pred["flops"] == card["flops"], seen
+    assert abs(pred["bytes_per_device"]["peak"] / card["peak"] - 1) <= \
+        0.05, seen
+    assert pred["terms"]["bound_s"] <= 1.05 * card["wall_s"], seen

@@ -62,7 +62,8 @@ def test_port_modules_found():
             "collectives.py", "contracts.py", "overflow.py", "registry.py",
             "smem.py", "sass.py", "ast_lint.py", "olmlint_torch.py",
             "quickstart_torch.py", "online_numerics_matmul_torch.py",
-            "serve_batched_torch.py", "train_lm_torch.py"} <= names
+            "serve_batched_torch.py", "train_lm_torch.py", "dryrun.py",
+            "roofline.py", "dryrun_sweep.py"} <= names
 
 
 def test_degrade_ladder_resolves_modes_from_the_port_registry(monkeypatch):

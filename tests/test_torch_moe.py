@@ -165,3 +165,40 @@ def test_moe_apply_matches_reference(routed, dt, tol):
             want[t] += w * ((g * (xr[t] @ tp["wu"][e])) @ tp["wd"][e])
         assert float((want - torch.from_numpy(yg[0])).abs().max()) <= \
             1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "qwen3_moe_235b_a22b"])
+def test_the_route_walks_on_meta_at_full_width(arch):
+    """The route has no shape that depends on the data (no boolean index),
+    so the dry run can walk a MoE layer on the meta device: each published
+    config's plan has the reference's shapes and dtypes, one layer's FLOPs
+    are the router's and the three expert einsums' over the (E, C) buffer,
+    and a prefill at full width and depth runs to its logits."""
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import walk
+    from repro_torch.models.model import Model
+    jcfg, cfg = jax_get_config(arch), get_config(arch)
+    B, T, d, E = 2, 64, cfg.d_model, cfg.n_experts
+    jx = jax.ShapeDtypeStruct((T, d), jnp.float32)
+    jr = jax.ShapeDtypeStruct((d, E), jnp.float32)
+    want = jax.eval_shape(lambda x, r: jmoe._route_row(x, r, jcfg), jx, jr)
+    meta = Model(cfg, device="meta")
+    p = meta.init(0)["layers"][0]["moe"]
+    got = tmoe._route_row(torch.empty((T, d), device="meta"), p["router"],
+                          cfg)
+    for w, g in zip(want, got):
+        assert g.device.type == "meta"
+        assert tuple(g.shape) == tuple(w.shape)
+        # the port's indices are int64 where JAX (no x64) keeps int32
+        kind = np.dtype(str(g.dtype).split(".")[-1]).kind
+        assert kind == np.dtype(w.dtype).kind
+    x = torch.empty((B, T, d), dtype=cfg.cdtype, device="meta")
+    flops = walk(tmoe.moe_apply, p, cfg, x, DotEngine(mode="native"))[
+        "flops"]
+    C = tmoe._capacity(T, cfg)
+    assert flops == B * 2 * T * d * E + 3 * 2 * B * E * C * d * cfg.d_ff
+    tokens = torch.empty((1, 32), dtype=torch.int32, device="meta")
+    logits, _, _ = meta.prefill(meta.init(0), {"tokens": tokens},
+                                meta.init_cache(1, 32))
+    assert tuple(logits.shape) == (1, cfg.vocab_padded)
