@@ -185,6 +185,30 @@ Phases, each printing its own lines:
                shard="n" (K1 launches per rank == GEMMs run, every
                gradient zero); the params saved on (2, 1) restored onto
                (1, 2) with the same bits;
+  13b. tp    - the partitioned serve steps (jit_prefill_step /
+               jit_decode_step: each rank holds its blocks of the bf16
+               serve params at the Sharder's specs, drawn leaf by leaf by
+               init_serve_params, and its block of the KV cache) on two
+               ranks that share the card in a gloo group, a (1, 2) mesh,
+               SERVE's prompts right-padded, 6 new tokens greedy:
+               (a) InternLM2-1.8B as published under olm16 (K1 launches
+               per rank == GEMMs issued; layer 0's wq input equal to one
+               device's and its columns of the output bit-equal to one
+               device's K1; the head's local logits bit-equal to K1 on
+               the whole table's columns) and native bf16, the first
+               prefill's logits within 3e-2 of one device's largest
+               |logit|, equal tokens counted; (b) Yi-34B as published
+               (60 layers, 68.8 GB of bf16 weights, which two whole
+               copies would not fit) native: each rank's resident blocks
+               equal to the specs' byte count, its logits within 3e-2 of
+               one device's (the same init at one rank), max memory per
+               rank; (c) one partitioned InternLM2 decode walked on meta
+               over a fake 2-rank world (launch/dryrun.py): FLOPs equal to
+               each rank's FlopCounterMode count, peak within 5% of its
+               max_memory_allocated(); (d) InternLM2 at full width with
+               15 query heads, one KV head and 2 layers, so the cache
+               splits over its length and the heads do not divide the
+               ranks, native, within 3e-2;
   14. examples - the port's four examples (examples/*_torch.py) on the
                card at their documented settings, imported and run in
                this process: the quickstart, the numerics walk-through
@@ -469,6 +493,62 @@ SHARD_TRAIN_LAYERS, SHARD_TRAIN_STEPS = 4, 3
 # one rank's rows 6.8e-3, 0.44 and 0.80, a missing divide 2.6e-5, 1.0 and
 # 6.9e-3 (probes/sharded_train_faults.py)
 SHARD_DATA_LIMITS = {"loss": 2.5e-4, "grad_norm": 1e-3, "update": 5e-2}
+# The tp phase: the partitioned serve steps (distributed/train.py's
+# jit_prefill_step / jit_decode_step) on TP_RANKS ranks that share the card
+# in a gloo group, a (data 1, model 2) mesh, bf16 serve params drawn by
+# init_serve_params (no whole model on a rank). SERVE's four prompts
+# right-padded into one batch, TP["new"] tokens each, greedy. (a) The
+# serve arch as published under olm16 and native; (b) TP["big"] (Yi-34B,
+# 68.8 GB of bf16 weights: two whole copies do not fit the card) as
+# published, native; (c) one partitioned decode of (a)'s arch at
+# TP_DECODE walked on meta over a fake world of TP_RANKS ranks against
+# each rank's step on the card; (d) (a)'s arch at full width with
+# TP_CUT's heads and depth, whose KV cache splits over its length and
+# whose query heads do not divide `model`, native. Logits within
+# TP_LOGIT_TOL of the single device's largest |logit| (the repo's
+# flash-attention gate).
+TP_RANKS = 2
+TP = dict(arch="internlm2_1_8b", big="yi_34b", max_len=32, new=6, seed=0)
+TP_DECODE = ("decode", 4, 32)      # (kind, batch, cache slots)
+TP_CUT = dict(n_layers=2, n_heads=15, n_kv_heads=1, head_dim=128)
+TP_LOGIT_TOL = 3e-2
+# each process of the phase that holds a big model allocates with
+# segments that grow in place
+TP_ALLOC = "expandable_segments:True"
+
+
+def tp_one(_, tmp: str) -> None:
+    """(b)'s single device, in a process of its own: TP["big"] whole in
+    bf16 (the sharded init at one rank: 68.8 GB of the card), served like
+    the ranks; its first logits, tokens, init wall and peak to
+    tmp/one.pt. A fresh process: the smoke's own, after its phases, holds
+    segments that no longer leave 68.8 GB in one piece."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = TP_ALLOC
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.train import init_serve_params
+    from repro_torch.models.model import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    big = get_config(TP["big"])
+    t0 = time.monotonic()
+    params = init_serve_params(Model(big, device=dev), None, TP["seed"])
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    model = Model(big, device=dev)
+    cache = model.init_cache(SERVE["requests"], TP["max_len"])
+    t0 = time.monotonic()
+    first, tokens, passes = tp_greedy(
+        lambda p, b, c, last_index: model.prefill(p, b, c,
+                                                  last_index=last_index),
+        model.decode_step, params, cache, tp_prompts(big.vocab_size), dev,
+        lambda t: t)
+    torch.cuda.synchronize()
+    torch.save(dict(first=first.cpu(), tokens=tokens, passes=passes,
+                    wall=time.monotonic() - t0, init_s=init_s,
+                    peak=torch.cuda.max_memory_allocated()),
+               os.path.join(tmp, "one.pt"))
 
 
 def gemms_per_pass(cfg, encoder: bool = False) -> int:
@@ -484,6 +564,207 @@ def gemms_per_pass(cfg, encoder: bool = False) -> int:
                 "xdec": 8 + mlp, "rec": 3 + mlp, "ssm": 2}
     return (sum(per_kind[k] for k in cfg.layer_kinds) + 1
             + (6 * cfg.n_enc_layers if encoder else 0))
+
+
+def tp_prompts(vocab: int):
+    """SERVE's prompts, drawn as the serve phase draws them."""
+    import numpy as np
+    rng = np.random.default_rng(SERVE["seed"])
+    lo, hi = SERVE["prompt"]
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).astype(
+        np.int32) for _ in range(SERVE["requests"])]
+
+
+def tp_greedy(prefill, decode, params, cache, prompts, dev, whole):
+    """Greedy serve of right-padded `prompts`, TP["new"] tokens each:
+    (the prefill's logits, each request's tokens, the forward passes).
+    `whole` turns a step's logits into the whole vocabulary's."""
+    import torch
+    lens = torch.tensor([len(p) for p in prompts], device=dev)
+    toks = torch.zeros((len(prompts), max(map(len, prompts))),
+                       dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.from_numpy(p).to(dev)
+    first, cache, _ = prefill(params, {"tokens": toks}, cache,
+                              last_index=lens - 1)
+    tok = whole(first).argmax(-1)
+    out, pos = [tok], lens.clone()
+    for _ in range(TP["new"] - 1):
+        logits, cache = decode(params, tok, pos, cache)
+        tok = whole(logits).argmax(-1)
+        out.append(tok)
+        pos = pos + 1
+    return first, torch.stack(out, 1).tolist(), TP["new"]
+
+
+@contextlib.contextmanager
+def olm_calls(keep):
+    """The olm_matmul calls made in the block: a list with (x, output) of
+    each call whose index is in `keep`, None for the others."""
+    from repro_torch.kernels.online_dot import matmul
+    real, seen = matmul.olm_matmul, []
+
+    def recorded(x, w, **kw):
+        out = real(x, w, **kw)
+        seen.append((x.clone(), out.clone()) if len(seen) in keep else None)
+        return out
+
+    matmul.olm_matmul = recorded
+    try:
+        yield seen
+    finally:
+        matmul.olm_matmul = real
+
+
+def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """One rank of the tp phase (a process of its own, on cuda:0, in a gloo
+    group of `world` ranks on 127.0.0.1): (a)-(d) on its blocks, its
+    results in tmp/tp<r>.pt for the parent to hold against one device;
+    raises on a launch count or a byte count that is off."""
+    # Yi-34B's blocks fill most of the card that two ranks share: segments
+    # that grow in place keep the init's freed f32 leaves from fragmenting
+    # what the serve needs (read at the process's first allocation)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = TP_ALLOC
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.numerics import DotEngine
+    from repro_torch.distributed.collectives import all_gather_dim
+    from repro_torch.distributed.sharding import Sharder, path_leaves
+    from repro_torch.distributed.train import (init_serve_cache,
+                                               init_serve_params,
+                                               jit_decode_step,
+                                               jit_prefill_step,
+                                               serve_block_bytes)
+    from repro_torch.kernels.online_dot import matmul_kernel as k12
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh, mesh_shape
+    from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    res = {}
+
+    def say(msg):
+        print(f"[tp r{rank}] {msg}", flush=True)
+
+    try:
+        mesh = make_local_mesh(1, world, device_type="cuda")
+
+        def whole(t):
+            return all_gather_dim(t, 1, mesh, "model")
+
+        def blocks(cfg):
+            """(the sharder, this rank's serve blocks, their bytes, the
+            init's wall): the resident bytes equal to the specs' count."""
+            sharder = Sharder(mesh, cfg)
+            sharder.set_batch(SERVE["requests"])
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            params = init_serve_params(Model(cfg, device=dev), sharder,
+                                       TP["seed"])
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            held = sum(t.untyped_storage().nbytes()
+                       for _, t in path_leaves(params))
+            want = serve_block_bytes(cfg, sharder)
+            if held != want:
+                raise RuntimeError(f"{cfg.name}: {held} bytes of blocks "
+                                   f"resident, the specs give {want}")
+            return sharder, params, held, wall
+
+        def serve(cfg, sharder, params, mode, prompts):
+            model = Model(cfg, DotEngine(mode=mode), device=dev)
+            cache = init_serve_cache(model, sharder, len(prompts),
+                                     TP["max_len"])
+            prefill = jit_prefill_step(model, sharder, params, ["tokens"],
+                                       cache)
+            decode = jit_decode_step(model, sharder, params, cache,
+                                     has_memory=False)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            first, tokens, passes = tp_greedy(prefill, decode, params, cache,
+                                              prompts, dev, whole)
+            torch.cuda.synchronize()
+            return first.cpu(), tokens, passes, time.monotonic() - t0
+
+        # (a) the serve arch as published, olm16 and native -------------
+        cfg = get_config(TP["arch"])
+        prompts = tp_prompts(cfg.vocab_size)
+        sharder, params, held, init_s = blocks(cfg)
+        say(f"(a) {cfg.name} on {mesh_shape(mesh)}: {held} bytes of serve "
+            f"blocks resident (the specs' count), drawn in {init_s:.1f} s")
+        per_pass = gemms_per_pass(cfg)
+        with olm_calls({0, per_pass - 1}) as seen:
+            k12.launches = 0
+            first, tokens, passes, wall = serve(cfg, sharder, params,
+                                                "olm16", prompts)
+            launched = k12.launches
+        res["olm16"] = dict(first=first, tokens=tokens, wall=wall,
+                            wq=seen[0], head=seen[per_pass - 1],
+                            launches=launched, gemms=passes * per_pass)
+        say(f"(a) olm16: {passes} forward passes in {wall:.3f} s (ends in "
+            f"torch.cuda.synchronize), GEMMs issued {passes * per_pass}, "
+            f"K1 launches {launched}")
+        if launched != passes * per_pass:
+            raise RuntimeError(f"(a) K1 launched {launched} times for "
+                               f"{passes * per_pass} GEMMs")
+        first, tokens, passes, wall = serve(cfg, sharder, params, "native",
+                                            prompts)
+        res["native"] = dict(first=first, tokens=tokens, wall=wall)
+        say(f"(a) native bf16: {passes} forward passes in {wall:.3f} s")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) one decode step against its walk -------------------------
+        kind, B, T = TP_DECODE
+        sharder.set_batch(B)
+        res["card"] = dryrun.card_step(cfg, ShapeCase("tp_decode", T, B,
+                                                      kind), sharder)
+        say(f"(c) one partitioned decode ({B} lanes, {T} slots): FLOPs "
+            f"{res['card']['flops']}, peak {res['card']['peak']} B, walls "
+            f"{[round(w * 1e3, 3) for w in res['card']['walls_s']]} ms")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the cache over its length, uneven heads -------------------
+        cut = dataclasses.replace(cfg, **TP_CUT)
+        sharder, params, held, _ = blocks(cut)
+        first, tokens, passes, wall = serve(cut, sharder, params, "native",
+                                            prompts)
+        res["cut"] = dict(first=first, tokens=tokens, wall=wall)
+        say(f"(d) {cut.n_heads} heads / {cut.n_kv_heads} KV head at "
+            f"{cut.n_layers} layers: {passes} passes in {wall:.3f} s")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the big arch as published ----------------------------------
+        big = get_config(TP["big"])
+        base = torch.cuda.memory_allocated()
+        sharder, params, held, init_s = blocks(big)
+        say(f"(b) {big.name} ({big.n_layers} layers, d_model "
+            f"{big.d_model}) on {mesh_shape(mesh)}: {held} bytes of serve "
+            f"blocks resident, the specs' count, drawn leaf by leaf in "
+            f"{init_s:.1f} s; allocated {torch.cuda.memory_allocated() - base}"
+            " B above the phase's start")
+        torch.cuda.reset_peak_memory_stats()
+        first, tokens, passes, wall = serve(big, sharder, params, "native",
+                                            tp_prompts(big.vocab_size))
+        peak = torch.cuda.max_memory_allocated()
+        res["big"] = dict(first=first, tokens=tokens, wall=wall, held=held,
+                          init_s=init_s, peak=peak)
+        say(f"(b) native bf16: {passes} passes in {wall:.3f} s; "
+            f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
+        del params
+        torch.save(res, os.path.join(tmp, f"tp{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
 
 
 def smi(fields: str) -> str:
@@ -2793,6 +3074,188 @@ def main() -> int:
           f"single-device olm16 "
           f"{serve_stats['serve olm16']['wall']:.3f} s; {smi_line}",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13b. the partitioned serve steps over two ranks on the one card ------
+    phase("tp")
+    from repro_torch.distributed.train import init_serve_params
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.launch.shapes import ShapeCase
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[tp] memory on the card before the phase: "
+          f"{torch.cuda.memory_allocated()} B allocated; {smi_line}",
+          flush=True)
+
+    def whole_serve(cfg, params, mode, prompts):
+        """The single-device greedy serve of the same prompts."""
+        model = Model(cfg, DotEngine(mode=mode), device=dev)
+        cache = model.init_cache(len(prompts), TP["max_len"])
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        first, tokens, passes = tp_greedy(
+            lambda p, b, c, last_index: model.prefill(
+                p, b, c, last_index=last_index),
+            model.decode_step, params, cache, prompts, dev, lambda t: t)
+        torch.cuda.synchronize()
+        return first, tokens, passes, time.monotonic() - t0
+
+    def gate(tag, got, want, vocab):
+        """Logits within TP_LOGIT_TOL of the single device's largest
+        |logit| over the `vocab` real columns (the padding's hold -1e9):
+        the gate's reading."""
+        got, want = got[..., :vocab], want[..., :vocab]
+        err = float((got - want).abs().max() / want.abs().max())
+        print(f"[tp] {tag}: the first prefill's logits within {err:.3e} of "
+              f"the single device's largest |logit| (gate {TP_LOGIT_TOL})",
+              flush=True)
+        if not err <= TP_LOGIT_TOL:
+            raise SystemExit(f"tp: {tag} logits {err:.3e} off one device's")
+        return err
+
+    def same(a, b):
+        return sum(x == y for p, q in zip(a, b) for x, y in zip(p, q))
+
+    t_phase = time.monotonic()
+    cfg = get_config(TP["arch"])
+    prompts = tp_prompts(cfg.vocab_size)
+    per_pass = gemms_per_pass(cfg)
+    ones = {}
+    # (a) on one device, on the same bf16 serve params
+    params = init_serve_params(Model(cfg, device=dev), None, TP["seed"])
+    with olm_calls({0}) as seen:
+        ones["olm16"] = whole_serve(cfg, params, "olm16", prompts)
+    wq0 = seen[0]
+    ones["native"] = whole_serve(cfg, params, "native", prompts)
+    # the whole weights the ranks' column blocks are held against
+    wq_whole = params["layers"][0]["attn"]["wq"].cpu()
+    head_whole = params["unembed"]["table"].cpu()
+    del params
+    cut = dataclasses.replace(cfg, **TP_CUT)
+    params = init_serve_params(Model(cut, device=dev), None, TP["seed"])
+    ones["cut"] = whole_serve(cut, params, "native", prompts)
+    del params
+    for tag, (first, tokens, passes, wall) in ones.items():
+        ones[tag] = (first.cpu(), tokens, passes, wall)
+        print(f"[tp] one device, {tag}: {passes} passes in {wall:.3f} s",
+              flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    big = get_config(TP["big"])
+    describe("tp", big)
+    free, total = torch.cuda.mem_get_info()
+    print(f"[tp] the card before the spawns: {free} B free of {total}; this "
+          f"process {torch.cuda.memory_reserved()} B reserved", flush=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) on one device, in a process of its own
+        t0 = time.monotonic()
+        mp.start_processes(tp_one, args=(tmp,), nprocs=1, join=True,
+                           start_method="spawn")
+        one = torch.load(os.path.join(tmp, "one.pt"))
+        ones["big"] = (one["first"], one["tokens"], one["passes"],
+                       one["wall"])
+        print(f"[tp] one device, {big.name}: bf16 serve params drawn in "
+              f"{one['init_s']:.1f} s, {one['passes']} passes in "
+              f"{one['wall']:.3f} s, max_memory_allocated {one['peak']} B "
+              f"({one['peak'] / 2**30:.2f} GiB); the process "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        t0 = time.monotonic()
+        ctx = mp.start_processes(tp_rank, args=(TP_RANKS, port, tmp),
+                                 nprocs=TP_RANKS, join=False,
+                                 start_method="spawn")
+        try:
+            # (c) the walk, in this process (no default group here) while
+            # the ranks run
+            kind, B, T = TP_DECODE
+            walked, coll, _ = dryrun.walk_cell(
+                cfg, ShapeCase("tp_decode", T, B, kind),
+                make_abstract_mesh((1, TP_RANKS), ("data", "model")))
+            # a rank that raises fails this call, and with it the script
+            while not ctx.join():
+                pass
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        ranks = [torch.load(os.path.join(tmp, f"tp{r}.pt"))
+                 for r in range(TP_RANKS)]
+        print(f"[tp] {TP_RANKS} ranks done in {time.monotonic() - t0:.1f} s "
+              "(spawn included)", flush=True)
+
+    def gathered(tag):
+        return torch.cat([r[tag]["first"] for r in ranks], dim=-1)
+
+    # (a) bits: layer 0's wq and the head, each rank's columns
+    n_wq = wq_whole.shape[1] // TP_RANKS
+    n_head = head_whole.shape[0] // TP_RANKS
+    bits = []
+    for r, res in enumerate(ranks):
+        x, out = res["olm16"]["wq"]
+        cols = slice(r * n_wq, (r + 1) * n_wq)
+        wq_ok = bits_equal(x, wq0[0]) and bits_equal(out, wq0[1][:, cols])
+        hx, hout = res["olm16"]["head"]
+        want = olm_matmul(hx.to(dev), head_whole[r * n_head:(r + 1) * n_head]
+                          .to(dev).T.to(torch.float32), n_bits=16)
+        head_ok = bits_equal(hout.to(dev), want)
+        bits.append((wq_ok, head_ok))
+        print(f"[tp] (a) rank {r}: layer 0's wq input equal to one device's"
+              f" and its {n_wq} columns of the output bit-equal to one "
+              f"device's K1: {wq_ok}; the head's {n_head} local logits "
+              f"bit-equal to K1 on the whole table's columns at the rank's "
+              f"input: {head_ok}; K1 launches {res['olm16']['launches']} "
+              f"== GEMMs issued {res['olm16']['gemms']}", flush=True)
+    if not all(all(b) for b in bits):
+        raise SystemExit(f"tp: column blocks off one device's K1: {bits}")
+    del wq0, wq_whole, head_whole
+    gate("(a) olm16", gathered("olm16"), ones["olm16"][0], cfg.vocab_size)
+    gate("(a) native bf16", gathered("native"), ones["native"][0],
+         cfg.vocab_size)
+    serve_tokens = [[int(t) for t in out] for out in outputs["olm16"]]
+    n_tok = sum(map(len, serve_tokens))
+    for tag in ("olm16", "native"):
+        got = ranks[0][tag]["tokens"]
+        print(f"[tp] (a) {tag}: tokens equal to one device's on the same "
+              f"bf16 params {same(got, ones[tag][1])} of {n_tok}; to the "
+              f"serve phase's olm16 tokens (f32 weights) "
+              f"{same(got, serve_tokens)} of {n_tok}; wall by rank "
+              f"{[round(r[tag]['wall'], 3) for r in ranks]} s against one "
+              f"device's {ones[tag][3]:.3f} s", flush=True)
+    # (c) the walk against each rank's step on the card
+    for r, res in enumerate(ranks):
+        card = res["card"]
+        rel = walked["bytes_per_device"]["peak"] / card["peak"] - 1
+        print(f"[tp] (c) rank {r}: FLOPs walk {walked['flops']} card "
+              f"{card['flops']}; peak walk "
+              f"{walked['bytes_per_device']['peak']} B card {card['peak']} "
+              f"B ({rel:+.2%}; gate {DRYRUN_PEAK_TOL:.0%}); the walk's "
+              f"collectives {coll['per_axis']} B, {coll['count']} calls",
+              flush=True)
+        if walked["flops"] != card["flops"] or abs(rel) > DRYRUN_PEAK_TOL:
+            raise SystemExit(f"tp: the walk is off rank {r}'s step")
+    # (d) and (b) against one device
+    gate("(d) the cache over its length, uneven heads", gathered("cut"),
+         ones["cut"][0], cut.vocab_size)
+    gate(f"(b) {big.name}", gathered("big"), ones["big"][0], big.vocab_size)
+    for r, res in enumerate(ranks):
+        b = res["big"]
+        print(f"[tp] (b) rank {r}: {b['held']} B of bf16 serve blocks "
+              f"(the specs' count), drawn in {b['init_s']:.1f} s; serve "
+              f"wall {b['wall']:.3f} s against one device's "
+              f"{ones['big'][3]:.3f} s; max_memory_allocated {b['peak']} B "
+              f"({b['peak'] / 2**30:.2f} GiB)", flush=True)
+    print(f"[tp] (b) tokens equal to one device's "
+          f"{same(ranks[0]['big']['tokens'], ones['big'][1])} of "
+          f"{sum(map(len, ones['big'][1]))}; (d) "
+          f"{same(ranks[0]['cut']['tokens'], ones['cut'][1])}; the phase "
+          f"{time.monotonic() - t_phase:.1f} s; {smi_line}", flush=True)
+    by_path["olm_matmul_fused"]["tp"] = {
+        f"rank {r}": res["olm16"]["launches"] for r, res in enumerate(ranks)}
+    del ranks, ones
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -3,9 +3,11 @@
 limit, and its table.
 
     python3 probes/dryrun_sweep.py [--jobs 4] [--out results/dryrun_torch]
+        [--archs A,B] [--shapes S,T]
 
 runs `python -m repro_torch.launch.dryrun --arch A --shape S [--multi-pod]`
-for every arch x shape x mesh (10 x 4 x 2), `--jobs` at a time, each cut
+for every arch x shape x mesh (10 x 4 x 2; `--archs` and `--shapes` keep
+some), `--jobs` at a time, each cut
 after CUT_S seconds, then prints one markdown row a cell from the records
 under `--out`: the peak a rank against an H100's 80 GB, the dot FLOPs a
 rank, the collective bytes a rank, the dominant roofline term and its
@@ -81,9 +83,11 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--jobs", type=int, default=4)
     ap.add_argument("--out", default="results/dryrun_torch")
+    ap.add_argument("--archs", default=",".join(list_archs()))
+    ap.add_argument("--shapes", default=",".join(SHAPES))
     args = ap.parse_args()
     out = Path(args.out)
-    archs, shapes = list_archs(), list(SHAPES)
+    archs, shapes = args.archs.split(","), args.shapes.split(",")
     notes = {}
     for arch in archs:
         for shape in shapes:

@@ -15,6 +15,10 @@ the reference keeps in f32 whatever `param_dtype` is (the RG-LRU's `lam`,
 the SSD's `a_log`, `dt_bias` and `d_skip`, the MoE `router`). With both
 packages on the same weights, the tests hold the port against the
 reference.
+
+With `sharder=` it returns one rank's blocks instead: each leaf cut to
+this rank's block under the Sharder's param specs (what the partitioned
+serve steps of `distributed/train.py` take), the whole leaf dropped.
 """
 from __future__ import annotations
 
@@ -46,9 +50,10 @@ def _tree(node, dtype, device):
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
-                    device=None) -> Dict[str, Any]:
+                    device=None, sharder=None) -> Dict[str, Any]:
     """The port's params for `cfg` from a reference parameter tree of
-    numpy leaves, on `device` (CUDA unless given)."""
+    numpy leaves, on `device` (CUDA unless given); this rank's blocks of
+    them under `sharder`'s param specs where one is given."""
     dev = resolve_device(device)
     dt = cfg.pdtype
     layers = _layers(tree["blocks"], cfg.block_pattern, cfg.n_layers, dt, dev)
@@ -74,6 +79,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
             "layers": _layers(enc["blocks"], ("attn",), cfg.n_enc_layers,
                               dt, dev),
             "final_norm": _tree(enc["final_norm"], dt, dev)}
+    if sharder is not None:
+        from repro_torch.distributed.train import param_blocks
+        params = param_blocks(params, sharder)
     return params
 
 

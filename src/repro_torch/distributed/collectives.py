@@ -21,7 +21,7 @@ import torch.distributed as dist
 from repro_torch.launch.mesh import AbstractMesh, mesh_shape
 
 __all__ = ["axis_coordinate", "all_gather_dim", "all_reduce_sum",
-           "shard_dims", "gather_dims", "gather_dtensor"]
+           "all_reduce_max", "shard_dims", "gather_dims", "gather_dtensor"]
 
 
 def axis_coordinate(mesh, axis: str) -> Tuple[int, int]:
@@ -55,6 +55,15 @@ def all_reduce_sum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     _, size = axis_coordinate(mesh, axis)
     if size > 1:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.get_group(axis))
+    return t
+
+
+def all_reduce_max(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The elementwise largest of `t` over the ranks along `axis`, on every
+    rank, in place (exact: a max rounds nothing)."""
+    _, size = axis_coordinate(mesh, axis)
+    if size > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(axis))
     return t
 
 

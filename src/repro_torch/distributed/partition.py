@@ -1,0 +1,108 @@
+"""The partition context of the partitioned serve steps: what GSPMD does
+with the reference's `jit_prefill_step` / `jit_decode_step` shardings,
+done by hand for the dense family.
+
+A `Partition` is the Sharder (its mesh, its config, its specs) plus this
+rank's coordinate along `model`. The layers (`models/layers.py`) take one
+as `part=`; with None they run on whole tensors. Under one, each rank
+holds its blocks at the Sharder's specs and:
+
+  * column-parallel GEMMs (wq, wk, wv, wg, wu, the head) run on the
+    rank's columns and their outputs stay sharded: the n-partition of
+    `kernels/online_dot/matmul_sharded.py`, under a digit mode
+    bit-identical to one device's GEMM on those columns;
+  * row-parallel GEMMs (wo, wd) run on the rank's K block with an f32
+    result; the partials are all-reduced over `model` in f32 and cast
+    once to the compute dtype: the k-partition, within olm_error_bound
+    under a digit mode (the order of the sum differs);
+  * under fsdp_tp a weight's `data`-sharded dim is all-gathered just
+    before its GEMM and dropped after it (ZeRO-3 a layer: at most one
+    weight is whole over `data` at a time);
+  * the embedding is vocab-parallel, the KV cache split over kv heads or
+    over its length, attention over whole heads (`layers.py`).
+
+The collectives are the c10d calls of `collectives.py` on the mesh's
+groups: gloo on the CPU and between ranks that share a card.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.numerics import DotEngine
+from repro_torch.launch.mesh import MODEL_AXIS
+from .collectives import (all_gather_dim, all_reduce_max, all_reduce_sum,
+                          axis_coordinate)
+from .sharding import Sharder
+
+__all__ = ["Partition"]
+
+
+class Partition:
+    def __init__(self, sharder: Sharder):
+        self.sharder = sharder
+        self.mesh = sharder.mesh
+        self.cfg = sharder.cfg
+        self.rank, self.size = axis_coordinate(self.mesh, MODEL_AXIS)
+        # the axis a weight's non-model dim is split over (fsdp_tp) or None
+        self.fs = sharder._fs()
+        # the KV cache over kv heads, else over its length (cache_spec)
+        self.kv_by_heads = self.cfg.n_kv_heads % self.size == 0
+
+    def whole_over_data(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """w with its `data`-sharded dim gathered (fsdp_tp), as it goes
+        into one GEMM; w itself under tp."""
+        return w if self.fs is None else all_gather_dim(w, dim, self.mesh,
+                                                        self.fs)
+
+    def col(self, eng: DotEngine, x: torch.Tensor, w: torch.Tensor
+            ) -> torch.Tensor:
+        """x (..., K) @ this rank's columns (K, N / size): the output's
+        columns, left sharded."""
+        return eng.dot(x, self.whole_over_data(w, 0))
+
+    def row(self, eng: DotEngine, x: torch.Tensor, w: torch.Tensor
+            ) -> torch.Tensor:
+        """x (..., K / size) @ this rank's rows (K / size, N): the f32
+        partials summed over `model`, cast once to x's dtype."""
+        out = eng.dot(x.to(torch.float32), self.whole_over_data(w, 1))
+        return self.sum(out).to(x.dtype)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """t's blocks along `model`, concatenated along `dim`."""
+        return all_gather_dim(t, dim % t.ndim, self.mesh, MODEL_AXIS)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(t, self.mesh, MODEL_AXIS)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce_max(t, self.mesh, MODEL_AXIS)
+
+    def head_range(self, heads: int, rank: Optional[int] = None
+                   ) -> Tuple[int, int]:
+        """[lo, hi) of the whole heads `rank` (this one by default) attends
+        for: heads * r // size up to heads * (r + 1) // size, the near-even
+        split where the heads do not divide `model` (56 over 16: 3 or 4)."""
+        r = self.rank if rank is None else rank
+        return heads * r // self.size, heads * (r + 1) // self.size
+
+    def heads_to_columns(self, out: torch.Tensor, heads: int
+                         ) -> torch.Tensor:
+        """This rank's columns of the attention output (B, S, heads * Dh)
+        from each rank's whole heads out (B, S, hi - lo, Dh): every rank's
+        heads gathered over `model` (padded to the largest share), then
+        the even column block that wo's rows take."""
+        B, S, _, Dh = out.shape
+        most = -(-heads // self.size)
+        pad = most - out.shape[2]
+        if pad:
+            out = torch.cat([out, out.new_zeros((B, S, pad, Dh))], dim=2)
+        every = self.gather(out, 2)
+        keep: list = []
+        for r in range(self.size):
+            lo, hi = self.head_range(heads, r)
+            keep += range(r * most, r * most + hi - lo)
+        whole = every[:, :, keep].reshape(B, S, heads * Dh)
+        n = heads * Dh // self.size
+        return whole[..., self.rank * n:(self.rank + 1) * n]

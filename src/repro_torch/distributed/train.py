@@ -30,14 +30,29 @@ c10d calls of `distributed.collectives`. The reference's
 A digit-mode engine (olm*, tpmm*) runs its kernel on every GEMM of the
 forward, and its derivative is zero, as the reference's
 (core/numerics.py `_DigitDot`).
+
+The serve steps keep one of two layouts:
+  * whole: `build_prefill_step` / `build_decode_step` run `Model.prefill`
+    / `decode_step` on whole params and cache, as on one device (every
+    rank of a mesh holds the whole weights);
+  * partitioned: `jit_prefill_step` / `jit_decode_step`, the reference's
+    names and arguments, run them on this rank's blocks at the Sharder's
+    `param_specs`, `cache_specs` and `batch_specs` under a `Partition`
+    (`partition.py`), the logits vocab-sharded at P(batch, vocab_axis()).
+    No rank holds a whole weight of a `model`-sharded leaf or more of the
+    cache than its block; `init_serve_params` draws the blocks without a
+    whole model ever existing on the rank. The dense family only: the
+    others raise NotImplementedError and name their ROADMAP item.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.core.numerics import EngineSpec, resolve_engine
+from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model, lm_loss
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
@@ -48,11 +63,15 @@ from repro_torch.tree import (flatten_like, tree_flatten, tree_map,
                               tree_unflatten)
 from .collectives import (all_reduce_sum, gather_dims, gather_dtensor,
                           shard_dims)
-from .sharding import NamedSharding, Sharder, spec_leaves
+from .partition import Partition
+from .sharding import NamedSharding, Sharder, path_leaves, spec_leaves
 
 __all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
-           "init_train_state", "cast_params", "train_state_specs",
-           "distribute_state", "gather_state", "state_shardings"]
+           "jit_prefill_step", "jit_decode_step", "serve_params",
+           "init_serve_params", "init_serve_cache", "param_blocks",
+           "block_shape", "unpartitioned", "serve_block_bytes", "init_train_state", "cast_params",
+           "train_state_specs", "distribute_state", "gather_state",
+           "state_shardings"]
 
 
 def init_train_state(model: Model, seed: int = 0) -> Dict[str, Any]:
@@ -306,4 +325,174 @@ def build_prefill_step(model: Model):
 def build_decode_step(model: Model):
     def decode(params, token, pos, cache, memory=None):
         return model.decode_step(params, token, pos, cache, memory)
+    return decode
+
+
+# ---------------------------------------------------------------- serving
+# The families without a partitioned serve yet, and the ROADMAP section 1
+# item that brings it.
+UNPARTITIONED = {
+    "moe": "item 12, the partitioned MoE serve (ep / tp experts)",
+    "hybrid": "item 13, the partitioned recurrent serve (RG-LRU h and conv "
+              "over model)",
+    "ssm": "item 14, the partitioned SSM serve (replicated weights, batch "
+           "over both axes)",
+    "encdec": "item 15, the partitioned cross-attention serve",
+    "vlm": "item 15, the partitioned cross-attention serve",
+}
+
+
+def _serve_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype a leaf is served in: bf16 for an f32 leaf of 2 or more
+    dims (f32 masters are a training artifact), its own otherwise (the
+    reference's `_serve_params` rule)."""
+    return torch.bfloat16 if (t.dtype == torch.float32 and t.ndim >= 2) \
+        else t.dtype
+
+
+def serve_params(params):
+    """Every leaf of `params` in its serve dtype (`_serve_dtype`)."""
+    return tree_map(lambda p: p.to(_serve_dtype(p)), params)
+
+
+def block_shape(shape, spec, sizes) -> tuple:
+    """The shape of one rank's block of a `shape` leaf under `spec` on a
+    mesh of axis `sizes` (an axis name -> size dict)."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for a in (entry,) if isinstance(entry, str) else tuple(entry or ()):
+            out[d] //= sizes[a]
+    return tuple(out)
+
+
+def param_blocks(params, sharder: Sharder):
+    """This rank's block of every leaf of whole `params` under the
+    sharder's param specs, each a copy of its own (nothing whole kept)."""
+    specs = spec_leaves(sharder.param_specs(params), params)
+    leaves, treedef = tree_flatten(params)
+    return tree_unflatten(treedef, [
+        shard_dims(t, spec, sharder.mesh).clone()
+        for t, spec in zip(leaves, specs)])
+
+
+def init_serve_params(model: Model, sharder: Optional[Sharder] = None,
+                      seed: int = 0):
+    """`param_blocks(serve_params(model.init(seed)), sharder)` (the whole
+    serve params without a sharder) drawn leaf by leaf: each whole leaf
+    is cut to this rank's block in the serve dtype and freed before the
+    next draw, so a rank's largest transient is one whole f32 leaf (an
+    embedding table) and no whole model exists on it."""
+    def keep(path, t):
+        dtype = _serve_dtype(t)
+        if sharder is not None:
+            t = shard_dims(t, sharder.param_spec(path, tuple(t.shape)),
+                           sharder.mesh)
+        return t.to(dtype, copy=True)
+    return model.init(seed, keep=keep)
+
+
+def _serve_blocks(cfg: ModelConfig, sharder: Sharder) -> Dict[str, tuple]:
+    """{path: (this rank's block shape, the serve dtype)} of every param
+    leaf, from a meta init and the specs alone."""
+    sizes = mesh_shape(sharder.mesh)
+    return {path: (block_shape(t.shape, sharder.param_spec(
+        path, tuple(t.shape)), sizes), _serve_dtype(t))
+        for path, t in path_leaves(Model(cfg, device="meta").init(0))}
+
+
+def serve_block_bytes(cfg: ModelConfig, sharder: Sharder) -> int:
+    """The bytes of this rank's serve blocks (`init_serve_params`), from
+    the shapes and the specs alone."""
+    return sum(math.prod(shape) * dtype.itemsize
+               for shape, dtype in _serve_blocks(cfg, sharder).values())
+
+
+def init_serve_cache(model: Model, sharder: Sharder, batch: int,
+                     max_len: int):
+    """This rank's block of `model.init_cache(batch, max_len)` (contiguous)
+    under the sharder's cache specs, zeros, made without the whole."""
+    whole = Model(model.cfg, device="meta").init_cache(batch, max_len)
+    sizes = mesh_shape(sharder.mesh)
+    leaves, treedef = tree_flatten(whole)
+    return tree_unflatten(treedef, [
+        torch.zeros(block_shape(t.shape, sharder.cache_spec(path, tuple(
+            t.shape)), sizes), dtype=t.dtype, device=model.device)
+        for (path, t) in path_leaves(whole)])
+
+
+def unpartitioned(cfg: ModelConfig) -> Optional[str]:
+    """None where the port has a partitioned serve step for `cfg` (the
+    dense family), else the ROADMAP item that brings one."""
+    item = UNPARTITIONED.get(cfg.family)
+    if item is None and (cfg.family != "dense" or cfg.n_experts
+                         or cfg.sliding_window is not None):
+        item = "no item: a dense config with experts or a window"
+    return item
+
+
+def _partition(model: Model, sharder: Sharder) -> Partition:
+    """The partition context of `model`'s serve steps on the sharder's
+    mesh; raises for a configuration with no partitioned serve yet."""
+    cfg = model.cfg
+    item = unpartitioned(cfg)
+    if item is not None:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) has no partitioned serve step yet: "
+            f"ROADMAP section 1, {item}; the whole-weight "
+            "build_prefill_step / build_decode_step serve it")
+    if model.eng.mesh is not None and model.eng.shard is not None:
+        raise ValueError("a partitioned step runs each GEMM on this rank's "
+                         "blocks: its engine shards nothing itself "
+                         f"(shard={model.eng.shard!r})")
+    return Partition(sharder)
+
+
+def _check_blocks(model: Model, sharder: Sharder, params) -> None:
+    """Raise unless every leaf of `params` has the shape of this rank's
+    block under the sharder's param specs."""
+    blocks = _serve_blocks(model.cfg, sharder)
+    got = path_leaves(params)
+    if [p for p, _ in got] != list(blocks):
+        raise ValueError("the params do not have the model's leaves")
+    for path, t in got:
+        if tuple(t.shape) != blocks[path][0]:
+            raise ValueError(f"{path} is {tuple(t.shape)}, this rank's "
+                             f"block is {blocks[path][0]}")
+
+
+def jit_prefill_step(model: Model, sharder: Sharder, params, batch_keys,
+                     cache):
+    """The partitioned prefill one rank runs (the reference's
+    `jit_prefill_step`): prefill(params, batch, cache) -> (logits, cache,
+    None), `params` this rank's blocks at `sharder.param_specs` (they are
+    checked here), `batch` its rows at `sharder.batch_specs(batch_keys)`,
+    `cache` its block at `sharder.cache_specs` (`init_serve_cache`),
+    updated in place; the logits (B_rank, vocab_padded / model) at
+    P(batch, vocab_axis()). `last_index=` (each lane's last prompt
+    position, `Model.prefill`'s) serves right-padded prompts."""
+    part = _partition(model, sharder)
+    _check_blocks(model, sharder, params)
+    if set(batch_keys) - {"tokens", "mask"}:
+        raise ValueError(f"a dense prefill takes tokens, got {batch_keys}")
+
+    def prefill(params, batch, cache, last_index=None):
+        return model.prefill(params, batch, cache, last_index=last_index,
+                             part=part)
+    return prefill
+
+
+def jit_decode_step(model: Model, sharder: Sharder, params, cache, *,
+                    has_memory: bool):
+    """The partitioned decode step one rank runs (the reference's
+    `jit_decode_step`): decode(params, token, pos, cache) -> (logits,
+    cache), token and pos this rank's rows, the rest as
+    `jit_prefill_step`'s."""
+    part = _partition(model, sharder)
+    _check_blocks(model, sharder, params)
+    if has_memory:
+        raise NotImplementedError(
+            f"ROADMAP section 1, {UNPARTITIONED['encdec']}")
+
+    def decode(params, token, pos, cache):
+        return model.decode_step(params, token, pos, cache, part=part)
     return decode

@@ -10,13 +10,16 @@ For each cell the dry run:
   2. builds the model and the Sharder on that mesh, and the step's
      arguments as meta tensors (`input_specs`): train runs the port's
      sharded step (`build_train_step(model, sharder, microbatches=...)`)
-     on the state `distribute_state` rests; prefill and decode run
-     `build_prefill_step` / `build_decode_step` on whole bf16 serve params
-     (f32 leaves of 2 or more dims cast, the reference's `_serve_params`
-     rule), the rank's rows of the batch and a cache of its rows (the
-     batch axes of `Sharder.batch_spec()`), as the port serves: it has no
-     head-sharded KV cache and no tensor-parallel native GEMM, so the
-     serve moves no collective;
+     on the state `distribute_state` rests; prefill and decode keep one of
+     two layouts (the record's `layout`). "partitioned", the dense
+     family's: `jit_prefill_step` / `jit_decode_step` on this rank's
+     blocks of the bf16 serve params (`init_serve_params`), of the batch
+     and of the cache at the Sharder's specs, moving their collectives
+     over `model` and, under fsdp_tp, `data`. "whole", every other
+     family's: `build_prefill_step` / `build_decode_step` on whole bf16
+     serve params (f32 leaves of 2 or more dims cast, the reference's
+     `_serve_params` rule), the rank's rows of the batch and a cache of
+     its rows, no collective (`SERVE_NOTE`);
   3. runs that step once under `roofline.walk`: dot FLOPs, the bytes each
      op reads and writes, the live bytes and their peak, the collectives
      by kind and mesh axis;
@@ -43,7 +46,7 @@ import json
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -54,23 +57,29 @@ from repro_torch.distributed.train import (build_decode_step,
                                            build_prefill_step,
                                            build_train_step,
                                            distribute_state,
-                                           init_train_state)
+                                           init_serve_cache,
+                                           init_serve_params,
+                                           init_train_state,
+                                           jit_decode_step,
+                                           jit_prefill_step, serve_params,
+                                           unpartitioned)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import (axis_links, collective_bytes,
                                          roofline_terms, walk)
 from repro_torch.launch.shapes import (SHAPES, ShapeCase, applicable,
-                                      case_specs, input_specs)
+                                      case_specs)
 from repro_torch.models.model import Model
 from repro_torch.tree import tree_map
 
-__all__ = ["run_cell", "eval_shape_tree", "main", "fake_world",
-           "production_mesh", "cell_step", "serve_params", "microbatches",
-           "hold_against_card", "CARD_BYTES"]
+__all__ = ["run_cell", "walk_cell", "eval_shape_tree", "main",
+           "fake_world", "production_mesh", "cell_step", "serve_params",
+           "serve_layout", "microbatches", "hold_against_card", "card_step",
+           "CARD_BYTES"]
 
 CARD_BYTES = 80e9          # an H100 SXM's HBM3
 SERVE_NOTE = ("whole bf16 weights on every rank; its rows of the batch and "
-              "of the cache; no collective (the port has no head-sharded KV "
-              "cache and no tensor-parallel native GEMM)")
+              "of the cache; no collective (the port has no partitioned "
+              "serve step for this family yet: ROADMAP section 1)")
 
 
 def microbatches(cfg, case: ShapeCase) -> int:
@@ -93,12 +102,10 @@ def eval_shape_tree(fn: Callable, *args):
         return fn(*tree_map(meta, args))
 
 
-def serve_params(params):
-    """Serving runs bf16 weights (f32 masters are a training artifact):
-    every f32 leaf of 2 or more dims in bf16."""
-    return tree_map(lambda p: p.to(torch.bfloat16)
-                    if p.dtype == torch.float32 and p.ndim >= 2 else p,
-                    params)
+def serve_layout(cfg) -> str:
+    """The layout a serve cell of `cfg` walks: "partitioned" where the
+    port has partitioned serve steps (the dense family), else "whole"."""
+    return "whole" if unpartitioned(cfg) else "partitioned"
 
 
 @contextlib.contextmanager
@@ -126,17 +133,41 @@ def fake_world(size: int):
 def production_mesh(*, multi_pod: bool):
     """The DeviceMesh of `make_production_mesh`'s names and sizes over the
     ranks of the default group (which must hold them), for meta tensors."""
+    return _meta_mesh(make_production_mesh(multi_pod=multi_pod))
+
+
+def _meta_mesh(shape):
     from torch.distributed.device_mesh import DeviceMesh
-    shape = make_production_mesh(multi_pod=multi_pod)
     ranks = torch.arange(shape.size).reshape(shape.axis_sizes)
     return DeviceMesh("cpu", ranks, mesh_dim_names=shape.axis_names)
 
 
+def walk_cell(cfg, case: ShapeCase, shape, layout: Optional[str] = None
+              ) -> Tuple[Dict[str, Any], Dict[str, Any], Any]:
+    """Rank 0's step of `case` walked on meta over a fake world of the
+    ranks of `shape` (an AbstractMesh: `make_production_mesh`'s, or a
+    small one to hold against ranks on a card): (the walk's counts, its
+    collective bytes by kind and axis, the batch axes)."""
+    with fake_world(shape.size):
+        mesh = _meta_mesh(shape)
+        sharder = Sharder(mesh, cfg)
+        sharder.set_batch(case.global_batch)
+        fn, args = cell_step(Model(cfg, device="meta"), sharder, case,
+                             case_specs(cfg, case), layout)
+        counts = walk(fn, *args, mesh=mesh)
+        del fn, args
+        coll = collective_bytes(counts["collectives"], axis_links(mesh))
+        return counts, coll, sharder.batch_spec()[0]
+
+
 def cell_step(model: Model, sharder: Sharder, case: ShapeCase,
-              inputs: Dict[str, Any]) -> Tuple[Callable, tuple]:
+              inputs: Dict[str, Any], layout: Optional[str] = None
+              ) -> Tuple[Callable, tuple]:
     """(the step one rank runs for `case`, its arguments) on the model's
     device: meta for the walk, the card to hold the walk against it.
-    `inputs`: `input_specs`'s entries, or tensors of their shapes."""
+    `inputs`: `input_specs`'s entries, or tensors of their shapes. A serve
+    case keeps `layout` ("partitioned" or "whole"; `serve_layout(cfg)`
+    by default)."""
     cfg = model.cfg
     if case.kind == "train":
         state = distribute_state(sharder, init_train_state(model))
@@ -150,6 +181,17 @@ def cell_step(model: Model, sharder: Sharder, case: ShapeCase,
         return shard_dims(t, (bd,) + (None,) * (t.ndim - 1),
                           sharder.mesh).clone()
 
+    if (layout or serve_layout(cfg)) == "partitioned":
+        params = init_serve_params(model, sharder)
+        cache = init_serve_cache(model, sharder, case.global_batch,
+                                 case.seq_len)
+        if case.kind == "prefill":
+            batch = {k: rows(v) for k, v in inputs["batch"].items()}
+            return jit_prefill_step(model, sharder, params, list(batch),
+                                    cache), (params, batch, cache)
+        return jit_decode_step(model, sharder, params, cache,
+                               has_memory=False), (
+            params, rows(inputs["token"]), rows(inputs["pos"]), cache)
     params = serve_params(model.init())
     if case.kind == "prefill":
         batch = {k: rows(v) for k, v in inputs["batch"].items()}
@@ -198,14 +240,12 @@ def hold_against_card(cfg, case: ShapeCase) -> Dict[str, Any]:
     synchronized walls after that step); weights and inputs from seed 0.
     Needs a CUDA card and raises without one."""
     import torch.distributed as dist
-    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.launch.mesh import make_local_mesh
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: the walk is held against a card")
     if dist.is_initialized():
         raise RuntimeError("a default process group exists already: the "
                            "check makes its own world of one rank")
-    dev = torch.device("cuda", torch.cuda.current_device())
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
@@ -223,36 +263,47 @@ def hold_against_card(cfg, case: ShapeCase) -> Dict[str, Any]:
         pred["terms"] = roofline_terms(pred, coll, n_chips=1, cfg=cfg,
                                        case=case)
 
-        # tensors left in reference cycles (a first call's lazy set-up
-        # leaves some) die only when the collector runs: collect on both
-        # sides of the baseline
-        gc.collect()
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        fn, args = cell_step(Model(cfg, device=dev), sharders["cuda"], case,
-                             _card_inputs(cfg, case, dev))
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with FlopCounterMode(display=False) as fc:
-            res = fn(*args)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
-        del res
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fn(*args)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            del res
-        del fn, args
-        return {"walk": pred,
-                "card": {"flops": int(fc.get_total_flops()), "peak": peak,
-                         "wall_s": min(walls), "walls_s": walls}}
+        return {"walk": pred, "card": card_step(cfg, case, sharders["cuda"])}
     finally:
         dist.destroy_process_group()
+
+
+def card_step(cfg, case: ShapeCase, sharder: Sharder) -> Dict[str, Any]:
+    """This rank's step of `case` (`cell_step`, weights and inputs from
+    seed 0) run on its card, in the process group the sharder's CUDA mesh
+    lies on: the dot FLOPs FlopCounterMode counts over the step, the peak
+    `torch.cuda.max_memory_allocated()` reads above what was allocated
+    before the step's arguments were made, the fastest of three
+    synchronized walls after that step."""
+    from torch.utils.flop_counter import FlopCounterMode
+    dev = torch.device("cuda", torch.cuda.current_device())
+    # tensors left in reference cycles (a first call's lazy set-up leaves
+    # some) die only when the collector runs: collect on both sides of the
+    # baseline
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    fn, args = cell_step(Model(cfg, device=dev), sharder, case,
+                         _card_inputs(cfg, case, dev))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        res = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del res
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del res
+    del fn, args
+    return {"flops": int(fc.get_total_flops()), "peak": peak,
+            "wall_s": min(walls), "walls_s": walls}
 
 
 def run_cell(arch: str, shape: str, *, multi_pod: bool, out_dir: Path
@@ -266,18 +317,10 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool, out_dir: Path
         rec["skip_reason"] = why
         return rec
 
-    n_chips = make_production_mesh(multi_pod=multi_pod).size
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    n_chips = mesh.size
     t0 = time.time()
-    with fake_world(n_chips):
-        mesh = production_mesh(multi_pod=multi_pod)
-        model = Model(cfg, device="meta")
-        sharder = Sharder(mesh, cfg)
-        sharder.set_batch(case.global_batch)
-        fn, args = cell_step(model, sharder, case, input_specs(cfg, shape))
-        counts = walk(fn, *args, mesh=mesh)
-        del fn, args
-        coll = collective_bytes(counts["collectives"], axis_links(mesh))
-        batch_axes = sharder.batch_spec()[0]
+    counts, coll, batch_axes = walk_cell(cfg, case, mesh)
     rec.update({
         "walk_s": round(time.time() - t0, 1),
         "microbatches": microbatches(cfg, case),
@@ -293,7 +336,9 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool, out_dir: Path
         "device": "none: meta tensors over a fake process group",
     })
     if case.kind != "train":
-        rec["serve"] = SERVE_NOTE
+        rec["layout"] = serve_layout(cfg)
+        if rec["layout"] == "whole":
+            rec["serve"] = SERVE_NOTE
     out_dir.mkdir(parents=True, exist_ok=True)
     fn = out_dir / f"{arch}__{shape}__{rec['mesh']}.json"
     fn.write_text(json.dumps(rec, indent=1, default=str))

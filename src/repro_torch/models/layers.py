@@ -12,10 +12,19 @@ reference. Shapes: x (B, S, d_model), q (B, S, Hq, Dh), kv (B, S, Hkv, Dh).
 Cache updates are made in place (the reference returns new arrays):
 an engine's KV pool is the largest tensor it holds, and a copy per layer
 per step would double its traffic.
+
+`attention_apply`, `mlp_apply`, `embed` and `unembed` take an optional
+partition context `part` (`distributed/partition.py`: the mesh, the
+Sharder and this rank's place on `model`). With None they run on whole
+tensors, as on one device. With one, each runs on this rank's blocks at
+the Sharder's specs and moves what it must through the context's c10d
+collectives: the partitioned serve steps of the dense family
+(`distributed/train.py::jit_prefill_step` / `jit_decode_step`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -145,18 +154,29 @@ def paged_scatter_rows(pool: torch.Tensor, rows: torch.Tensor,
 # attention (GQA)
 # --------------------------------------------------------------------------
 
-def attention_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+Keep = Callable[[str, torch.Tensor], torch.Tensor]
+
+
+def _whole(name: str, t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def attention_init(gen: torch.Generator, cfg: ModelConfig, device,
+                   keep: Keep = _whole) -> Params:
+    """`keep(name, leaf)` takes each leaf as it is drawn, before the next
+    draw, and returns what the tree holds (Model.init)."""
     d, dt = cfg.d_model, cfg.pdtype
-    p = {
-        "wq": dense_init(gen, d, cfg.d_head_total, dt, device),
-        "wk": dense_init(gen, d, cfg.d_kv_total, dt, device),
-        "wv": dense_init(gen, d, cfg.d_kv_total, dt, device),
-        "wo": dense_init(gen, cfg.d_head_total, d, dt, device),
-    }
+    p = {}
+    for key, (d_in, d_out) in (("wq", (d, cfg.d_head_total)),
+                               ("wk", (d, cfg.d_kv_total)),
+                               ("wv", (d, cfg.d_kv_total)),
+                               ("wo", (cfg.d_head_total, d))):
+        p[key] = keep(key, dense_init(gen, d_in, d_out, dt, device))
     if cfg.qkv_bias:
         for key, width in (("bq", cfg.d_head_total), ("bk", cfg.d_kv_total),
                            ("bv", cfg.d_kv_total)):
-            p[key] = torch.zeros((width,), dtype=dt, device=device)
+            p[key] = keep(key, torch.zeros((width,), dtype=dt,
+                                           device=device))
     return p
 
 
@@ -255,11 +275,113 @@ def _attn_core(q, k, v, qpos, kpos, *, causal: bool,
     return _attn_plain(q, k, v, qpos, kpos, causal=causal, window=window)
 
 
+def _col(eng: DotEngine, x: torch.Tensor, w: torch.Tensor, part
+         ) -> torch.Tensor:
+    """x @ w for a column-parallel w: this rank's columns under `part`."""
+    return eng.dot(x, w) if part is None else part.col(eng, x, w)
+
+
+def _row(eng: DotEngine, x: torch.Tensor, w: torch.Tensor, part
+         ) -> torch.Tensor:
+    """x @ w for a row-parallel w: this rank's K block under `part`, the
+    partials summed over `model`."""
+    return eng.dot(x, w) if part is None else part.row(eng, x, w)
+
+
+def _attn_partial(q, k, v, qpos, kpos, part) -> torch.Tensor:
+    """Causal attention of q (B, S, H, D) over the keys of every rank
+    along `model`, each rank holding the slots at positions kpos (T,) of
+    k / v (B, T, Hkv, D): the partial softmax (the largest score, the sum
+    of the weights, the weighted values) over this rank's slots, combined
+    over the ranks by an all-reduce of the largest score and one of the
+    rescaled sums, as a flash chunk is folded into its running sums. Tiles
+    and weights are rounded through bf16 where q is bf16, their products
+    summed in f32, as in `_attn_flash`; each query head reads kv head
+    h // (H / Hkv) without repeating the cache."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    tile = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    qt = q.to(tile).to(torch.float32).reshape(B, S, -1, G, D)
+    kt = k.to(tile).to(torch.float32)
+    vt = v.to(tile).to(torch.float32)
+    s = torch.einsum("bskgd,btkd->bkgst", qt, kt) * (1.0 / D ** 0.5)
+    valid = _valid(kpos[None], qpos, causal=True, window=None)
+    s = s.reshape(B, H, S, -1).masked_fill(~valid, float("-inf"))
+    m = part.max(s.amax(dim=-1))
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(s - m_safe[..., None]).masked_fill(~valid, 0.0)
+    w = w.to(tile).to(torch.float32)
+    acc = torch.einsum("bkgst,btkd->bkgsd",
+                       w.reshape(B, -1, G, S, w.shape[-1]), vt)
+    sums = part.sum(torch.cat([w.sum(dim=-1)[..., None],
+                               acc.reshape(B, H, S, D)], dim=-1))
+    out = sums[..., 1:] / torch.clamp(sums[..., :1], min=1e-30)
+    return out.transpose(1, 2).to(v.dtype)
+
+
+def _attention_by_length(p: Params, cfg: ModelConfig, q, k, v,
+                         positions: torch.Tensor, eng: DotEngine,
+                         cache: Dict[str, Any], part) -> torch.Tensor:
+    """A partitioned attention layer whose KV cache is split over its
+    length (n_kv_heads does not divide `model`): q, k, v hold this rank's
+    columns of the projections. Every rank gathers the new tokens' k and
+    v whole over `model` (their columns can cut a head). A decode step
+    writes its slot on the rank that owns it, gathers q whole and combines
+    the partial softmax of every rank's slots (`_attn_partial`); a
+    prefill stores this rank's slot range and attends over the prompt for
+    this rank's whole query heads (`Partition.head_range`), gathering q
+    first and the outputs after where the heads do not divide `model`.
+    Returns the layer's output after the row-parallel wo."""
+    B, S = q.shape[:2]
+    Dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    rope = functools.partial(apply_rope, positions=positions,
+                             style=cfg.rope_style, theta=cfg.rope_theta)
+    k = rope(part.gather(k, -1).reshape(B, S, Hkv, Dh))
+    v = part.gather(v, -1).reshape(B, S, Hkv, Dh)
+    ck, cv = cache["k"], cache["v"]
+    T = ck.shape[1]
+    lo = part.rank * T
+    if S == 1:
+        q = rope(part.gather(q, -1).reshape(B, 1, H, Dh))
+        slot = torch.clamp(positions[:, 0].to(torch.int64),
+                           max=T * part.size - 1) - lo
+        mine = ((slot >= 0) & (slot < T))[:, None, None]
+        slot = slot.clamp(0, T - 1)
+        lanes = torch.arange(B, device=q.device)
+        ck[lanes, slot] = torch.where(mine, k[:, 0].to(ck.dtype),
+                                      ck[lanes, slot])
+        cv[lanes, slot] = torch.where(mine, v[:, 0].to(cv.dtype),
+                                      cv[lanes, slot])
+        out = _attn_partial(q, ck, cv, positions,
+                            lo + torch.arange(T, device=q.device), part)
+        n = H * Dh // part.size
+        out = out.reshape(B, 1, H * Dh)[..., part.rank * n:
+                                        (part.rank + 1) * n]
+    else:
+        if S > T * part.size:
+            raise ValueError(f"a partitioned prefill of {S} tokens into a "
+                             f"cache of {T * part.size} slots")
+        n = max(0, min(S - lo, T))
+        ck[:, :n] = k[:, lo:lo + n].to(ck.dtype)
+        cv[:, :n] = v[:, lo:lo + n].to(cv.dtype)
+        h0, h1 = part.head_range(H)
+        even = H % part.size == 0
+        q = q.reshape(B, S, -1, Dh) if even else \
+            part.gather(q, -1).reshape(B, S, H, Dh)[:, :, h0:h1]
+        kv = torch.arange(h0, h1, device=q.device) // (H // Hkv)
+        out = _attn_core(rope(q), k.index_select(2, kv),
+                         v.index_select(2, kv), positions,
+                         torch.arange(S, device=q.device), causal=True)
+        out = out.reshape(B, S, -1) if even else \
+            part.heads_to_columns(out, H)
+    return _row(eng, out, p["wo"], part)
+
+
 def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, eng: DotEngine, *,
                     kv_cache: Optional[Dict[str, Any]] = None,
                     memory: Optional[torch.Tensor] = None,
-                    causal: bool = True, chunked: bool = False
+                    causal: bool = True, chunked: bool = False, part=None
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Self-attention with an optional KV cache and sliding window, or
     cross-attention to `memory` (B, M, d): q from x, k and v from the
@@ -281,22 +403,40 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     lane_pos mod T and attends through the lane's slot -> position map; a
     prefill longer than the ring keeps its last T entries, rolled into
     place; a chunked call on a ring raises. Returns (output (B,S,d), the
-    updated cache or None)."""
+    updated cache or None).
+
+    With a partition context `part` the layer runs on this rank's blocks:
+    wq, wk, wv (and their biases) column-parallel, wo row-parallel, the
+    cache this rank's block, over its kv heads where n_kv_heads divides
+    `model` (attention then local to this rank's heads, the code below on
+    them) and over its length otherwise (`_attention_by_length`). It
+    takes the contiguous cache of a prefill or decode step, without a
+    window, memory or chunks."""
     B, S, d = x.shape
     Dh = cfg.head_dim
     src = x if memory is None else memory
-    q = eng.dot(x, p["wq"])
-    k = eng.dot(src, p["wk"])
-    v = eng.dot(src, p["wv"])
+    if part is not None and (
+            memory is not None or chunked or kv_cache is None
+            or "kpool" in kv_cache or cfg.sliding_window is not None):
+        raise NotImplementedError(
+            "a partitioned attention layer takes the contiguous KV cache "
+            "of a prefill or decode step, with no window, memory or chunks")
+    q = _col(eng, x, p["wq"], part)
+    k = _col(eng, src, p["wk"], part)
+    v = _col(eng, src, p["wv"], part)
     if cfg.qkv_bias:
         # in the GEMM output's dtype, as the reference adds them
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
     T = src.shape[1]
-    q = q.reshape(B, S, cfg.n_heads, Dh)
-    k = k.reshape(B, T, cfg.n_kv_heads, Dh)
-    v = v.reshape(B, T, cfg.n_kv_heads, Dh)
+    if part is not None and not part.kv_by_heads:
+        return _attention_by_length(p, cfg, q, k, v, positions, eng,
+                                    kv_cache, part), kv_cache
+    # this rank's heads under a partition context, every head without
+    q = q.reshape(B, S, -1, Dh)
+    k = k.reshape(B, T, -1, Dh)
+    v = v.reshape(B, T, -1, Dh)
     if memory is not None:
         out = _attn_core(q, k, v, positions,
                          torch.arange(T, device=x.device), causal=False)
@@ -363,7 +503,7 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
         kpos = torch.arange(S, device=x.device)
         out = _attn_core(q, k, v, positions, kpos, causal=causal,
                          window=window)
-    out = eng.dot(out.reshape(B, S, cfg.d_head_total), p["wo"])
+    out = _row(eng, out.reshape(B, S, -1), p["wo"], part)
     return out, kv_cache
 
 
@@ -371,28 +511,29 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
 # MLP
 # --------------------------------------------------------------------------
 
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, device,
+             keep: Keep = _whole) -> Params:
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.pdtype
-    if cfg.mlp_type == "swiglu":
-        return {"wg": dense_init(gen, d, f, dt, device),
-                "wu": dense_init(gen, d, f, dt, device),
-                "wd": dense_init(gen, f, d, dt, device)}
-    return {"wu": dense_init(gen, d, f, dt, device),
-            "wd": dense_init(gen, f, d, dt, device)}
+    shapes = (("wg", (d, f)),) if cfg.mlp_type == "swiglu" else ()
+    shapes += (("wu", (d, f)), ("wd", (f, d)))
+    return {key: keep(key, dense_init(gen, d_in, d_out, dt, device))
+            for key, (d_in, d_out) in shapes}
 
 
 def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-              eng: DotEngine) -> torch.Tensor:
+              eng: DotEngine, part=None) -> torch.Tensor:
     """SwiGLU: wd(silu(wg x) * wu x); GELU: wd(gelu(wu x)), with the
-    tanh approximation (jax.nn.gelu's default)."""
+    tanh approximation (jax.nn.gelu's default). Under a partition context
+    wg and wu are column-parallel, wd row-parallel."""
     if cfg.mlp_type == "swiglu":
         g = torch.nn.functional.silu(
-            eng.dot(x, p["wg"]).to(torch.float32)).to(x.dtype)
-        u = eng.dot(x, p["wu"])
-        return eng.dot(g * u, p["wd"])
-    h = torch.nn.functional.gelu(eng.dot(x, p["wu"]).to(torch.float32),
-                                 approximate="tanh").to(x.dtype)
-    return eng.dot(h, p["wd"])
+            _col(eng, x, p["wg"], part).to(torch.float32)).to(x.dtype)
+        u = _col(eng, x, p["wu"], part)
+        return _row(eng, g * u, p["wd"], part)
+    h = torch.nn.functional.gelu(
+        _col(eng, x, p["wu"], part).to(torch.float32),
+        approximate="tanh").to(x.dtype)
+    return _row(eng, h, p["wd"], part)
 
 
 # --------------------------------------------------------------------------
@@ -405,18 +546,37 @@ def embedding_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     return {"table": e.to(cfg.pdtype)}
 
 
-def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["table"].to(cfg.cdtype)[tokens]
+def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
+          part=None) -> torch.Tensor:
+    """The table's rows of `tokens` in the compute dtype. Under a
+    partition context the table is vocab-parallel: each rank looks up the
+    ids in its row range, writes zeros elsewhere, and the rows are summed
+    over `model` in f32. A row plus exact zeros is the row, up to the sign
+    of a zero (-0 + 0 is +0)."""
+    if part is None:
+        return p["table"].to(cfg.cdtype)[tokens]
+    table = part.whole_over_data(p["table"], 1).to(cfg.cdtype)
+    rows = table.shape[0]
+    ids = tokens.to(torch.int64) - part.rank * rows
+    mine = ((ids >= 0) & (ids < rows))[..., None]
+    x = table[ids.clamp(0, rows - 1)]
+    x = torch.where(mine, x, torch.zeros_like(x)).to(torch.float32)
+    return part.sum(x).to(cfg.cdtype)
 
 
 def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig,
-            eng: DotEngine) -> torch.Tensor:
+            eng: DotEngine, part=None) -> torch.Tensor:
     """Logits against the (vocab_padded, d) table. The table is rounded
     through the compute dtype first, as the reference does, and handed to
-    the engine as a transposed view."""
-    logits = eng.dot(x, p["table"].to(cfg.cdtype).T)
+    the engine as a transposed view. Under a partition context the head
+    is column-parallel: this rank's vocab columns, left sharded."""
+    table = p["table"] if part is None else part.whole_over_data(
+        p["table"], 1)
+    logits = eng.dot(x, table.to(cfg.cdtype).T)
     if cfg.vocab_padded != cfg.vocab_size:
-        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size
+        first = 0 if part is None else part.rank * logits.shape[-1]
+        cols = torch.arange(logits.shape[-1], device=x.device) + first
+        pad = cols >= cfg.vocab_size
         logits = logits + pad.to(logits.dtype) * torch.tensor(
             -1e9, dtype=logits.dtype, device=x.device)
     return logits

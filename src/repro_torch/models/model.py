@@ -1,12 +1,13 @@
 """Model facade of every ported family (port of `repro/models/model.py`):
 
-  init(seed)                                   -> params
+  init(seed, keep=)                            -> params
   forward(params, batch)                       -> (logits (B, S, V), aux)
   init_cache(batch, max_len, paged=)           -> per-layer caches
-  prefill(params, batch, cache, last_index=)   -> (last logits, cache, memory)
+  prefill(params, batch, cache, last_index=, part=)
+                                               -> (last logits, cache, memory)
   prefill_chunk(params, batch, cache, start, last_index=)
                                                -> (logits, cache)
-  decode_step(params, token, pos, cache, memory=)
+  decode_step(params, token, pos, cache, memory=, part=)
                                                -> (logits, cache)
 
 `batch` holds tokens (B, S) and, per family, the stub frontend's
@@ -20,6 +21,13 @@ device="cpu". Weights are drawn from a seeded torch.Generator on that
 device (jax.random's numbers cannot be reproduced; `convert.py` carries a
 JAX parameter tree over instead). `lm_loss` is the causal LM loss over
 `forward`.
+
+`prefill` and `decode_step` take an optional partition context `part`
+(`distributed/partition.py`): the params and cache are then this rank's
+blocks at the Sharder's specs, and the logits this rank's vocab columns
+(the partitioned steps of `distributed/train.py`). `init(keep=)` hands
+each leaf, as it is drawn, to `keep`, which returns what the tree holds:
+this rank's block, say, so that no whole model exists on a rank.
 """
 from __future__ import annotations
 
@@ -30,8 +38,8 @@ import torch
 
 from repro_torch.core.numerics import DotEngine
 from .config import ModelConfig
-from .layers import embed, embedding_init, rmsnorm, unembed
-from .transformer import block_cache_init, block_init, stack_apply
+from .layers import Keep, _whole, embed, embedding_init, rmsnorm, unembed
+from .transformer import _under, block_cache_init, block_init, stack_apply
 
 Params = Dict[str, Any]
 
@@ -58,27 +66,42 @@ class Model:
         self.eng = eng or DotEngine(mode=cfg.dot_mode)
         self.device = resolve_device(device)
 
-    def init(self, seed: int = 0) -> Params:
+    def init(self, seed: int = 0, keep: Optional[Keep] = None) -> Params:
+        """Every leaf drawn from one generator in a fixed order. `keep(path,
+        leaf)` (a path of `sharding.path_leaves`, "layers/3/attn/wq")
+        takes each leaf as it is made and returns what the tree holds; an
+        embedding table's and a dense layer's leaves reach it one by one,
+        before the next draw. The draws do not depend on it."""
         cfg, dev = self.cfg, self.device
+        keep = keep or _whole
         # device="meta" gives the shapes and dtypes alone (nothing drawn)
         gen = None if dev.type == "meta" else torch.Generator(
             device=dev).manual_seed(seed)
+
+        def table(name):
+            return {"table": keep(f"{name}/table",
+                                  embedding_init(gen, cfg, dev)["table"])}
+
         params: Params = {
-            "embed": embedding_init(gen, cfg, dev),
-            "layers": [block_init(gen, cfg, kind, dev)
-                       for kind in cfg.layer_kinds],
-            "final_norm": {"scale": torch.ones((cfg.d_model,),
-                                               dtype=cfg.pdtype, device=dev)},
+            "embed": table("embed"),
+            "layers": [block_init(gen, cfg, kind, dev,
+                                  _under(keep, f"layers/{i}"))
+                       for i, kind in enumerate(cfg.layer_kinds)],
+            "final_norm": {"scale": keep("final_norm/scale", torch.ones(
+                (cfg.d_model,), dtype=cfg.pdtype, device=dev))},
         }
         if not cfg.tie_embeddings:
-            params["unembed"] = embedding_init(gen, cfg, dev)
+            params["unembed"] = table("unembed")
         if cfg.n_enc_layers:
             enc = self._encoder_cfg()
             params["encoder"] = {
-                "layers": [block_init(gen, enc, kind, dev)
-                           for kind in enc.layer_kinds],
-                "final_norm": {"scale": torch.ones(
-                    (cfg.d_model,), dtype=cfg.pdtype, device=dev)}}
+                "layers": [block_init(gen, enc, kind, dev,
+                                      _under(keep, f"encoder/layers/{i}"))
+                           for i, kind in enumerate(enc.layer_kinds)],
+                "final_norm": {"scale": keep("encoder/final_norm/scale",
+                                             torch.ones((cfg.d_model,),
+                                                        dtype=cfg.pdtype,
+                                                        device=dev))}}
         return params
 
     def _encoder_cfg(self) -> ModelConfig:
@@ -152,7 +175,8 @@ class Model:
         return params["embed" if self.cfg.tie_embeddings else "unembed"]
 
     def _head(self, params: Params, x: torch.Tensor,
-              last_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+              last_index: Optional[torch.Tensor] = None, part=None
+              ) -> torch.Tensor:
         """Logits (B, V) at each lane's `last_index` (or the last row).
         The final norm runs over every row before the row is taken (the
         reference takes it first): the norm's device reduction may order
@@ -163,12 +187,13 @@ class Model:
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = unembed(self._head_table(params),
                          self._take_last(x, last_index), cfg,
-                         self.eng.for_role("head"))
+                         self.eng.for_role("head"), part)
         return logits[:, 0].to(torch.float32)
 
     @torch.no_grad()
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
-                cache: List[Params], last_index: Optional[torch.Tensor] = None
+                cache: List[Params], last_index: Optional[torch.Tensor] = None,
+                part=None
                 ) -> Tuple[torch.Tensor, List[Params], Optional[torch.Tensor]]:
         """Process prompts (B, S); returns (logits at each lane's
         `last_index` (or S-1), cache, the memory the decode steps attend
@@ -182,10 +207,10 @@ class Model:
         B, S = tokens.shape
         memory = self._memory(params, batch)
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
-        x = embed(params["embed"], tokens, cfg)
+        x = embed(params["embed"], tokens, cfg, part)
         x, _ = stack_apply(params["layers"], cfg, x, pos, self.eng,
-                           caches=cache, memory=memory)
-        return self._head(params, x, last_index), cache, memory
+                           caches=cache, memory=memory, part=part)
+        return self._head(params, x, last_index, part), cache, memory
 
     @torch.no_grad()
     def prefill_chunk(self, params: Params, batch: Dict[str, torch.Tensor],
@@ -218,16 +243,16 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params: Params, token: torch.Tensor,
                     pos: torch.Tensor, cache: List[Params],
-                    memory: Optional[torch.Tensor] = None
+                    memory: Optional[torch.Tensor] = None, part=None
                     ) -> Tuple[torch.Tensor, List[Params]]:
         """token (B,), pos (B,) absolute position of `token`; `memory` is
         what prefill returned (enc-dec and VLM models)."""
         token = token.to(self.device)
         pos = pos.to(self.device)
-        x = embed(params["embed"], token[:, None], self.cfg)
+        x = embed(params["embed"], token[:, None], self.cfg, part)
         x, _ = stack_apply(params["layers"], self.cfg, x, pos[:, None],
-                           self.eng, caches=cache, memory=memory)
-        return self._head(params, x), cache
+                           self.eng, caches=cache, memory=memory, part=part)
+        return self._head(params, x, part=part), cache
 
 
 def lm_loss(model: Model, params: Params, batch: Dict[str, torch.Tensor],

@@ -21,8 +21,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.numerics import DotEngine
 from .config import ModelConfig
-from .layers import (attention_apply, attention_init, mlp_apply, mlp_init,
-                     rmsnorm)
+from .layers import (Keep, _whole, attention_apply, attention_init,
+                     mlp_apply, mlp_init, rmsnorm)
 from .moe import moe_apply, moe_init
 from .recurrent import (rglru_apply, rglru_init, rglru_state_init, ssd_apply,
                         ssd_init, ssd_state_init)
@@ -30,30 +30,48 @@ from .recurrent import (rglru_apply, rglru_init, rglru_state_init, ssd_apply,
 Params = Dict[str, Any]
 
 
+def _under(keep: Keep, prefix: str) -> Keep:
+    return lambda name, t: keep(f"{prefix}/{name}", t)
+
+
+def _kept(keep: Keep, prefix: str, tree: Params) -> Params:
+    """keep applied to each leaf of a subtree made whole."""
+    return {k: _kept(keep, f"{prefix}/{k}", v) if isinstance(v, dict)
+            else keep(f"{prefix}/{k}", v) for k, v in tree.items()}
+
+
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
-               device) -> Params:
-    ones = torch.ones((cfg.d_model,), dtype=cfg.pdtype, device=device)
-    p: Params = {"norm1": {"scale": ones.clone()}}
+               device, keep: Keep = _whole) -> Params:
+    """One layer's params. `keep(path, leaf)` (a path under the layer,
+    "attn/wq") takes each leaf as it is made and returns what the layer
+    holds; an attention layer's and an MLP's leaves go to it one by one,
+    before the next draw, the other mixers' once their subtree is
+    drawn."""
+    def ones(name):
+        return keep(f"{name}/scale", torch.ones(
+            (cfg.d_model,), dtype=cfg.pdtype, device=device))
+
+    p: Params = {"norm1": {"scale": ones("norm1")}}
     if kind == "attn":
-        p["attn"] = attention_init(gen, cfg, device)
+        p["attn"] = attention_init(gen, cfg, device, _under(keep, "attn"))
     elif kind == "rec":
-        p["rec"] = rglru_init(gen, cfg, device)
+        p["rec"] = _kept(keep, "rec", rglru_init(gen, cfg, device))
     elif kind == "ssm":
-        p["ssm"] = ssd_init(gen, cfg, device)
+        p["ssm"] = _kept(keep, "ssm", ssd_init(gen, cfg, device))
         return p                    # the SSD block has no separate MLP
     elif kind == "cross":
-        p["cross"] = attention_init(gen, cfg, device)
+        p["cross"] = attention_init(gen, cfg, device, _under(keep, "cross"))
     elif kind == "xdec":
-        p["attn"] = attention_init(gen, cfg, device)
-        p["norm_x"] = {"scale": ones.clone()}
-        p["cross"] = attention_init(gen, cfg, device)
+        p["attn"] = attention_init(gen, cfg, device, _under(keep, "attn"))
+        p["norm_x"] = {"scale": ones("norm_x")}
+        p["cross"] = attention_init(gen, cfg, device, _under(keep, "cross"))
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    p["norm2"] = {"scale": ones.clone()}
+    p["norm2"] = {"scale": ones("norm2")}
     if cfg.n_experts and kind == "attn":
-        p["moe"] = moe_init(gen, cfg, device)
+        p["moe"] = _kept(keep, "moe", moe_init(gen, cfg, device))
     else:
-        p["mlp"] = mlp_init(gen, cfg, device)
+        p["mlp"] = mlp_init(gen, cfg, device, _under(keep, "mlp"))
     return p
 
 
@@ -95,20 +113,27 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                 positions: torch.Tensor, eng: DotEngine, *,
                 cache: Optional[Params] = None,
                 memory: Optional[torch.Tensor] = None, causal: bool = True,
-                chunked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                chunked: bool = False, part=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux loss). Attention GEMMs (self and cross) run under
     eng.for_role("attn"), the MLP and MoE under eng.for_role("mlp");
     recurrent and SSD mixers keep the base engine (their GEMMs are gate
     and in/out projections, not attention). `memory` (B, M, d) is what a
     "cross" or "xdec" layer attends to; causal=False makes self-attention
-    bidirectional (the encoder)."""
+    bidirectional (the encoder). A partition context `part` runs an
+    "attn" layer with a dense MLP on this rank's blocks (layers.py); the
+    other blocks have no partitioned form yet."""
+    if part is not None and (kind != "attn" or "mlp" not in p):
+        raise NotImplementedError(
+            f"a {kind!r} block{' with experts' if 'moe' in p else ''} has "
+            "no partitioned form")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     attn_eng = eng.for_role("attn")
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind in ("attn", "xdec"):
         o, _ = attention_apply(p["attn"], cfg, h, positions, attn_eng,
                                kv_cache=cache, causal=causal,
-                               chunked=chunked)
+                               chunked=chunked, part=part)
         if kind == "xdec":
             x = x + o
             hx = rmsnorm(p["norm_x"], x, cfg.norm_eps)
@@ -130,7 +155,7 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if "moe" in p:
         m, aux = moe_apply(p["moe"], cfg, h2, mlp_eng)
     else:
-        m = mlp_apply(p["mlp"], cfg, h2, mlp_eng)
+        m = mlp_apply(p["mlp"], cfg, h2, mlp_eng, part)
     return x + m, aux
 
 
@@ -138,12 +163,14 @@ def stack_apply(layers: List[Params], cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, eng: DotEngine, *,
                 caches: Optional[List[Params]] = None,
                 memory: Optional[torch.Tensor] = None, causal: bool = True,
-                chunked: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                chunked: bool = False, part=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run every layer in execution order (caches updated in place;
     `memory` for the cross-attention layers; causal=False for the
     encoder; `chunked` makes an S > 1 call a chunked-prefill write, see
-    attention_apply). Returns (x, the aux loss summed over the layers in
-    that order, a 0-d f32 tensor: zero without experts).
+    attention_apply; `part` a partition context, block_apply). Returns
+    (x, the aux loss summed over the layers in that order, a 0-d f32
+    tensor: zero without experts).
 
     Under cfg.remat == "block" and with no caches (the training path),
     each pattern group runs under torch.utils.checkpoint, as the
@@ -159,7 +186,8 @@ def stack_apply(layers: List[Params], cfg: ModelConfig, x: torch.Tensor,
         for i in range(lo, hi):
             x, a = block_apply(layers[i], cfg, kinds[i], x, positions, eng,
                                cache=None if caches is None else caches[i],
-                               memory=memory, causal=causal, chunked=chunked)
+                               memory=memory, causal=causal, chunked=chunked,
+                               part=part)
             aux = aux + a
         return x, aux
 

@@ -14,7 +14,11 @@ of `launch/shapes.py`) against the reference's, on the CPU at smoke sizes.
   SSD's multi-operand einsums, counted op by op below.
 - The bytes counter and the live-bytes tracker on hand-counted cases.
 - On a fake 2 x 2 world, the collective bytes of one sharded smoke step
-  equal to a count from `Sharder.param_specs` and `batch_spec`.
+  equal to a count from `Sharder.param_specs` and `batch_spec`; those of
+  a partitioned decode (the dense family's serve layout: the KV cache
+  over heads and over its length, tp and fsdp_tp) equal to a count from
+  the specs, by kind and axis; a partitioned serve cell's per-rank peak
+  below the whole layout's.
 - `run_cell` at both production meshes writes a record with the
   reference's keys.
 
@@ -46,6 +50,7 @@ from repro_torch.distributed.train import (build_decode_step,
                                            distribute_state,
                                            init_train_state)
 from repro_torch.launch import dryrun, roofline, shapes
+from repro_torch.launch.mesh import make_abstract_mesh
 from repro_torch.models.model import Model
 from repro_torch.tree import tree_leaves
 
@@ -377,6 +382,76 @@ def test_collective_bytes_of_a_sharded_step_on_a_fake_2x2_world(arch):
     assert links == {"data": roofline.NVLINK_BW, "model": roofline.NVLINK_BW}
 
 
+def _hand_count_decode(cfg, B):
+    """{(kind, axis): bytes} of one partitioned decode step of `cfg` on a
+    (data 2, model 2) mesh, from the specs: each collective's per-rank
+    result bytes."""
+    from repro_torch.distributed.sharding import path_leaves
+    from repro_torch.distributed.train import block_shape
+    sizes = {"data": 2, "model": 2}
+    sharder = Sharder(make_abstract_mesh((2, 2), ("data", "model")), cfg)
+    sharder.set_batch(B)
+    rows = B // 2
+    d, Dh, H, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    out = {}
+
+    def add(kind, axis, n):
+        out[(kind, axis)] = out.get((kind, axis), 0) + n
+
+    # the embedding's sum, then each layer's wo and wd partials, in f32
+    add("all-reduce", "model", rows * d * 4 * (1 + 2 * cfg.n_layers))
+    if Hkv % 2:
+        # the cache over its length: k, v and q gathered whole, the
+        # partial softmax's largest score and its sums
+        add("all-gather", "model", cfg.n_layers * rows * Dh * 2
+            * (2 * Hkv + H))
+        add("all-reduce", "model", cfg.n_layers * rows * H * (Dh + 2) * 4)
+    if cfg.sharding_profile == "fsdp_tp":
+        # each weight whole over "data" for its GEMM (the head's table,
+        # tied or not, once more for the head)
+        whole = dict(path_leaves(Model(cfg, device="meta").init(0)))
+        head = "embed" if cfg.tie_embeddings else "unembed"
+        for path in [p for p in whole if p != "final_norm/scale"
+                     and not p.endswith("norm1/scale")
+                     and not p.endswith("norm2/scale")
+                     and "/b" not in p] + [f"{head}/table"] * (
+                         cfg.tie_embeddings):
+            shape = tuple(whole[path].shape)
+            spec = sharder.param_spec(path, shape)
+            if "data" in spec:
+                add("all-gather", "data", 2 * math.prod(block_shape(
+                    shape, [a if a == "model" else None for a in spec],
+                    sizes)))
+    return out
+
+
+@pytest.mark.parametrize("arch,kv", [("internlm2_1_8b", 2),
+                                     ("internlm2_1_8b", 1),
+                                     ("qwen1_5_110b", 2), ("yi_34b", 1)])
+def test_partitioned_decode_collectives_equal_a_count_from_the_specs(arch,
+                                                                    kv):
+    cfg = dataclasses.replace(smoke_config(arch), n_kv_heads=kv)
+    case = shapes.ShapeCase("t", 64, 4, "decode")
+    counts, coll, _ = dryrun.walk_cell(
+        cfg, case, make_abstract_mesh((2, 2), ("data", "model")))
+    got = {(r["kind"], r["axis"]): r["bytes"]
+           for r in counts["collectives"].values()}
+    assert got == _hand_count_decode(cfg, 4)
+    assert coll["total_bytes"] == sum(got.values())
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_a_partitioned_cells_peak_is_below_the_whole_layouts(kind):
+    cfg = smoke_config("yi_34b")
+    case = shapes.ShapeCase("t", 64, 4, kind)
+    mesh = make_abstract_mesh((2, 2), ("data", "model"))
+    peaks = {layout: dryrun.walk_cell(cfg, case, mesh, layout)[0][
+        "bytes_per_device"]["peak"] for layout in ("partitioned", "whole")}
+    assert peaks["partitioned"] < peaks["whole"]
+    assert dryrun.serve_layout(cfg) == "partitioned"
+    assert dryrun.serve_layout(smoke_config("mixtral_8x22b")) == "whole"
+
+
 def test_fake_world_refuses_an_existing_group_and_goes_with_its_block():
     import torch.distributed as dist
     with dryrun.fake_world(8):
@@ -427,8 +502,11 @@ def test_run_cell_writes_the_references_record(tmp_path, monkeypatch, shape,
                                                          "all-reduce"}
         assert rec["collectives"]["link_bw"]["model"] == roofline.IB_BW
     else:
-        assert rec["collectives"]["total_bytes"] == 0
-        assert "head-sharded" in rec["serve"]
+        # the dense family's partitioned decode: the row-parallel sums and
+        # the vocab-parallel embedding over "model"
+        assert rec["layout"] == "partitioned" and "serve" not in rec
+        assert rec["collectives"]["per_axis"].keys() == {"model"}
+        assert rec["collectives"]["per_kind"]["all-reduce"] > 0
     saved = json.loads((tmp_path / f"internlm2_1_8b__{shape}__{mesh}.json")
                        .read_text())
     assert saved["flops"] == rec["flops"]

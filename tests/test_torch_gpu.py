@@ -744,3 +744,131 @@ def test_dryrun_walk_holds_against_the_card(cuda, kind):
     assert abs(pred["bytes_per_device"]["peak"] / card["peak"] - 1) <= \
         0.05, seen
     assert pred["terms"]["bound_s"] <= 1.05 * card["wall_s"], seen
+
+
+# chip_smoke.py's tp phase at smoke size: the partitioned serve steps on
+# two ranks that share the card (a gloo group, a (1, 2) mesh). Under
+# olm16 (heads over `model`): K1 launches == GEMMs issued, layer 0's wq
+# input equal to one device's and its columns of the output bit-equal to
+# one device's K1, the head's local logits bit-equal to K1 on the whole
+# table's columns at the rank's input; each rank's resident serve blocks
+# equal to the specs' byte count. Native, with the cache over its length
+# and 3 query heads over 2 ranks: logits within 3e-2 of one device's.
+TP_CFGS = {"heads": {}, "length": dict(n_heads=3, n_kv_heads=1)}
+TP_TOKENS = (4, 8)
+
+
+def _tp_cfg(name):
+    return dataclasses.replace(smoke_config("internlm2_1_8b"), n_layers=2,
+                               **TP_CFGS[name])
+
+
+def _tp_tokens(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    return torch.randint(0, 512, TP_TOKENS, generator=g, device=cuda,
+                         dtype=torch.int32)
+
+
+class _OlmCalls:
+    """(x, output) of each olm_matmul call made inside the block."""
+
+    def __enter__(self):
+        from repro_torch.kernels.online_dot import matmul
+        self.real, self.seen = matmul.olm_matmul, []
+
+        def recorded(x, w, **kw):
+            out = self.real(x, w, **kw)
+            self.seen.append((x.clone(), out.clone()))
+            return out
+
+        matmul.olm_matmul = recorded
+        return self.seen
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.online_dot import matmul
+        matmul.olm_matmul = self.real
+
+
+def _tp_rank(rank, world, port, out_dir):
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import Sharder, path_leaves
+    from repro_torch.distributed.train import (init_serve_cache,
+                                               init_serve_params,
+                                               jit_prefill_step,
+                                               serve_block_bytes)
+    from repro_torch.launch.mesh import make_local_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = make_local_mesh(1, world, device_type="cuda")
+        for name, mode in (("heads", "olm16"), ("length", "native")):
+            cfg = _tp_cfg(name)
+            sharder = Sharder(mesh, cfg)
+            sharder.set_batch(TP_TOKENS[0])
+            params = init_serve_params(Model(cfg, device=dev), sharder, 0)
+            out[f"{name}/bytes"] = [sum(
+                t.untyped_storage().nbytes() for _, t in path_leaves(params)),
+                serve_block_bytes(cfg, sharder)]
+            model = Model(cfg, DotEngine(mode=mode), device=dev)
+            cache = init_serve_cache(model, sharder, TP_TOKENS[0], 16)
+            step = jit_prefill_step(model, sharder, params, ["tokens"], cache)
+            before = matmul_kernel.launches
+            with _OlmCalls() as seen:
+                logits, _, _ = step(params, {"tokens": _tp_tokens(dev)}, cache)
+            out[f"{name}/launches"] = matmul_kernel.launches - before
+            out[f"{name}/calls"] = [seen[0], seen[-1]] if seen else []
+            out[f"{name}/logits"] = logits
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_partitioned_serve_over_two_ranks_on_the_card(cuda, tmp_path):
+    import socket
+
+    import torch.multiprocessing as mp
+    from repro_torch.distributed.train import init_serve_params
+    ones = {}
+    for name, mode in (("heads", "olm16"), ("length", "native")):
+        cfg = _tp_cfg(name)
+        params = init_serve_params(Model(cfg, device=cuda), None, 0)
+        model = Model(cfg, DotEngine(mode=mode), device=cuda)
+        with _OlmCalls() as seen:
+            logits, _, _ = model.prefill(params, {"tokens": _tp_tokens(cuda)},
+                                         model.init_cache(TP_TOKENS[0], 16))
+        ones[name] = (params, seen, logits)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_tp_rank, args=(2, port, str(tmp_path)), nprocs=2,
+                       join=True, start_method="spawn")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    params, seen, _ = ones["heads"]
+    cfg = _tp_cfg("heads")
+    gemms = 7 * cfg.n_layers + 1
+    wq = params["layers"][0]["attn"]["wq"]
+    table = params["unembed"]["table"]
+    for r, res in enumerate(ranks):
+        for name in TP_CFGS:
+            held, want = res[f"{name}/bytes"]
+            assert held == want, (name, held, want)
+        assert res["heads/launches"] == gemms
+        (x, out), (hx, hout) = res["heads/calls"]
+        n = wq.shape[1] // 2
+        assert torch.equal(x, seen[0][0])
+        assert torch.equal(out, seen[0][1][:, r * n:(r + 1) * n])
+        v = table.shape[0] // 2
+        want = olm_matmul(hx, table[r * v:(r + 1) * v].T.to(torch.float32),
+                          n_bits=16)
+        assert torch.equal(hout, want)
+    for name in TP_CFGS:
+        v = _tp_cfg(name).vocab_size
+        got = torch.cat([res[f"{name}/logits"] for res in ranks],
+                        dim=-1)[:, :v]
+        want = ones[name][2][:, :v]
+        assert float((got - want).abs().max() / want.abs().max()) <= 3e-2

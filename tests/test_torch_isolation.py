@@ -63,7 +63,7 @@ def test_port_modules_found():
             "smem.py", "sass.py", "ast_lint.py", "olmlint_torch.py",
             "quickstart_torch.py", "online_numerics_matmul_torch.py",
             "serve_batched_torch.py", "train_lm_torch.py", "dryrun.py",
-            "roofline.py", "dryrun_sweep.py"} <= names
+            "roofline.py", "dryrun_sweep.py", "partition.py"} <= names
 
 
 def test_degrade_ladder_resolves_modes_from_the_port_registry(monkeypatch):

@@ -1,0 +1,391 @@
+"""The partitioned serve steps (`distributed/train.py::jit_prefill_step` /
+`jit_decode_step`, `distributed/partition.py`, the layers under a
+partition context) over one gloo group of 4 CPU ranks on a (data 2,
+model 2) mesh, against the reference.
+
+One spawn a module runs every case of `torch_rank_cases.TP_CASES`
+(`tp_rank`; smoke-size dense configs at f32 compute, 2 layers: the KV
+cache over kv heads and over its length, 3 query heads over 2 ranks,
+fsdp_tp, the Qwen1.5 / ChatGLM3 qkv bias, tied and untied heads, a padded
+vocabulary). The test process meanwhile runs the reference's Model and
+Sharder on the same params, and a subprocess compiles the reference's
+`jit_prefill_step` / `jit_decode_step` on a forced 4-device CPU mesh.
+Held:
+  * every local param and cache leaf of a rank has the shape of the
+    reference Sharder's shard of that leaf (an AbstractMesh of the same
+    sizes), the leading group axis of its stacked leaves aside;
+  * each rank's argument bytes (its param and cache blocks and its rows
+    of the batch) equal the reference's
+    `memory_analysis().argument_size_in_bytes` of the compiled steps, less
+    the reference cache's `len` counters (one int32 a pattern group: the
+    port's cache has none);
+  * the prefill and decode logits, gathered over the ranks, within
+    LOGIT_TOL of the largest |logit| of the reference's `Model.prefill` /
+    `decode_step` on the same params (`convert.py` carries them); the
+    port's own whole path (no partition context) too;
+  * under olm16, a column-parallel GEMM is bit-equal to the plain K1's
+    column block and a row-parallel one within `olm_error_bound`; in one
+    olm16 serve, a rank's GEMMs issued equal its K1 calls and layer 0's
+    wq output is the single device's column block, bit for bit;
+  * the sharded init (`init_serve_params`) bit-equal to the whole init's
+    serve blocks;
+  * the families without a partitioned serve raise and name their
+    ROADMAP item.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.compat import make_abstract_mesh as jax_abstract_mesh
+from repro.configs import smoke_config as jax_smoke_config
+from repro.distributed.sharding import Sharder as JSharder
+from repro.distributed.sharding import _path_str
+from repro.models.model import Model as JModel
+from repro_torch.configs import get_config, list_archs
+from repro_torch.core.numerics import DotEngine
+from repro_torch.distributed.sharding import P, Sharder
+from repro_torch.distributed.train import (block_shape, jit_decode_step,
+                                           jit_prefill_step)
+from repro_torch.kernels.online_dot.matmul import (olm_error_bound,
+                                                   olm_matmul)
+from repro_torch.launch.mesh import make_abstract_mesh
+from repro_torch.models.layers import embed, rmsnorm
+from repro_torch.models.model import Model
+from torch_rank_cases import (TP_BATCH, TP_CASES, TP_LEN, TP_MESH,
+                              TP_OLM_CASE, TP_OLM_GEMMS_PER_PASS, free_port,
+                              tp_config, tp_gemm_operands, tp_inputs,
+                              tp_rank)
+
+RANKS = 4
+# relative to the largest |logit| of the reference: f32 compute; the
+# row-parallel sums and the partial-softmax combine reorder f32 sums
+# (the largest read here: 1.0e-6, 3 heads over 2 ranks)
+LOGIT_TOL = 1e-5
+SIZES = dict(zip(("data", "model"), TP_MESH))
+
+REF_BYTES = r"""
+import json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, jax.numpy as jnp
+sys.path.insert(0, sys.argv[1])
+from repro.configs import smoke_config
+from repro.distributed.sharding import Sharder
+from repro.distributed.train import jit_decode_step, jit_prefill_step
+from repro.launch.mesh import make_local_mesh
+from repro.models.model import Model
+import torch_rank_cases as trc
+mesh = make_local_mesh(*trc.TP_MESH)
+out = {}
+for name in trc.TP_CASES:
+    cfg = trc.tp_config(name, smoke_config)
+    model, sharder = Model(cfg), Sharder(mesh, cfg)
+    sharder.set_batch(trc.TP_BATCH)
+    params = jax.eval_shape(model.init, jax.ShapeDtypeStruct((2,), jnp.uint32))
+    cache = jax.eval_shape(lambda: model.init_cache(trc.TP_BATCH, trc.TP_LEN))
+    batch = {"tokens": jax.ShapeDtypeStruct((trc.TP_BATCH, trc.TP_PROMPT),
+                                            jnp.int32)}
+    tok = jax.ShapeDtypeStruct((trc.TP_BATCH,), jnp.int32)
+    pre = jit_prefill_step(model, sharder, params, list(batch), cache)
+    dec = jit_decode_step(model, sharder, params, cache, has_memory=False)
+    lens = [a for p, a in jax.tree_util.tree_flatten_with_path(cache)[0]
+            if str(p[-1]).endswith("'len']")]
+    out[name] = {
+        "prefill": pre.lower(params, batch, cache).compile()
+        .memory_analysis().argument_size_in_bytes,
+        "decode": dec.lower(params, tok, tok, cache).compile()
+        .memory_analysis().argument_size_in_bytes,
+        "len": sum(a.size * a.dtype.itemsize for a in lens)}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _with_biases(tree, seed=7):
+    """The reference tree with seeded non-zero attention biases (its init
+    leaves them zero)."""
+    rng = np.random.default_rng(seed)
+    for slot in tree["blocks"]["scan"]:
+        for key in ("bq", "bk", "bv"):
+            if key in slot["attn"]:
+                slot["attn"][key] = jnp.asarray(
+                    0.5 * rng.standard_normal(slot["attn"][key].shape),
+                    slot["attn"][key].dtype)
+    return tree
+
+
+def _reference(name, seed=0, **over):
+    cfg = dataclasses.replace(tp_config(name, jax_smoke_config), **over)
+    jm = JModel(cfg)
+    return jm, _with_biases(jm.init(jax.random.PRNGKey(seed)))
+
+
+def _reference_logits(jm, jp):
+    """The reference's prefill and decode logits, (1 + steps, B, V)."""
+    prompt, steps, pos = (jnp.asarray(a) for a in tp_inputs())
+    logits, cache, _ = jm.prefill(jp, {"tokens": prompt},
+                                  jm.init_cache(TP_BATCH, TP_LEN))
+    seen = [logits]
+    for tok, p in zip(steps, pos):
+        logits, cache = jm.decode_step(jp, tok, p, cache)
+        seen.append(logits)
+    return np.stack([np.asarray(a, np.float32) for a in seen])
+
+
+def _port_whole_logits(name, tree):
+    """The port's whole path (no partition context) on the same params."""
+    from repro_torch.convert import params_from_jax
+    cfg = tp_config(name)
+    model = Model(cfg, device="cpu")
+    params = params_from_jax(tree, cfg, device="cpu")
+    prompt, steps, pos = (torch.from_numpy(a) for a in tp_inputs())
+    logits, cache, _ = model.prefill(params, {"tokens": prompt},
+                                     model.init_cache(TP_BATCH, TP_LEN))
+    seen = [logits]
+    for tok, p in zip(steps, pos):
+        logits, cache = model.decode_step(params, tok, p, cache)
+        seen.append(logits)
+    return torch.stack(seen).numpy()
+
+
+def _shard_shapes(name):
+    """{port path: the reference Sharder's shard shape} of every param and
+    cache leaf on an AbstractMesh of the test's sizes."""
+    cfg = tp_config(name, jax_smoke_config)
+    sharder = JSharder(jax_abstract_mesh(TP_MESH, ("data", "model")), cfg)
+    sharder.set_batch(TP_BATCH)
+    jm = JModel(cfg)
+
+    def leaves(tree):
+        out = []
+        jax.tree_util.tree_map_with_path(
+            lambda p, a: out.append((_path_str(p), tuple(a.shape))), tree)
+        return out
+
+    def shard(shape, spec):
+        return block_shape(shape, P(*tuple(spec)), SIZES)
+
+    params, cache = {}, {}
+    tree = jax.eval_shape(jm.init, jax.ShapeDtypeStruct((2,), jnp.uint32))
+    for path, shape in leaves(tree):
+        got = shard(shape, sharder.param_spec(path, shape))
+        if path.startswith("blocks/scan/"):
+            # blocks/scan/<slot>/<rest>: (groups, ...) stacked over layers
+            rest = path.split("/", 3)[3]
+            for g in range(shape[0]):
+                params[f"layers/{g}/{rest}"] = got[1:]
+        else:
+            params[path] = got
+    tree = jax.eval_shape(lambda: jm.init_cache(TP_BATCH, TP_LEN))
+    for path, shape in leaves(tree):
+        leaf = path.split("/")[-1]
+        if leaf != "len":
+            got = shard(shape, sharder.cache_spec(path, shape))
+            for g in range(shape[0]):
+                cache[f"{g}/{leaf}"] = got[1:]
+    return params, cache
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(the test process's results, rank -> its outputs, the reference's
+    compiled argument bytes)."""
+    import torch.multiprocessing as mp
+    out_dir = str(tmp_path_factory.mktemp("tp_serve"))
+    refs = {name: _reference(name) for name in TP_CASES}
+    olm = _reference(TP_OLM_CASE, seed=1, n_layers=1)
+    trees = {name: jax.tree.map(np.asarray, jp)
+             for name, (_, jp) in {**refs, "olm": olm}.items()}
+    torch.save(trees, os.path.join(out_dir, "given.pt"))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src"),
+         os.environ.get("PYTHONPATH", "")]), "JAX_PLATFORMS": "cpu"}
+    compiled = subprocess.Popen(
+        [sys.executable, "-c", REF_BYTES, os.path.dirname(__file__)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    ctx = mp.start_processes(tp_rank, args=(RANKS, free_port(), out_dir),
+                             nprocs=RANKS, join=False, start_method="spawn")
+    try:
+        mine = {"ref": {n: _reference_logits(*refs[n]) for n in TP_CASES},
+                "whole": {n: _port_whole_logits(n, trees[n])
+                          for n in TP_CASES},
+                "shapes": {n: _shard_shapes(n) for n in TP_CASES}}
+        while not ctx.join(timeout=600):
+            pass
+        text, err = compiled.communicate(timeout=600)
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        if compiled.poll() is None:
+            compiled.kill()
+    assert compiled.returncode == 0, err[-3000:]
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(RANKS)]
+    return mine, ranks, json.loads(text), trees
+
+
+def _gathered(ranks, key):
+    """A (..., B_rank, V_rank) output of every rank put back whole: rank r
+    sits at (data r // 2, model r % 2)."""
+    d, m = TP_MESH
+    return torch.cat([torch.cat([ranks[i * m + j][key] for j in range(m)],
+                                dim=-1) for i in range(d)], dim=-2).numpy()
+
+
+def _rel(a, b, name):
+    """The largest |a - b| over the largest |b|, on the real vocabulary's
+    columns (the padding's hold -1e9)."""
+    v = tp_config(name).vocab_size
+    a, b = a[..., :v], b[..., :v]
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("name", list(TP_CASES))
+def test_local_shapes_are_the_reference_sharders_shards(runs, name):
+    _, ranks, _, _ = runs
+    params, cache = runs[0]["shapes"][name]
+    for r in ranks:
+        assert r[f"{name}/params"] == params
+        assert r[f"{name}/cache"] == cache
+
+
+@pytest.mark.parametrize("name", list(TP_CASES))
+def test_argument_bytes_equal_the_references_memory_analysis(runs, name):
+    _, ranks, compiled, _ = runs
+    want = compiled[name]
+    for r in ranks:
+        args = r[f"{name}/args"]
+        assert args["prefill"] + want["len"] == want["prefill"]
+        assert args["decode"] + want["len"] == want["decode"]
+
+
+@pytest.mark.parametrize("name", list(TP_CASES))
+def test_logits_match_the_reference(runs, name):
+    mine, ranks, _, _ = runs
+    got = _gathered(ranks, f"{name}/logits")
+    want = mine["ref"][name]
+    assert got.shape == want.shape
+    assert _rel(got, want, name) <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("name", list(TP_CASES))
+def test_the_whole_path_still_matches_the_reference(runs, name):
+    mine, _, _, _ = runs
+    assert _rel(mine["whole"][name], mine["ref"][name], name) <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("name", list(TP_CASES))
+def test_sharded_init_equals_the_whole_inits_blocks(runs, name):
+    for r in runs[1]:
+        assert bool(r[f"{name}/init"])
+
+
+def _column_block(t, rank):
+    n = t.shape[-1] // TP_MESH[1]
+    c = rank % TP_MESH[1]
+    return t[..., c * n:(c + 1) * n]
+
+
+def test_olm16_column_gemm_is_the_plain_kernels_column_block(runs):
+    (x, w), _ = tp_gemm_operands()
+    whole = olm_matmul(torch.from_numpy(x), torch.from_numpy(w), n_bits=16)
+    for rank, r in enumerate(runs[1]):
+        got = r["gemm/col"]
+        assert got.dtype == torch.float32
+        assert torch.equal(got, _column_block(whole, rank))
+
+
+def test_olm16_row_gemm_is_within_the_bound(runs):
+    _, (x, w) = tp_gemm_operands()
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    exact = xt.double() @ wt.double()
+    bound = olm_error_bound(xt, wt, n_bits=16).double()
+    for r in runs[1]:
+        assert float(((r["gemm/row"].double() - exact).abs()
+                      / bound).max()) <= 1.0
+    # the two ranks along `model` hold the same sum
+    assert torch.equal(runs[1][0]["gemm/row"], runs[1][1]["gemm/row"])
+
+
+def test_olm16_serve_issues_one_kernel_call_a_gemm(runs):
+    passes = 1 + len(tp_inputs()[1])
+    for r in runs[1]:
+        assert int(r["olm/calls"]) == passes * TP_OLM_GEMMS_PER_PASS
+
+
+def test_olm16_layer0_wq_is_the_single_devices_column_block(runs):
+    _, ranks, _, trees = runs
+    from repro_torch.convert import params_from_jax
+    cfg = dataclasses.replace(tp_config(TP_OLM_CASE), n_layers=1)
+    params = params_from_jax(trees["olm"], cfg, device="cpu")
+    prompt = torch.from_numpy(tp_inputs()[0])
+    h = rmsnorm(params["layers"][0]["norm1"],
+                embed(params["embed"], prompt, cfg), cfg.norm_eps)
+    for rank, r in enumerate(ranks):
+        x, w, out = r["olm/wq"]
+        d = rank // TP_MESH[1]
+        rows = h[d * 2:(d + 1) * 2].reshape(-1, cfg.d_model)
+        assert torch.equal(x, rows)
+        whole = olm_matmul(rows, params["layers"][0]["attn"]["wq"],
+                           n_bits=16)
+        assert torch.equal(out, _column_block(whole, rank))
+        assert torch.equal(w, _column_block(
+            params["layers"][0]["attn"]["wq"], rank))
+
+
+@pytest.mark.parametrize("arch", [a for a in list_archs()
+                                  if get_config(a).family != "dense"])
+def test_other_families_raise_and_name_their_item(arch):
+    cfg = get_config(arch)
+    sharder = Sharder(make_abstract_mesh((1, 2), ("data", "model")), cfg)
+    model = Model(cfg, device="meta")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP section 1, "
+                       r"item 1[2-5]"):
+        jit_prefill_step(model, sharder, None, ["tokens"], None)
+    with pytest.raises(NotImplementedError, match=r"item 1[2-5]"):
+        jit_decode_step(model, sharder, None, None, has_memory=False)
+
+
+def test_a_sharded_engine_and_whole_params_are_refused():
+    cfg = tp_config(TP_OLM_CASE)
+    sharder = Sharder(make_abstract_mesh((1, 2), ("data", "model")), cfg)
+    with pytest.raises(ValueError, match="shards nothing itself"):
+        jit_prefill_step(Model(cfg, DotEngine(mesh=object(), shard="n"),
+                               device="meta"), sharder, None, ["tokens"],
+                         None)
+
+
+def test_init_hands_each_leaf_to_keep_in_draw_order():
+    cfg = tp_config("fsdp_bias")
+    model = Model(cfg, device="cpu")
+    seen = []
+
+    def keep(path, t):
+        seen.append(path)
+        return t
+
+    a, b = model.init(5), model.init(5, keep=keep)
+    from repro_torch.distributed.sharding import path_leaves
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        path_leaves(a), path_leaves(b)))
+    assert sorted(seen) == sorted(p for p, _ in path_leaves(a))
+    layer = [p.split("/", 2)[2] for p in seen if p.startswith("layers/0/")]
+    assert layer == ["norm1/scale", "attn/wq", "attn/wk", "attn/wv",
+                     "attn/wo", "attn/bq", "attn/bk", "attn/bv",
+                     "norm2/scale", "mlp/wg", "mlp/wu", "mlp/wd"]
+    assert seen[0] == "embed/table" and seen[-1] == "unembed/table"

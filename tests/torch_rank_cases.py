@@ -273,3 +273,172 @@ def train_rank(rank, world, port, out_dir):
     finally:
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------ partitioned serve
+# tests/test_torch_tp_serve.py: one gloo group of 4 ranks on a (data 2,
+# model 2) mesh; each case a smoke-size dense config at f32 compute, 2
+# layers. The kv heads divide `model` in "heads" and "fsdp_bias" (cache
+# over heads), not in the others (cache over length); 3 query heads over
+# 2 ranks in "uneven"; `data`-sharded weights in the fsdp cases; vocab 500
+# (padded to 512) in "heads"; a tied head in "fsdp_length_tied".
+TP_MESH = (2, 2)
+TP_BATCH, TP_PROMPT, TP_LEN, TP_DECODES = 4, 6, 16, 4
+TP_COMMON = dict(n_layers=2, compute_dtype="float32")
+TP_CASES = {
+    "heads": ("internlm2_1_8b", dict(vocab_size=500)),
+    "length_bias": ("chatglm3_6b", dict(n_kv_heads=1)),
+    "uneven": ("internlm2_1_8b", dict(n_heads=3, n_kv_heads=1)),
+    "fsdp_bias": ("qwen1_5_110b", {}),
+    "fsdp_length_tied": ("yi_34b", dict(n_kv_heads=1, tie_embeddings=True)),
+}
+# one olm16 pass of the "heads" case at one layer: K1 (its plain version
+# here) on each rank's shards
+TP_OLM_CASE = "heads"
+TP_OLM_GEMMS_PER_PASS = 8       # wq wk wv wo wg wu wd, the head
+
+
+def tp_config(name, smoke=None):
+    """The case's config from `smoke` (the port's smoke_config, or the
+    reference's for the test's side)."""
+    import dataclasses
+    if smoke is None:
+        from repro_torch.configs import smoke_config as smoke
+    arch, over = TP_CASES[name]
+    return dataclasses.replace(smoke(arch), **TP_COMMON, **over)
+
+
+def tp_inputs():
+    """(prompt tokens (B, S), decode tokens (steps, B), decode positions
+    (steps, B)): lanes at their own depths, so a step writes slots on both
+    ranks' halves of a length-sharded cache."""
+    rng = np.random.default_rng(24)
+    prompt = rng.integers(0, 500, (TP_BATCH, TP_PROMPT)).astype(np.int32)
+    steps = rng.integers(0, 500, (TP_DECODES, TP_BATCH)).astype(np.int32)
+    pos = (TP_PROMPT + np.arange(TP_DECODES)[:, None]
+           + np.array([0, 1, 2, 3])[None]).astype(np.int32)
+    return prompt, steps, pos
+
+
+def tp_gemm_operands():
+    """(x, w) of a column-parallel and of a row-parallel olm16 GEMM."""
+    rng = np.random.default_rng(25)
+    col = (rng.standard_normal((6, 64)), rng.standard_normal((64, 96)))
+    row = (rng.standard_normal((6, 96)), rng.standard_normal((96, 64)))
+    return [tuple(a.astype(np.float32) for a in pair) for pair in (col, row)]
+
+
+def _nbytes(tree):
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tp_rank(rank, world, port, out_dir):
+    """One rank: every case's partitioned prefill and decodes on the
+    reference's params (given.pt, numpy), its blocks' shapes and
+    argument bytes, the sharded init against the whole init's blocks, the
+    olm16 GEMMs and one olm16 pass; written to rank<r>.pt."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core.numerics import DotEngine
+    from repro_torch.distributed.collectives import shard_dims
+    from repro_torch.distributed.partition import Partition
+    from repro_torch.distributed.sharding import Sharder, path_leaves
+    from repro_torch.distributed.train import (init_serve_cache,
+                                               init_serve_params,
+                                               jit_decode_step,
+                                               jit_prefill_step,
+                                               param_blocks, serve_params)
+    from repro_torch.kernels.online_dot import matmul
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import Model
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = make_local_mesh(*TP_MESH, device_type="cpu")
+        given = torch.load(os.path.join(out_dir, "given.pt"),
+                           weights_only=False)
+        prompt, steps, pos = (torch.from_numpy(a) for a in tp_inputs())
+
+        def serve(model, sharder, params):
+            bd = sharder.batch_spec()[0]
+
+            def rows(t):
+                return shard_dims(t, (bd,) + (None,) * (t.ndim - 1), mesh)
+            cache = init_serve_cache(model, sharder, TP_BATCH, TP_LEN)
+            shapes = {p: tuple(t.shape) for p, t in path_leaves(cache)}
+            batch = {"tokens": rows(prompt)}
+            args = {"prefill": _nbytes(params) + _nbytes(cache)
+                    + _nbytes(batch),
+                    "decode": _nbytes(params) + _nbytes(cache)
+                    + 2 * _nbytes(rows(steps[0]))}
+            logits, cache, _ = jit_prefill_step(
+                model, sharder, params, list(batch), cache)(
+                params, batch, cache)
+            seen = [logits]
+            decode = jit_decode_step(model, sharder, params, cache,
+                                     has_memory=False)
+            for tok, p in zip(steps, pos):
+                logits, cache = decode(params, rows(tok), rows(p), cache)
+                seen.append(logits)
+            return torch.stack(seen), shapes, args
+
+        for name in TP_CASES:
+            cfg = tp_config(name)
+            sharder = Sharder(mesh, cfg)
+            sharder.set_batch(TP_BATCH)
+            model = Model(cfg, device="cpu")
+            params = params_from_jax(given[name], cfg, device="cpu",
+                                     sharder=sharder)
+            out[f"{name}/params"] = {p: tuple(t.shape)
+                                     for p, t in path_leaves(params)}
+            (out[f"{name}/logits"], out[f"{name}/cache"],
+             out[f"{name}/args"]) = serve(model, sharder, params)
+            mine = init_serve_params(model, sharder, seed=3)
+            want = param_blocks(serve_params(model.init(3)), sharder)
+            out[f"{name}/init"] = torch.tensor(all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for (_, a), (_, b) in zip(path_leaves(mine),
+                                          path_leaves(want))))
+            if name == "fsdp_bias":
+                # the GEMMs alone, weights over `data` too
+                part = Partition(sharder)
+                eng = DotEngine(mode="olm16")
+                (xc, wc), (xr, wr) = (
+                    tuple(torch.from_numpy(a) for a in pair)
+                    for pair in tp_gemm_operands())
+                out["gemm/col"] = part.col(eng, xc, shard_dims(
+                    wc, ("data", "model"), mesh))
+                out["gemm/row"] = part.row(eng, shard_dims(
+                    xr, (None, "model"), mesh), shard_dims(
+                    wr, ("model", "data"), mesh))
+        # one olm16 pass: the GEMMs a rank issues, layer 0's wq
+        cfg = dataclasses.replace(tp_config(TP_OLM_CASE), n_layers=1)
+        sharder = Sharder(mesh, cfg)
+        sharder.set_batch(TP_BATCH)
+        model = Model(cfg, DotEngine(mode="olm16"), device="cpu")
+        params = params_from_jax(given["olm"], cfg, device="cpu",
+                                 sharder=sharder)
+        calls = []
+        real = matmul.olm_matmul
+
+        def counted(x, w, **kw):
+            res = real(x, w, **kw)
+            calls.append((x, w, res) if not calls else None)
+            return res
+
+        matmul.olm_matmul = counted
+        try:
+            logits, _, _ = serve(model, sharder, params)
+        finally:
+            matmul.olm_matmul = real
+        out["olm/calls"] = torch.tensor(len(calls))
+        out["olm/wq"] = calls[0]
+        out["olm/logits"] = logits
+    finally:
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
