@@ -208,7 +208,19 @@ Phases, each printing its own lines:
                max_memory_allocated(); (d) InternLM2 at full width with
                15 query heads, one KV head and 2 layers, so the cache
                splits over its length and the heads do not divide the
-               ranks, native, within 3e-2;
+               ranks, native, within 3e-2; (e) Mixtral-8x22B (experts
+               split by d_ff) and Qwen3-MoE-235B-A22B (split by expert)
+               at full width, 2 layers, under olm16: resident blocks
+               equal to the specs' bytes, the init's peak at most the
+               blocks and one whole f32 leaf, K1 launches == GEMMs, layer
+               0's wq and the head's columns bit-equal to one device's
+               K1, logits within 3e-2 of one device's (a process of its
+               own after the ranks), every rank's dispatch plans
+               identical; (f) Mixtral at full width, 2 layers, one KV
+               head and a window of 16, so the ring splits over its
+               length, 20-token prompts that wrap it, native, within
+               3e-2; (g) one partitioned decode of (e)'s Qwen3-MoE cut
+               walked against each rank's step, as (c);
   14. examples - the port's four examples (examples/*_torch.py) on the
                card at their documented settings, imported and run in
                this process: the quickstart, the numerics walk-through
@@ -504,14 +516,22 @@ SHARD_DATA_LIMITS = {"loss": 2.5e-4, "grad_norm": 1e-3, "update": 5e-2}
 # TP_DECODE walked on meta over a fake world of TP_RANKS ranks against
 # each rank's step on the card; (d) (a)'s arch at full width with
 # TP_CUT's heads and depth, whose KV cache splits over its length and
-# whose query heads do not divide `model`, native. Logits within
-# TP_LOGIT_TOL of the single device's largest |logit| (the repo's
+# whose query heads do not divide `model`, native; (e) MOE_DEPTH's MoE
+# cuts at full width under olm16; (f) TP_RING's ring split over its
+# length, native; (g) one partitioned decode of (e)'s Qwen3-MoE cut at
+# TP_DECODE walked as (c). Logits within TP_LOGIT_TOL of the single
+# device's largest |logit| over the real vocabulary (the repo's
 # flash-attention gate).
 TP_RANKS = 2
 TP = dict(arch="internlm2_1_8b", big="yi_34b", max_len=32, new=6, seed=0)
 TP_DECODE = ("decode", 4, 32)      # (kind, batch, cache slots)
 TP_CUT = dict(n_layers=2, n_heads=15, n_kv_heads=1, head_dim=128)
 TP_LOGIT_TOL = 3e-2
+# (f): Mixtral at full width with one KV head and a window of 16, so the
+# ring splits over its length on the two ranks (8 slots a rank); prompts
+# of TP_RING_LEN tokens, longer than the ring, and TP["new"] tokens each
+TP_RING = dict(n_layers=2, n_kv_heads=1, sliding_window=16)
+TP_RING_LEN = 20
 # each process of the phase that holds a big model allocates with
 # segments that grow in place
 TP_ALLOC = "expandable_segments:True"
@@ -536,17 +556,10 @@ def tp_one(_, tmp: str) -> None:
     params = init_serve_params(Model(big, device=dev), None, TP["seed"])
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
-    model = Model(big, device=dev)
-    cache = model.init_cache(SERVE["requests"], TP["max_len"])
-    t0 = time.monotonic()
-    first, tokens, passes = tp_greedy(
-        lambda p, b, c, last_index: model.prefill(p, b, c,
-                                                  last_index=last_index),
-        model.decode_step, params, cache, tp_prompts(big.vocab_size), dev,
-        lambda t: t)
-    torch.cuda.synchronize()
+    first, tokens, passes, wall = tp_whole_serve(
+        big, params, "native", tp_prompts(big.vocab_size), dev)
     torch.save(dict(first=first.cpu(), tokens=tokens, passes=passes,
-                    wall=time.monotonic() - t0, init_s=init_s,
+                    wall=wall, init_s=init_s,
                     peak=torch.cuda.max_memory_allocated()),
                os.path.join(tmp, "one.pt"))
 
@@ -575,6 +588,24 @@ def tp_prompts(vocab: int):
         np.int32) for _ in range(SERVE["requests"])]
 
 
+def tp_ring_prompts(vocab: int):
+    """(f)'s prompts: SERVE["requests"] of TP_RING_LEN tokens each, one
+    length, so that no lane's ring holds a right-padded prompt's padding."""
+    import numpy as np
+    rng = np.random.default_rng(SERVE["seed"] + 1)
+    return [rng.integers(0, vocab, TP_RING_LEN).astype(np.int32)
+            for _ in range(SERVE["requests"])]
+
+
+def rel_real(got, want, vocab: int) -> float:
+    """The largest |got - want| over the largest |want|, on the `vocab`
+    real columns of two logits tensors: a padded vocabulary's columns hold
+    -1e9 on both sides, and a largest |want| taken over them would make
+    any difference look small."""
+    got, want = got[..., :vocab], want[..., :vocab]
+    return float((got - want).abs().max() / want.abs().max())
+
+
 def tp_greedy(prefill, decode, params, cache, prompts, dev, whole):
     """Greedy serve of right-padded `prompts`, TP["new"] tokens each:
     (the prefill's logits, each request's tokens, the forward passes).
@@ -597,6 +628,25 @@ def tp_greedy(prefill, decode, params, cache, prompts, dev, whole):
     return first, torch.stack(out, 1).tolist(), TP["new"]
 
 
+def tp_whole_serve(cfg, params, mode, prompts, dev):
+    """One device's greedy serve of `prompts` (tp_greedy) on whole params
+    under `mode`: (the prefill's logits, tokens, passes, wall ending in a
+    synchronize)."""
+    import torch
+    from repro_torch.core.numerics import DotEngine
+    from repro_torch.models.model import Model
+    model = Model(cfg, DotEngine(mode=mode), device=dev)
+    cache = model.init_cache(len(prompts), TP["max_len"])
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    first, tokens, passes = tp_greedy(
+        lambda p, b, c, last_index: model.prefill(p, b, c,
+                                                  last_index=last_index),
+        model.decode_step, params, cache, prompts, dev, lambda t: t)
+    torch.cuda.synchronize()
+    return first, tokens, passes, time.monotonic() - t0
+
+
 @contextlib.contextmanager
 def olm_calls(keep):
     """The olm_matmul calls made in the block: a list with (x, output) of
@@ -616,6 +666,80 @@ def olm_calls(keep):
         matmul.olm_matmul = real
 
 
+@contextlib.contextmanager
+def route_plans():
+    """The dispatch plan (token per slot, each assignment's slot, its keep
+    flag) of every models/moe._route_row call made in the block, on the
+    CPU, in call order."""
+    import torch
+    from repro_torch.models import moe
+    real, plans = moe._route_row, []
+
+    def recorded(*a, **kw):
+        plan = real(*a, **kw)
+        plans.append(torch.cat([plan[0], plan[1],
+                                plan[4].to(plan[0].dtype)]).cpu())
+        return plan
+
+    moe._route_row = recorded
+    try:
+        yield plans
+    finally:
+        moe._route_row = real
+
+
+def tp_moe_one(_, tmp: str) -> None:
+    """(e)'s and (f)'s single device, in a process of its own after the
+    ranks: each MoE cut whole in bf16 (the sharded init at one rank),
+    served like the ranks under olm16, layer 0's wq held against each
+    rank's columns and K1 on the whole head table's columns at each
+    rank's head input against the rank's local logits, bit for bit; then
+    (f)'s ring cut native. Its results to tmp/moe_one.pt."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = TP_ALLOC
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.train import init_serve_params
+    from repro_torch.kernels.online_dot.matmul import olm_matmul
+    from repro_torch.models.model import Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    ranks = [torch.load(os.path.join(tmp, f"tp{r}.pt"))["moe"]
+             for r in range(TP_RANKS)]
+    out = {}
+    for arch, depth in MOE_DEPTH:
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        params = init_serve_params(Model(cfg, device=dev), None, TP["seed"])
+        with olm_calls({0}) as seen:
+            first, tokens, passes, wall = tp_whole_serve(
+                cfg, params, "olm16", tp_prompts(cfg.vocab_size), dev)
+        x0, out0 = seen[0]
+        table = params["unembed"]["table"]
+        n_wq, n_head = out0.shape[1] // TP_RANKS, table.shape[0] // TP_RANKS
+        bits = []
+        for r, res in enumerate(ranks):
+            x, o = res[arch]["wq"]
+            hx, hout = res[arch]["head"]
+            want = olm_matmul(hx.to(dev), table[r * n_head:(r + 1) * n_head]
+                              .T.to(torch.float32), n_bits=16)
+            bits.append((bits_equal(x.to(dev), x0) and bits_equal(
+                o.to(dev), out0[:, r * n_wq:(r + 1) * n_wq]),
+                bits_equal(hout.to(dev), want)))
+        out[arch] = dict(first=first.cpu(), tokens=tokens, passes=passes,
+                         wall=wall, bits=bits, n_wq=n_wq, n_head=n_head)
+        del params, table, seen, x0, out0
+        gc.collect()
+        torch.cuda.empty_cache()
+    ring = dataclasses.replace(get_config("mixtral_8x22b"), **TP_RING)
+    params = init_serve_params(Model(ring, device=dev), None, TP["seed"])
+    first, tokens, passes, wall = tp_whole_serve(
+        ring, params, "native", tp_ring_prompts(ring.vocab_size), dev)
+    out["ring"] = dict(first=first.cpu(), tokens=tokens, passes=passes,
+                       wall=wall,
+                       peak=torch.cuda.max_memory_allocated())
+    torch.save(out, os.path.join(tmp, "moe_one.pt"))
+
+
 def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
     """One rank of the tp phase (a process of its own, on cuda:0, in a gloo
     group of `world` ranks on 127.0.0.1): (a)-(d) on its blocks, its
@@ -630,6 +754,7 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.numerics import DotEngine
     from repro_torch.distributed.collectives import all_gather_dim
+    from repro_torch.distributed.partition import Partition
     from repro_torch.distributed.sharding import Sharder, path_leaves
     from repro_torch.distributed.train import (init_serve_cache,
                                                init_serve_params,
@@ -741,6 +866,95 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
         say(f"(d) {cut.n_heads} heads / {cut.n_kv_heads} KV head at "
             f"{cut.n_layers} layers: {passes} passes in {wall:.3f} s")
         del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) the MoE archs: experts split by d_ff, and by expert --------
+        res["moe"] = {}
+        for arch, depth in MOE_DEPTH:
+            t0 = time.monotonic()
+            mcfg = dataclasses.replace(get_config(arch), n_layers=depth)
+            # the init's peak: this rank's blocks and one whole f32 leaf
+            # being drawn (an expert stack), no more
+            biggest = max(t.numel() * 4 for _, t in path_leaves(
+                Model(mcfg, device="meta").init(0)))
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            sharder, params, held, init_s = blocks(mcfg)
+            init_peak = torch.cuda.max_memory_allocated() - base
+            if init_peak > held + biggest:
+                raise RuntimeError(
+                    f"(e) {mcfg.name}: the init peaked at {init_peak} B, "
+                    f"past its blocks {held} B and one whole f32 leaf "
+                    f"{biggest} B")
+            part = Partition(sharder)
+            per = gemms_per_pass(mcfg)
+            with olm_calls({0, per - 1}) as seen, route_plans() as plans:
+                k12.launches = 0
+                first, tokens, passes, wall = serve(
+                    mcfg, sharder, params, "olm16",
+                    tp_prompts(mcfg.vocab_size))
+                launched = k12.launches
+            res["moe"][arch] = dict(
+                first=first, tokens=tokens, wall=wall, wq=seen[0],
+                head=seen[per - 1], launches=launched, gemms=passes * per,
+                held=held, init_s=init_s, init_peak=init_peak,
+                biggest=biggest, plans=plans, layout=part.experts_by,
+                experts=part.expert_range())
+            say(f"(e) {mcfg.name} at {depth} layers, experts split "
+                f"{part.experts_by} (this rank's experts "
+                f"{part.expert_range()} of {mcfg.n_experts}): {held} B of "
+                f"serve blocks resident (the specs' count), drawn in "
+                f"{init_s:.1f} s, the init's peak {init_peak} B (blocks + "
+                f"one whole f32 leaf of {biggest} B at most); olm16 "
+                f"{passes} passes in {wall:.3f} s, GEMMs issued "
+                f"{passes * per}, K1 launches {launched}, {len(plans)} "
+                f"dispatch plans; the part {time.monotonic() - t0:.1f} s")
+            if launched != passes * per:
+                raise RuntimeError(f"(e) K1 launched {launched} times for "
+                                   f"{passes * per} GEMMs")
+            del params, part
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # (g) one partitioned MoE decode against its walk ----------------
+        t0 = time.monotonic()
+        kind, B, T = TP_DECODE
+        arch, depth = MOE_DEPTH[-1]
+        mcfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        sharder = Sharder(mesh, mcfg)
+        sharder.set_batch(B)
+        res["moe_card"] = dryrun.card_step(
+            mcfg, ShapeCase("tp_moe_decode", T, B, kind), sharder)
+        say(f"(g) one partitioned {mcfg.name} decode ({B} lanes, {T} "
+            f"slots): FLOPs {res['moe_card']['flops']}, peak "
+            f"{res['moe_card']['peak']} B, walls "
+            f"{[round(w * 1e3, 3) for w in res['moe_card']['walls_s']]} ms;"
+            f" the part {time.monotonic() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (f) the ring over its length ----------------------------------
+        t0 = time.monotonic()
+        ring = dataclasses.replace(get_config("mixtral_8x22b"), **TP_RING)
+        sharder, params, held, _ = blocks(ring)
+        part = Partition(sharder)
+        kv = init_serve_cache(Model(ring, device="meta"), sharder,
+                              SERVE["requests"], TP["max_len"])[0]["k"]
+        first, tokens, passes, wall = serve(
+            ring, sharder, params, "native",
+            tp_ring_prompts(ring.vocab_size))
+        res["ring"] = dict(first=first, tokens=tokens, wall=wall)
+        say(f"(f) {ring.name} with {ring.n_kv_heads} KV head, window "
+            f"{ring.sliding_window}, cache of {TP['max_len']} slots: the "
+            f"ring over its length {not part.kv_by_heads}, this rank's "
+            f"block of it {tuple(kv.shape)}; {TP_RING_LEN}-token prompts "
+            f"and {passes} passes native in {wall:.3f} s; the part "
+            f"{time.monotonic() - t0:.1f} s")
+        if part.kv_by_heads or kv.shape[1] * TP_RANKS != \
+                ring.sliding_window:
+            raise RuntimeError("(f) the ring is not split over its length")
+        del params, part
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1621,7 +1835,7 @@ def main() -> int:
                                        cpu_model.init_cache(2, 8))
         got, _, _ = gpu_model.prefill(gpu_params, {"tokens": toks},
                                       gpu_model.init_cache(2, 8))
-        rel = float((got.cpu() - want).abs().max() / want.abs().max())
+        rel = rel_real(got.cpu(), want, scfg.vocab_size)
         print(f"[check] smoke model {mode} f32 prefill logits, card vs CPU: "
               f"rel err {rel:.3e} (limit 1e-3)", flush=True)
         if not rel <= 1e-3:
@@ -2274,7 +2488,7 @@ def main() -> int:
         t_plain = time.monotonic() - t0
     finally:
         layers._attn_flash, layers.FLASH_MIN_ELEMS = real_flash, threshold
-    rel = float((flash - plain).abs().max() / plain.abs().max())
+    rel = rel_real(flash, plain, cfg.vocab_size)
     print(f"[dense] native forward (1, {FLASH_LEN}) bf16: flash attention "
           f"{t_flash:.3f} s ({len(flash_calls)} flash calls over two "
           f"forwards), plain attention forced {t_plain:.3f} s; logits rel "
@@ -2345,7 +2559,8 @@ def main() -> int:
         """Prefill toks[:, :n_prompt], then decode the rest one token at a
         time (teacher-forced); each step's logits against forward's over
         the whole sequence at the same position, relative to forward's
-        largest |logit| there (gate 3e-2). With `plain`, the steps are
+        largest |logit| there, both on the real vocabulary's columns (gate
+        3e-2). With `plain`, the steps are
         also printed against a forward with the plain attention path
         forced, whose bf16 scores the decode steps' plain path shares."""
         L = toks.shape[1]
@@ -2364,10 +2579,8 @@ def main() -> int:
             steps.append((p, lg))
         torch.cuda.synchronize()
         t_dec = time.monotonic() - t0
-        errs = []
-        for p, got in steps:
-            want = full[:, p]
-            errs.append(float((got - want).abs().max() / want.abs().max()))
+        vocab = model.cfg.vocab_size
+        errs = [rel_real(got, full[:, p], vocab) for p, got in steps]
         print(f"[families] {tag}: forward over {L} tokens {t_fwd:.3f} s; "
               f"prefill of {n_prompt} and {L - n_prompt} decode steps "
               f"{t_dec:.3f} s; rel err against forward by position "
@@ -2382,10 +2595,9 @@ def main() -> int:
                 layers.FLASH_MIN_ELEMS = threshold
             print(f"[families] {tag}: against a forward with plain "
                   "attention forced, by position " + str({
-                      p: float((g - ref[:, p]).abs().max()
-                               / ref[:, p].abs().max()) for p, g in steps})
+                      p: rel_real(g, ref[:, p], vocab) for p, g in steps})
                   + "; flash against plain forward "
-                  f"{float((full - ref).abs().max() / ref.abs().max()):.3e}",
+                  f"{rel_real(full, ref, vocab):.3e}",
                   flush=True)
             del ref
         finite = bool(torch.isfinite(full).all()) and all(
@@ -2679,8 +2891,8 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated()
         gemms = 3 * with_enc + CROSS_DECODES * per_pass
         same = bits_equal(prefill_lg, short[:, P - 1])
-        errs = {p: float((got - full[:, p]).abs().max()
-                         / full[:, p].abs().max()) for p, got in steps}
+        errs = {p: rel_real(got, full[:, p], cfg.vocab_size)
+                for p, got in steps}
         finite = all(bool(torch.isfinite(t).all()) for t in (
             prefill_lg, short, full, *(lg for _, lg in steps)))
         by_path["olm_matmul_fused"][f"crossattn {cfg.name} olm16"] = k1
@@ -3089,25 +3301,11 @@ def main() -> int:
           f"{torch.cuda.memory_allocated()} B allocated; {smi_line}",
           flush=True)
 
-    def whole_serve(cfg, params, mode, prompts):
-        """The single-device greedy serve of the same prompts."""
-        model = Model(cfg, DotEngine(mode=mode), device=dev)
-        cache = model.init_cache(len(prompts), TP["max_len"])
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        first, tokens, passes = tp_greedy(
-            lambda p, b, c, last_index: model.prefill(
-                p, b, c, last_index=last_index),
-            model.decode_step, params, cache, prompts, dev, lambda t: t)
-        torch.cuda.synchronize()
-        return first, tokens, passes, time.monotonic() - t0
-
     def gate(tag, got, want, vocab):
         """Logits within TP_LOGIT_TOL of the single device's largest
         |logit| over the `vocab` real columns (the padding's hold -1e9):
         the gate's reading."""
-        got, want = got[..., :vocab], want[..., :vocab]
-        err = float((got - want).abs().max() / want.abs().max())
+        err = rel_real(got, want, vocab)
         print(f"[tp] {tag}: the first prefill's logits within {err:.3e} of "
               f"the single device's largest |logit| (gate {TP_LOGIT_TOL})",
               flush=True)
@@ -3126,16 +3324,16 @@ def main() -> int:
     # (a) on one device, on the same bf16 serve params
     params = init_serve_params(Model(cfg, device=dev), None, TP["seed"])
     with olm_calls({0}) as seen:
-        ones["olm16"] = whole_serve(cfg, params, "olm16", prompts)
+        ones["olm16"] = tp_whole_serve(cfg, params, "olm16", prompts, dev)
     wq0 = seen[0]
-    ones["native"] = whole_serve(cfg, params, "native", prompts)
+    ones["native"] = tp_whole_serve(cfg, params, "native", prompts, dev)
     # the whole weights the ranks' column blocks are held against
     wq_whole = params["layers"][0]["attn"]["wq"].cpu()
     head_whole = params["unembed"]["table"].cpu()
     del params
     cut = dataclasses.replace(cfg, **TP_CUT)
     params = init_serve_params(Model(cut, device=dev), None, TP["seed"])
-    ones["cut"] = whole_serve(cut, params, "native", prompts)
+    ones["cut"] = tp_whole_serve(cut, params, "native", prompts, dev)
     del params
     for tag, (first, tokens, passes, wall) in ones.items():
         ones[tag] = (first.cpu(), tokens, passes, wall)
@@ -3175,6 +3373,14 @@ def main() -> int:
             walked, coll, _ = dryrun.walk_cell(
                 cfg, ShapeCase("tp_decode", T, B, kind),
                 make_abstract_mesh((1, TP_RANKS), ("data", "model")))
+            # (g) the MoE decode's walk
+            arch, depth = MOE_DEPTH[-1]
+            moe_cut = dataclasses.replace(get_config(arch), n_layers=depth)
+            t0_walk = time.monotonic()
+            walked_moe, coll_moe, _ = dryrun.walk_cell(
+                moe_cut, ShapeCase("tp_moe_decode", T, B, kind),
+                make_abstract_mesh((1, TP_RANKS), ("data", "model")))
+            walk_moe_s = time.monotonic() - t0_walk
             # a rank that raises fails this call, and with it the script
             while not ctx.join():
                 pass
@@ -3186,6 +3392,13 @@ def main() -> int:
                  for r in range(TP_RANKS)]
         print(f"[tp] {TP_RANKS} ranks done in {time.monotonic() - t0:.1f} s "
               "(spawn included)", flush=True)
+        # (e) and (f) on one device, in a process of its own
+        t0 = time.monotonic()
+        mp.start_processes(tp_moe_one, args=(tmp,), nprocs=1, join=True,
+                           start_method="spawn")
+        moe_one = torch.load(os.path.join(tmp, "moe_one.pt"))
+        print(f"[tp] one device, (e) and (f): the process "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
 
     def gathered(tag):
         return torch.cat([r[tag]["first"] for r in ranks], dim=-1)
@@ -3251,11 +3464,73 @@ def main() -> int:
     print(f"[tp] (b) tokens equal to one device's "
           f"{same(ranks[0]['big']['tokens'], ones['big'][1])} of "
           f"{sum(map(len, ones['big'][1]))}; (d) "
-          f"{same(ranks[0]['cut']['tokens'], ones['cut'][1])}; the phase "
-          f"{time.monotonic() - t_phase:.1f} s; {smi_line}", flush=True)
+          f"{same(ranks[0]['cut']['tokens'], ones['cut'][1])}", flush=True)
+    # (e) the MoE archs against one device
+    for arch, _ in MOE_DEPTH:
+        one, name = moe_one[arch], get_config(arch).name
+        for r, res in enumerate(ranks):
+            e = res["moe"][arch]
+            wq_ok, head_ok = one["bits"][r]
+            print(f"[tp] (e) {name} rank {r}: experts split {e['layout']}, "
+                  f"this rank's experts {e['experts']}; {e['held']} B of "
+                  f"bf16 serve blocks (the specs' count), the init's peak "
+                  f"{e['init_peak']} B; layer 0's wq input equal to one "
+                  f"device's and its {one['n_wq']} columns bit-equal to "
+                  f"one device's K1: {wq_ok}; the head's {one['n_head']} "
+                  f"local logits bit-equal to K1 on the whole table's "
+                  f"columns at the rank's input: {head_ok}; K1 launches "
+                  f"{e['launches']} == GEMMs issued {e['gemms']}; wall "
+                  f"{e['wall']:.3f} s against one device's "
+                  f"{one['wall']:.3f} s", flush=True)
+            if not (wq_ok and head_ok):
+                raise SystemExit(f"tp: (e) {name} rank {r}'s column blocks "
+                                 "off one device's K1")
+        plans = [res["moe"][arch]["plans"] for res in ranks]
+        alike = all(len(p) == len(plans[0]) and all(
+            torch.equal(a, b) for a, b in zip(p, plans[0])) for p in plans)
+        print(f"[tp] (e) {name}: {len(plans[0])} dispatch plans a rank, "
+              f"every rank's identical: {alike}", flush=True)
+        if not alike:
+            raise SystemExit(f"tp: (e) {name}'s ranks routed apart")
+        gate(f"(e) {name} olm16", torch.cat(
+            [res["moe"][arch]["first"] for res in ranks], dim=-1),
+            one["first"], get_config(arch).vocab_size)
+        n_tok = sum(map(len, one["tokens"]))
+        print(f"[tp] (e) {name}: tokens equal to one device's "
+              f"{same(ranks[0]['moe'][arch]['tokens'], one['tokens'])} of "
+              f"{n_tok}", flush=True)
+    # (f) the ring over its length against one device
+    ring = moe_one["ring"]
+    gate("(f) the ring over its length", gathered("ring"), ring["first"],
+         get_config("mixtral_8x22b").vocab_size)
+    print(f"[tp] (f) tokens equal to one device's "
+          f"{same(ranks[0]['ring']['tokens'], ring['tokens'])} of "
+          f"{sum(map(len, ring['tokens']))}; wall by rank "
+          f"{[round(r['ring']['wall'], 3) for r in ranks]} s against one "
+          f"device's {ring['wall']:.3f} s", flush=True)
+    # (g) the MoE decode's walk against each rank's step on the card
+    for r, res in enumerate(ranks):
+        card = res["moe_card"]
+        rel = walked_moe["bytes_per_device"]["peak"] / card["peak"] - 1
+        print(f"[tp] (g) rank {r}: FLOPs walk {walked_moe['flops']} card "
+              f"{card['flops']}; peak walk "
+              f"{walked_moe['bytes_per_device']['peak']} B card "
+              f"{card['peak']} B ({rel:+.2%}; gate {DRYRUN_PEAK_TOL:.0%}); "
+              f"the walk's collectives {coll_moe['per_axis']} B, "
+              f"{coll_moe['count']} calls, walked in {walk_moe_s:.1f} s",
+              flush=True)
+        if walked_moe["flops"] != card["flops"] or \
+                abs(rel) > DRYRUN_PEAK_TOL:
+            raise SystemExit(f"tp: (g) the walk is off rank {r}'s step")
+    print(f"[tp] the phase {time.monotonic() - t_phase:.1f} s; {smi_line}",
+          flush=True)
     by_path["olm_matmul_fused"]["tp"] = {
         f"rank {r}": res["olm16"]["launches"] for r, res in enumerate(ranks)}
-    del ranks, ones
+    for arch, _ in MOE_DEPTH:
+        by_path["olm_matmul_fused"]["tp"].update({
+            f"rank {r} (e) {get_config(arch).name}":
+            res["moe"][arch]["launches"] for r, res in enumerate(ranks)})
+    del ranks, ones, moe_one
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,6 +1,6 @@
 """The partition context of the partitioned serve steps: what GSPMD does
 with the reference's `jit_prefill_step` / `jit_decode_step` shardings,
-done by hand for the dense family.
+done by hand for the dense and MoE families.
 
 A `Partition` is the Sharder (its mesh, its config, its specs) plus this
 rank's coordinate along `model`. The layers (`models/layers.py`) take one
@@ -19,7 +19,13 @@ holds its blocks at the Sharder's specs and:
     before its GEMM and dropped after it (ZeRO-3 a layer: at most one
     weight is whole over `data` at a time);
   * the embedding is vocab-parallel, the KV cache split over kv heads or
-    over its length, attention over whole heads (`layers.py`).
+    over its length (a sliding-window ring too), attention over whole
+    heads (`layers.py`);
+  * a MoE layer routes on every rank alike (the router is replicated and
+    its input the same bits everywhere), runs its expert GEMMs on the
+    rank's experts (`ep`) or on every expert's d_ff block (`tp`), the
+    layout the Sharder's spec of the expert leaves gives, and sums the
+    combined f32 partials once over `model` (`models/moe.py`).
 
 The collectives are the c10d calls of `collectives.py` on the mesh's
 groups: gloo on the CPU and between ranks that share a card.
@@ -49,12 +55,48 @@ class Partition:
         self.fs = sharder._fs()
         # the KV cache over kv heads, else over its length (cache_spec)
         self.kv_by_heads = self.cfg.n_kv_heads % self.size == 0
+        # each expert leaf's spec, from its whole shape: "ep" splits the
+        # experts over `model`, "tp" their d_ff (also where the config asks
+        # for ep but the experts do not divide `model`)
+        cfg = self.cfg
+        if cfg.n_experts:
+            E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+            self.expert_specs = {
+                leaf: sharder.param_spec(f"moe/{leaf}", shape)
+                for leaf, shape in (("wg", (E, d, f)), ("wu", (E, d, f)),
+                                    ("wd", (E, f, d)))}
+            self.experts_by = ("ep" if self.expert_specs["wg"][0] == "model"
+                               else "tp")
 
     def whole_over_data(self, w: torch.Tensor, dim: int) -> torch.Tensor:
         """w with its `data`-sharded dim gathered (fsdp_tp), as it goes
         into one GEMM; w itself under tp."""
         return w if self.fs is None else all_gather_dim(w, dim, self.mesh,
                                                         self.fs)
+
+    def expert_range(self) -> Tuple[int, int]:
+        """[e0, e1) of the experts whose GEMMs this rank runs: its block
+        of them under ep, all of them under tp."""
+        E = self.cfg.n_experts
+        if self.experts_by == "tp":
+            return 0, E
+        return E * self.rank // self.size, E * (self.rank + 1) // self.size
+
+    def expert_data_dim(self, leaf: str) -> Optional[int]:
+        """The dim of expert leaf `leaf` ("wg", "wu", "wd") split over
+        `data` (fsdp_tp), None where none is: dim 1 of all three under ep
+        (d of wg and wu, f of wd), dim 1 of wg / wu and dim 2 of wd under
+        tp."""
+        spec = self.expert_specs[leaf]
+        if self.fs is None or self.fs not in spec:
+            return None
+        return spec.index(self.fs)
+
+    def expert(self, p, leaf: str) -> torch.Tensor:
+        """This rank's block of expert leaf `leaf` of a MoE layer's params
+        `p`, whole over `data`, as it goes into one einsum."""
+        dim = self.expert_data_dim(leaf)
+        return p[leaf] if dim is None else self.whole_over_data(p[leaf], dim)
 
     def col(self, eng: DotEngine, x: torch.Tensor, w: torch.Tensor
             ) -> torch.Tensor:

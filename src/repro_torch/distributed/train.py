@@ -41,8 +41,9 @@ The serve steps keep one of two layouts:
     (`partition.py`), the logits vocab-sharded at P(batch, vocab_axis()).
     No rank holds a whole weight of a `model`-sharded leaf or more of the
     cache than its block; `init_serve_params` draws the blocks without a
-    whole model ever existing on the rank. The dense family only: the
-    others raise NotImplementedError and name their ROADMAP item.
+    whole model ever existing on the rank. The dense and MoE families
+    (sliding-window rings too): the others raise NotImplementedError and
+    name their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -332,7 +333,6 @@ def build_decode_step(model: Model):
 # The families without a partitioned serve yet, and the ROADMAP section 1
 # item that brings it.
 UNPARTITIONED = {
-    "moe": "item 12, the partitioned MoE serve (ep / tp experts)",
     "hybrid": "item 13, the partitioned recurrent serve (RG-LRU h and conv "
               "over model)",
     "ssm": "item 14, the partitioned SSM serve (replicated weights, batch "
@@ -381,7 +381,8 @@ def init_serve_params(model: Model, sharder: Optional[Sharder] = None,
     serve params without a sharder) drawn leaf by leaf: each whole leaf
     is cut to this rank's block in the serve dtype and freed before the
     next draw, so a rank's largest transient is one whole f32 leaf (an
-    embedding table) and no whole model exists on it."""
+    embedding table, or one stack of every expert's wg, wu or wd) and no
+    whole model exists on it."""
     def keep(path, t):
         dtype = _serve_dtype(t)
         if sharder is not None:
@@ -422,12 +423,9 @@ def init_serve_cache(model: Model, sharder: Sharder, batch: int,
 
 def unpartitioned(cfg: ModelConfig) -> Optional[str]:
     """None where the port has a partitioned serve step for `cfg` (the
-    dense family), else the ROADMAP item that brings one."""
-    item = UNPARTITIONED.get(cfg.family)
-    if item is None and (cfg.family != "dense" or cfg.n_experts
-                         or cfg.sliding_window is not None):
-        item = "no item: a dense config with experts or a window"
-    return item
+    dense and MoE families, with or without experts or a window), else
+    the ROADMAP item that brings one."""
+    return UNPARTITIONED.get(cfg.family)
 
 
 def _partition(model: Model, sharder: Sharder) -> Partition:
@@ -469,11 +467,15 @@ def jit_prefill_step(model: Model, sharder: Sharder, params, batch_keys,
     `cache` its block at `sharder.cache_specs` (`init_serve_cache`),
     updated in place; the logits (B_rank, vocab_padded / model) at
     P(batch, vocab_axis()). `last_index=` (each lane's last prompt
-    position, `Model.prefill`'s) serves right-padded prompts."""
+    position, `Model.prefill`'s) serves right-padded prompts. A MoE
+    layer runs the experts of this rank's blocks, split by expert or by
+    d_ff as the specs of its leaves give (`models/moe.py`); a
+    sliding-window layer keeps its block of the ring (`models/layers.py`)."""
     part = _partition(model, sharder)
     _check_blocks(model, sharder, params)
     if set(batch_keys) - {"tokens", "mask"}:
-        raise ValueError(f"a dense prefill takes tokens, got {batch_keys}")
+        raise ValueError(f"a partitioned prefill takes tokens, got "
+                         f"{batch_keys}")
 
     def prefill(params, batch, cache, last_index=None):
         return model.prefill(params, batch, cache, last_index=last_index,

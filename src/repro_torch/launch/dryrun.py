@@ -11,8 +11,8 @@ For each cell the dry run:
      arguments as meta tensors (`input_specs`): train runs the port's
      sharded step (`build_train_step(model, sharder, microbatches=...)`)
      on the state `distribute_state` rests; prefill and decode keep one of
-     two layouts (the record's `layout`). "partitioned", the dense
-     family's: `jit_prefill_step` / `jit_decode_step` on this rank's
+     two layouts (the record's `layout`). "partitioned", the dense and
+     MoE families': `jit_prefill_step` / `jit_decode_step` on this rank's
      blocks of the bf16 serve params (`init_serve_params`), of the batch
      and of the cache at the Sharder's specs, moving their collectives
      over `model` and, under fsdp_tp, `data`. "whole", every other
@@ -104,7 +104,8 @@ def eval_shape_tree(fn: Callable, *args):
 
 def serve_layout(cfg) -> str:
     """The layout a serve cell of `cfg` walks: "partitioned" where the
-    port has partitioned serve steps (the dense family), else "whole"."""
+    port has partitioned serve steps (the dense and MoE families), else
+    "whole"."""
     return "whole" if unpartitioned(cfg) else "partitioned"
 
 

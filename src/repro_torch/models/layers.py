@@ -45,7 +45,7 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
     scale = (2.0 / (d_in + d_out)) ** 0.5
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)        # in place: one f32 copy at most
 
 
 # --------------------------------------------------------------------------
@@ -288,10 +288,22 @@ def _row(eng: DotEngine, x: torch.Tensor, w: torch.Tensor, part
     return eng.dot(x, w) if part is None else part.row(eng, x, w)
 
 
-def _attn_partial(q, k, v, qpos, kpos, part) -> torch.Tensor:
-    """Causal attention of q (B, S, H, D) over the keys of every rank
-    along `model`, each rank holding the slots at positions kpos (T,) of
-    k / v (B, T, Hkv, D): the partial softmax (the largest score, the sum
+def _ring_positions(lane_pos: torch.Tensor, slots: torch.Tensor, T: int
+                    ) -> torch.Tensor:
+    """(B, len(slots)): the absolute position each lane's ring of T slots
+    holds in `slots` after its newest write at lane_pos (B,), as slot s
+    holds position p with s == p mod T; -1 where none is held yet."""
+    newest = lane_pos[:, None]
+    kpos = newest - torch.remainder(newest - slots[None], T)
+    return torch.where(kpos >= 0, kpos, torch.full_like(kpos, -1))
+
+
+def _attn_partial(q, k, v, qpos, kpos, part,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Causal attention of q (B, S, H, D), inside `window` where one is
+    given, over the keys of every rank along `model`, each rank holding
+    the slots at positions kpos (T,) or (B, T) (-1 = empty) of k / v
+    (B, T, Hkv, D): the partial softmax (the largest score, the sum
     of the weights, the weighted values) over this rank's slots, combined
     over the ranks by an all-reduce of the largest score and one of the
     rescaled sums, as a flash chunk is folded into its running sums. Tiles
@@ -305,7 +317,8 @@ def _attn_partial(q, k, v, qpos, kpos, part) -> torch.Tensor:
     kt = k.to(tile).to(torch.float32)
     vt = v.to(tile).to(torch.float32)
     s = torch.einsum("bskgd,btkd->bkgst", qt, kt) * (1.0 / D ** 0.5)
-    valid = _valid(kpos[None], qpos, causal=True, window=None)
+    valid = _valid(kpos if kpos.ndim == 2 else kpos[None], qpos,
+                   causal=True, window=window)
     s = s.reshape(B, H, S, -1).masked_fill(~valid, float("-inf"))
     m = part.max(s.amax(dim=-1))
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -324,27 +337,40 @@ def _attention_by_length(p: Params, cfg: ModelConfig, q, k, v,
                          cache: Dict[str, Any], part) -> torch.Tensor:
     """A partitioned attention layer whose KV cache is split over its
     length (n_kv_heads does not divide `model`): q, k, v hold this rank's
-    columns of the projections. Every rank gathers the new tokens' k and
+    columns of the projections, the cache this rank's block of T slots of
+    the whole cache's T * model. Every rank gathers the new tokens' k and
     v whole over `model` (their columns can cut a head). A decode step
     writes its slot on the rank that owns it, gathers q whole and combines
     the partial softmax of every rank's slots (`_attn_partial`); a
     prefill stores this rank's slot range and attends over the prompt for
     this rank's whole query heads (`Partition.head_range`), gathering q
     first and the outputs after where the heads do not divide `model`.
-    Returns the layer's output after the row-parallel wo."""
+
+    A whole cache of exactly `cfg.sliding_window` slots is a ring, as in
+    `attention_apply`: a decode writes slot pos mod T * model and attends
+    through each lane's slot -> position map of this rank's slots; a
+    prefill longer than the ring keeps its last T * model entries, each
+    in slot p mod T * model (the whole path's roll). Every attention
+    applies the window. Returns the layer's output after the
+    row-parallel wo."""
     B, S = q.shape[:2]
     Dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    window = cfg.sliding_window
     rope = functools.partial(apply_rope, positions=positions,
                              style=cfg.rope_style, theta=cfg.rope_theta)
     k = rope(part.gather(k, -1).reshape(B, S, Hkv, Dh))
     v = part.gather(v, -1).reshape(B, S, Hkv, Dh)
     ck, cv = cache["k"], cache["v"]
     T = ck.shape[1]
+    whole = T * part.size
+    ring = window is not None and whole == window
     lo = part.rank * T
+    slots = lo + torch.arange(T, device=q.device)       # this rank's
     if S == 1:
         q = rope(part.gather(q, -1).reshape(B, 1, H, Dh))
-        slot = torch.clamp(positions[:, 0].to(torch.int64),
-                           max=T * part.size - 1) - lo
+        lane_pos = positions[:, 0].to(torch.int64)
+        slot = (torch.remainder(lane_pos, whole) if ring else
+                torch.clamp(lane_pos, max=whole - 1)) - lo
         mine = ((slot >= 0) & (slot < T))[:, None, None]
         slot = slot.clamp(0, T - 1)
         lanes = torch.arange(B, device=q.device)
@@ -352,18 +378,22 @@ def _attention_by_length(p: Params, cfg: ModelConfig, q, k, v,
                                       ck[lanes, slot])
         cv[lanes, slot] = torch.where(mine, v[:, 0].to(cv.dtype),
                                       cv[lanes, slot])
-        out = _attn_partial(q, ck, cv, positions,
-                            lo + torch.arange(T, device=q.device), part)
+        kpos = _ring_positions(lane_pos, slots, whole) if ring else slots
+        out = _attn_partial(q, ck, cv, positions, kpos, part, window)
         n = H * Dh // part.size
         out = out.reshape(B, 1, H * Dh)[..., part.rank * n:
                                         (part.rank + 1) * n]
     else:
-        if S > T * part.size:
+        if S > whole and not ring:
             raise ValueError(f"a partitioned prefill of {S} tokens into a "
-                             f"cache of {T * part.size} slots")
-        n = max(0, min(S - lo, T))
-        ck[:, :n] = k[:, lo:lo + n].to(ck.dtype)
-        cv[:, :n] = v[:, lo:lo + n].to(cv.dtype)
+                             f"cache of {whole} slots")
+        # slot s holds the last prompt position p == s mod whole; the
+        # first slots of a ring the prompt does not reach stay as they are
+        n = T if S >= whole else max(0, min(S - lo, T))
+        src = (slots + whole * torch.div(S - 1 - slots, whole,
+                                         rounding_mode="floor"))[:n]
+        ck[:, :n] = k.index_select(1, src).to(ck.dtype)
+        cv[:, :n] = v.index_select(1, src).to(cv.dtype)
         h0, h1 = part.head_range(H)
         even = H % part.size == 0
         q = q.reshape(B, S, -1, Dh) if even else \
@@ -371,7 +401,8 @@ def _attention_by_length(p: Params, cfg: ModelConfig, q, k, v,
         kv = torch.arange(h0, h1, device=q.device) // (H // Hkv)
         out = _attn_core(rope(q), k.index_select(2, kv),
                          v.index_select(2, kv), positions,
-                         torch.arange(S, device=q.device), causal=True)
+                         torch.arange(S, device=q.device), causal=True,
+                         window=window)
         out = out.reshape(B, S, -1) if even else \
             part.heads_to_columns(out, H)
     return _row(eng, out, p["wo"], part)
@@ -409,18 +440,18 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     wq, wk, wv (and their biases) column-parallel, wo row-parallel, the
     cache this rank's block, over its kv heads where n_kv_heads divides
     `model` (attention then local to this rank's heads, the code below on
-    them) and over its length otherwise (`_attention_by_length`). It
-    takes the contiguous cache of a prefill or decode step, without a
-    window, memory or chunks."""
+    them, a ring too) and over its length otherwise
+    (`_attention_by_length`). It takes the contiguous cache of a prefill
+    or decode step, without memory or chunks."""
     B, S, d = x.shape
     Dh = cfg.head_dim
     src = x if memory is None else memory
     if part is not None and (
             memory is not None or chunked or kv_cache is None
-            or "kpool" in kv_cache or cfg.sliding_window is not None):
+            or "kpool" in kv_cache):
         raise NotImplementedError(
             "a partitioned attention layer takes the contiguous KV cache "
-            "of a prefill or decode step, with no window, memory or chunks")
+            "of a prefill or decode step, with no memory or chunks")
     q = _col(eng, x, p["wq"], part)
     k = _col(eng, src, p["wk"], part)
     v = _col(eng, src, p["wv"], part)
@@ -482,9 +513,7 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
         cv[lanes, slots] = v.to(cv.dtype)
         kpos = torch.arange(T, device=x.device)
         if ring:                # per-lane slot -> absolute position map
-            newest = lane_pos[:, None]
-            kpos = newest - torch.remainder(newest - kpos[None], T)
-            kpos = torch.where(kpos >= 0, kpos, torch.full_like(kpos, -1))
+            kpos = _ring_positions(lane_pos, kpos, T)
         out = _attn_core(q, ck, cv, positions, kpos, causal=causal,
                          window=window)
     else:
@@ -542,7 +571,7 @@ def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def embedding_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     e = torch.randn((cfg.vocab_padded, cfg.d_model), generator=gen,
-                    dtype=torch.float32, device=device) * 0.02
+                    dtype=torch.float32, device=device).mul_(0.02)
     return {"table": e.to(cfg.pdtype)}
 
 

@@ -9,6 +9,11 @@ are dropped: their combine weight is zero, so the residual passes
 through. The router and the expert GEMMs are plain matmuls, as they are
 plain `jnp.einsum` in the reference: under a digit mode an MoE layer runs
 the DotEngine on its attention GEMMs only.
+
+Under a partition context (`distributed/partition.py`) every rank routes
+the same tokens alike, runs the expert GEMMs on its block of the expert
+leaves and combines its updates into an f32 partial that one all-reduce
+over `model` sums: what GSPMD makes of the reference's `constrain` calls.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.numerics import DotEngine
 from .config import ModelConfig
+from .layers import Keep, _whole
 
 Params = Dict[str, Any]
 
@@ -35,14 +41,17 @@ def _stacked_init(gen: torch.Generator, E: int, d_in: int, d_out: int,
     return w.mul_(scale).to(dtype)
 
 
-def moe_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device,
+             keep: Keep = _whole) -> Params:
+    """`keep(name, leaf)` takes each leaf as it is drawn, before the next
+    draw (Model.init): a rank holds one whole expert stack at a time."""
     d, f, E, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.pdtype
-    return {
-        "router": _stacked_init(gen, 1, d, E, torch.float32, device)[0],
-        "wg": _stacked_init(gen, E, d, f, dt, device),   # (E, d, f)
-        "wu": _stacked_init(gen, E, d, f, dt, device),
-        "wd": _stacked_init(gen, E, f, d, dt, device),
-    }
+    p = {"router": keep("router", _stacked_init(gen, 1, d, E, torch.float32,
+                                                device)[0])}
+    for key, (d_in, d_out) in (("wg", (d, f)), ("wu", (d, f)),  # (E, d, f)
+                               ("wd", (f, d))):
+        p[key] = keep(key, _stacked_init(gen, E, d_in, d_out, dt, device))
+    return p
 
 
 def _capacity(tokens: int, cfg: ModelConfig) -> int:
@@ -92,17 +101,22 @@ def _route_row(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
 
 
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-              eng: DotEngine) -> Tuple[torch.Tensor, torch.Tensor]:
+              eng: DotEngine, part=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (output (B, S, d), aux loss ()). Routing is per
     batch row; the experts run one batched matmul over (B, E, C, d).
     `eng` is the block's MLP engine, which the reference's expert einsums
-    do not use either."""
+    do not use either. A partition context `part` runs the layer on this
+    rank's expert blocks (`_partitioned`)."""
     B, S, d = x.shape
     E = cfg.n_experts
     C = _capacity(S, cfg)                              # per-row capacity
     plans = [_route_row(x[b], p["router"], cfg) for b in range(B)]
     buf_tok, slot, st, sw, keep, aux = (torch.stack(t) for t in zip(*plans))
     aux = aux.mean()
+    if part is not None:
+        return _partitioned(p, x, buf_tok.reshape(B, E, C), slot,
+                            torch.where(keep, sw, torch.zeros_like(sw)),
+                            part), aux
 
     buf_ec = buf_tok.reshape(B, E, C)                  # token id per slot
     x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
@@ -125,3 +139,45 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     out = x.new_zeros((B * (S + 1), d)).index_add_(
         0, tok.reshape(-1), upd.reshape(-1, d))
     return out.reshape(B, S + 1, d)[:, :S], aux
+
+
+def _partitioned(p: Params, x: torch.Tensor, buf_ec: torch.Tensor,
+                 slot: torch.Tensor, w: torch.Tensor, part) -> torch.Tensor:
+    """The experts and the combine on this rank's blocks, from the plan
+    every rank made alike: the token id of each (expert, slot) buf_ec
+    (B, E, C), each assignment's slot (sink E * C when dropped) and its
+    combine weight w (zero when dropped), (B, T * K).
+
+    Under ep the rank gathers the tokens of its experts alone and its
+    einsums give their whole updates; under tp it gathers every expert's
+    tokens, g and u on its d_ff columns, and wd on its rows an f32 partial
+    of every update. Each expert leaf is whole over `data` only inside its
+    einsum. The rank scatter-adds its weighted updates into an f32
+    (B, S, d), summed once over `model` and cast once to x's dtype."""
+    B, S, d = x.shape
+    E, C = buf_ec.shape[1:]
+    e0, e1 = part.expert_range()
+    mine = buf_ec[:, e0:e1]                            # (B, El, C)
+    x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
+    rows = torch.arange(B, device=x.device)[:, None, None]
+    xe = x_pad[rows, mine]                             # (B, El, C, d)
+    g = F.silu(torch.einsum("becd,edf->becf", xe, part.expert(p, "wg").to(
+        x.dtype)).to(torch.float32)).to(x.dtype)
+    u = torch.einsum("becd,edf->becf", xe, part.expert(p, "wu").to(x.dtype))
+    del xe
+    if part.experts_by == "ep":
+        ye = torch.einsum("becf,efd->becd", g * u,
+                          part.expert(p, "wd").to(x.dtype)).to(torch.float32)
+    else:
+        ye = torch.einsum("becf,efd->becd", (g * u).to(torch.float32),
+                          part.expert(p, "wd").to(torch.float32))
+    del g, u
+    wslot = torch.zeros((B, E * C + 1), dtype=torch.float32, device=x.device)
+    wslot.scatter_(1, slot, w.to(torch.float32))
+    upd = ye * wslot[:, :-1].reshape(B, E, C)[:, e0:e1, :, None]
+    tok = torch.clamp(mine, max=S) + rows * (S + 1)
+    out = torch.zeros((B * (S + 1), d), dtype=torch.float32,
+                      device=x.device).index_add_(0, tok.reshape(-1),
+                                                  upd.reshape(-1, d))
+    out = out.reshape(B, S + 1, d)[:, :S].contiguous()
+    return part.sum(out).to(x.dtype)

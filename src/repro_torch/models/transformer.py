@@ -44,9 +44,9 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                device, keep: Keep = _whole) -> Params:
     """One layer's params. `keep(path, leaf)` (a path under the layer,
     "attn/wq") takes each leaf as it is made and returns what the layer
-    holds; an attention layer's and an MLP's leaves go to it one by one,
-    before the next draw, the other mixers' once their subtree is
-    drawn."""
+    holds; an attention layer's, an MLP's and the experts' leaves go to it
+    one by one, before the next draw, the other mixers' once their
+    subtree is drawn."""
     def ones(name):
         return keep(f"{name}/scale", torch.ones(
             (cfg.d_model,), dtype=cfg.pdtype, device=device))
@@ -69,7 +69,7 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
         raise ValueError(f"unknown block kind {kind!r}")
     p["norm2"] = {"scale": ones("norm2")}
     if cfg.n_experts and kind == "attn":
-        p["moe"] = _kept(keep, "moe", moe_init(gen, cfg, device))
+        p["moe"] = moe_init(gen, cfg, device, _under(keep, "moe"))
     else:
         p["mlp"] = mlp_init(gen, cfg, device, _under(keep, "mlp"))
     return p
@@ -121,12 +121,11 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     and in/out projections, not attention). `memory` (B, M, d) is what a
     "cross" or "xdec" layer attends to; causal=False makes self-attention
     bidirectional (the encoder). A partition context `part` runs an
-    "attn" layer with a dense MLP on this rank's blocks (layers.py); the
-    other blocks have no partitioned form yet."""
-    if part is not None and (kind != "attn" or "mlp" not in p):
-        raise NotImplementedError(
-            f"a {kind!r} block{' with experts' if 'moe' in p else ''} has "
-            "no partitioned form")
+    "attn" layer, with a dense MLP or experts, on this rank's blocks
+    (layers.py, moe.py); the other blocks have no partitioned form yet."""
+    if part is not None and kind != "attn":
+        raise NotImplementedError(f"a {kind!r} block has no partitioned "
+                                  "form")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     attn_eng = eng.for_role("attn")
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
@@ -153,7 +152,7 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
     mlp_eng = eng.for_role("mlp")
     if "moe" in p:
-        m, aux = moe_apply(p["moe"], cfg, h2, mlp_eng)
+        m, aux = moe_apply(p["moe"], cfg, h2, mlp_eng, part)
     else:
         m = mlp_apply(p["mlp"], cfg, h2, mlp_eng, part)
     return x + m, aux

@@ -15,10 +15,11 @@ of `launch/shapes.py`) against the reference's, on the CPU at smoke sizes.
 - The bytes counter and the live-bytes tracker on hand-counted cases.
 - On a fake 2 x 2 world, the collective bytes of one sharded smoke step
   equal to a count from `Sharder.param_specs` and `batch_spec`; those of
-  a partitioned decode (the dense family's serve layout: the KV cache
-  over heads and over its length, tp and fsdp_tp) equal to a count from
+  a partitioned decode (the dense and MoE families' serve layout: the KV
+  cache over heads and over its length, a sliding-window ring, tp and
+  fsdp_tp, experts split by expert and by d_ff) equal to a count from
   the specs, by kind and axis; a partitioned serve cell's per-rank peak
-  below the whole layout's.
+  below the whole layout's, a MoE serve cell's record "partitioned".
 - `run_cell` at both production meshes writes a record with the
   reference's keys.
 
@@ -398,7 +399,8 @@ def _hand_count_decode(cfg, B):
     def add(kind, axis, n):
         out[(kind, axis)] = out.get((kind, axis), 0) + n
 
-    # the embedding's sum, then each layer's wo and wd partials, in f32
+    # the embedding's sum, then each layer's wo partials and its wd
+    # partials or, with experts, its one combine of (rows, 1, d), in f32
     add("all-reduce", "model", rows * d * 4 * (1 + 2 * cfg.n_layers))
     if Hkv % 2:
         # the cache over its length: k, v and q gathered whole, the
@@ -407,8 +409,9 @@ def _hand_count_decode(cfg, B):
             * (2 * Hkv + H))
         add("all-reduce", "model", cfg.n_layers * rows * H * (Dh + 2) * 4)
     if cfg.sharding_profile == "fsdp_tp":
-        # each weight whole over "data" for its GEMM (the head's table,
-        # tied or not, once more for the head)
+        # each weight whole over "data" for its GEMM or, an expert leaf,
+        # its einsum (the head's table, tied or not, once more for the
+        # head; the router is replicated)
         whole = dict(path_leaves(Model(cfg, device="meta").init(0)))
         head = "embed" if cfg.tie_embeddings else "unembed"
         for path in [p for p in whole if p != "final_norm/scale"
@@ -427,7 +430,10 @@ def _hand_count_decode(cfg, B):
 
 @pytest.mark.parametrize("arch,kv", [("internlm2_1_8b", 2),
                                      ("internlm2_1_8b", 1),
-                                     ("qwen1_5_110b", 2), ("yi_34b", 1)])
+                                     ("qwen1_5_110b", 2), ("yi_34b", 1),
+                                     ("qwen3_moe_235b_a22b", 2),
+                                     ("mixtral_8x22b", 2),
+                                     ("mixtral_8x22b", 1)])
 def test_partitioned_decode_collectives_equal_a_count_from_the_specs(arch,
                                                                     kv):
     cfg = dataclasses.replace(smoke_config(arch), n_kv_heads=kv)
@@ -449,7 +455,24 @@ def test_a_partitioned_cells_peak_is_below_the_whole_layouts(kind):
         "bytes_per_device"]["peak"] for layout in ("partitioned", "whole")}
     assert peaks["partitioned"] < peaks["whole"]
     assert dryrun.serve_layout(cfg) == "partitioned"
-    assert dryrun.serve_layout(smoke_config("mixtral_8x22b")) == "whole"
+    assert dryrun.serve_layout(smoke_config("mixtral_8x22b")) == \
+        "partitioned"
+    assert dryrun.serve_layout(smoke_config("recurrentgemma_9b")) == "whole"
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "qwen3_moe_235b_a22b"])
+def test_a_moe_serve_cells_record_is_partitioned_below_the_whole(
+        tmp_path, monkeypatch, arch):
+    monkeypatch.setattr(dryrun, "get_config", smoke_config)
+    rec = dryrun.run_cell(arch, "decode_32k", multi_pod=False,
+                          out_dir=tmp_path)
+    assert rec["layout"] == "partitioned" and "serve" not in rec
+    assert rec["collectives"]["per_kind"]["all-reduce"] > 0
+    whole, _, _ = dryrun.walk_cell(
+        smoke_config(arch), shapes.SHAPES["decode_32k"],
+        make_abstract_mesh((16, 16), ("data", "model")), "whole")
+    assert rec["bytes_per_device"]["peak"] < whole["bytes_per_device"][
+        "peak"]
 
 
 def test_fake_world_refuses_an_existing_group_and_goes_with_its_block():

@@ -4,6 +4,7 @@ these skip where there is no card (the fixture decides, at run time).
 On the card: PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import gc
 
 import pytest
 import torch
@@ -872,3 +873,179 @@ def test_partitioned_serve_over_two_ranks_on_the_card(cuda, tmp_path):
                         dim=-1)[:, :v]
         want = ones[name][2][:, :v]
         assert float((got - want).abs().max() / want.abs().max()) <= 3e-2
+
+
+# chip_smoke.py's tp phase (e)-(g) at smoke width: the partitioned MoE serve
+# on two ranks that share the card (a gloo group, a (1, 2) mesh). Mixtral's
+# experts split by d_ff and Qwen3-MoE's by expert under olm16: each rank's
+# resident blocks equal to the specs' byte count, K1 launches == GEMMs
+# issued (4 a layer and the head), layer 0's wq and the head's columns
+# bit-equal to one device's K1, every rank's dispatch plans identical;
+# Mixtral with one KV head, its window ring split over its length, native,
+# prompts longer than the ring and decodes that wrap it; every pass's
+# logits within 3e-2 of one device's on the real vocabulary, at f32
+# compute (in bf16 a smoke-width router's near-tie can flip a token's
+# experts on a last-bit difference). (g) one partitioned decode of
+# Qwen3-MoE at full width, 2 layers, walked on a fake 2-rank world: FLOPs
+# equal to each rank's step on the card, peak within 5%.
+TP_MOE_CFGS = {"moe_tp": ("mixtral_8x22b", {}, "olm16"),
+               "moe_ep": ("qwen3_moe_235b_a22b", {}, "olm16"),
+               "ring_length": ("mixtral_8x22b", dict(n_kv_heads=1),
+                               "native")}
+TP_MOE_TOKENS, TP_MOE_LEN, TP_MOE_DECODES = (4, 20), 32, 4
+TP_MOE_DECODE = (4, 32)          # (g)'s lanes and cache slots
+
+
+def _tp_moe_cfg(name):
+    arch, over, _ = TP_MOE_CFGS[name]
+    return dataclasses.replace(smoke_config(arch), n_layers=2,
+                               compute_dtype="float32", **over)
+
+
+def _tp_moe_serve(prefill, decode, params, cache, dev):
+    """The prefill of TP_MOE_TOKENS (longer than the smoke window of 16)
+    and TP_MOE_DECODES decodes of seeded tokens, each lane at its own
+    depth: each pass's logits."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, S = TP_MOE_TOKENS
+    toks = torch.randint(0, 512, (B, S + TP_MOE_DECODES), generator=g,
+                         device=dev, dtype=torch.int32)
+    logits, cache, _ = prefill(params, {"tokens": toks[:, :S]}, cache)
+    seen = [logits]
+    pos = S + torch.arange(B, device=dev)
+    for i in range(TP_MOE_DECODES):
+        logits, cache = decode(params, toks[:, S + i], pos + i, cache)
+        seen.append(logits)
+    return seen
+
+
+def _tp_moe_rank(rank, world, port, out_dir):
+    import os
+
+    from torch_rank_cases import RoutedPlans
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import all_gather_dim
+    from repro_torch.distributed.sharding import Sharder, path_leaves
+    from repro_torch.distributed.train import (init_serve_cache,
+                                               init_serve_params,
+                                               jit_decode_step,
+                                               jit_prefill_step,
+                                               serve_block_bytes)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.shapes import ShapeCase
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = make_local_mesh(1, world, device_type="cuda")
+        for name, (_, _, mode) in TP_MOE_CFGS.items():
+            cfg = _tp_moe_cfg(name)
+            sharder = Sharder(mesh, cfg)
+            sharder.set_batch(TP_MOE_TOKENS[0])
+            params = init_serve_params(Model(cfg, device=dev), sharder, 0)
+            out[f"{name}/bytes"] = [sum(
+                t.untyped_storage().nbytes() for _, t in path_leaves(params)),
+                serve_block_bytes(cfg, sharder)]
+            model = Model(cfg, DotEngine(mode=mode), device=dev)
+            cache = init_serve_cache(model, sharder, TP_MOE_TOKENS[0],
+                                     TP_MOE_LEN)
+            step = jit_prefill_step(model, sharder, params, ["tokens"], cache)
+            decode = jit_decode_step(model, sharder, params, cache,
+                                     has_memory=False)
+            before = matmul_kernel.launches
+            with _OlmCalls() as seen, RoutedPlans() as plans:
+                logits = _tp_moe_serve(step, decode, params, cache, dev)
+            out[f"{name}/launches"] = matmul_kernel.launches - before
+            out[f"{name}/calls"] = [seen[0], seen[4 * cfg.n_layers]] \
+                if seen else []
+            out[f"{name}/plans"] = plans
+            out[f"{name}/logits"] = [all_gather_dim(t, 1, mesh, "model")
+                                     for t in logits]
+        cfg = dataclasses.replace(get_config("qwen3_moe_235b_a22b"),
+                                  n_layers=2)
+        sharder = Sharder(mesh, cfg)
+        B, T = TP_MOE_DECODE
+        sharder.set_batch(B)
+        out["card"] = dryrun.card_step(cfg, ShapeCase("moe_decode", T, B,
+                                                      "decode"), sharder)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_partitioned_moe_serve_over_two_ranks_on_the_card(cuda, tmp_path):
+    import socket
+
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.train import init_serve_params
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.launch.shapes import ShapeCase
+    # the ranks' full-width step needs the card this process's cache (the
+    # earlier tests' blocks) may hold
+    gc.collect()
+    torch.cuda.empty_cache()
+    ones = {}
+    for name, (_, _, mode) in TP_MOE_CFGS.items():
+        cfg = _tp_moe_cfg(name)
+        params = init_serve_params(Model(cfg, device=cuda), None, 0)
+        model = Model(cfg, DotEngine(mode=mode), device=cuda)
+        with _OlmCalls() as seen:
+            logits = _tp_moe_serve(model.prefill, model.decode_step, params,
+                                   model.init_cache(TP_MOE_TOKENS[0],
+                                                    TP_MOE_LEN), cuda)
+        ones[name] = (params, seen, logits)
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(_tp_moe_rank, args=(2, port, str(tmp_path)),
+                             nprocs=2, join=False, start_method="spawn")
+    cfg = dataclasses.replace(get_config("qwen3_moe_235b_a22b"), n_layers=2)
+    B, T = TP_MOE_DECODE
+    walked, _, _ = dryrun.walk_cell(
+        cfg, ShapeCase("moe_decode", T, B, "decode"),
+        make_abstract_mesh((1, 2), ("data", "model")))
+    while not ctx.join():
+        pass
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    for name, (_, _, mode) in TP_MOE_CFGS.items():
+        cfg = _tp_moe_cfg(name)
+        params, seen, want = ones[name]
+        for r, res in enumerate(ranks):
+            held, specs = res[f"{name}/bytes"]
+            assert held == specs, (name, held, specs)
+            assert all(torch.equal(a, b) for a, b in zip(
+                res[f"{name}/plans"], ranks[0][f"{name}/plans"]))
+            assert len(res[f"{name}/plans"]) == 2 * TP_MOE_TOKENS[0] * (
+                1 + TP_MOE_DECODES)
+            for got, one in zip(res[f"{name}/logits"], want):
+                v = cfg.vocab_size
+                assert float((got[:, :v] - one[:, :v]).abs().max()
+                             / one[:, :v].abs().max()) <= 3e-2, name
+            if mode != "olm16":
+                continue
+            # 4 attention GEMMs a layer and the head, each pass
+            assert res[f"{name}/launches"] == (4 * cfg.n_layers + 1) * (
+                1 + TP_MOE_DECODES)
+            (x, out), (hx, hout) = res[f"{name}/calls"]
+            wq = params["layers"][0]["attn"]["wq"]
+            n = wq.shape[1] // 2
+            assert torch.equal(x, seen[0][0])
+            assert torch.equal(out, seen[0][1][:, r * n:(r + 1) * n])
+            table = params["unembed"]["table"]
+            v = table.shape[0] // 2
+            assert torch.equal(hout, olm_matmul(
+                hx, table[r * v:(r + 1) * v].T.to(torch.float32), n_bits=16))
+    for res in ranks:
+        card = res["card"]
+        assert walked["flops"] == card["flops"]
+        assert abs(walked["bytes_per_device"]["peak"] / card["peak"] - 1) \
+            <= 0.05, (walked["bytes_per_device"], card["peak"])

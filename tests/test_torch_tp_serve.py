@@ -4,10 +4,13 @@ partition context) over one gloo group of 4 CPU ranks on a (data 2,
 model 2) mesh, against the reference.
 
 One spawn a module runs every case of `torch_rank_cases.TP_CASES`
-(`tp_rank`; smoke-size dense configs at f32 compute, 2 layers: the KV
-cache over kv heads and over its length, 3 query heads over 2 ranks,
-fsdp_tp, the Qwen1.5 / ChatGLM3 qkv bias, tied and untied heads, a padded
-vocabulary). The test process meanwhile runs the reference's Model and
+(`tp_rank`; smoke-size configs at f32 compute, 2 layers: the KV cache
+over kv heads and over its length, 3 query heads over 2 ranks, fsdp_tp,
+the Qwen1.5 / ChatGLM3 qkv bias, tied and untied heads, a padded
+vocabulary; Qwen3-MoE's experts split by expert, Mixtral's by d_ff with
+a sliding-window ring over kv heads and over its length) and a MoE
+prefill that drops assignments. The test process meanwhile runs the
+reference's Model and
 Sharder on the same params, and a subprocess compiles the reference's
 `jit_prefill_step` / `jit_decode_step` on a forced 4-device CPU mesh.
 Held:
@@ -29,8 +32,10 @@ Held:
     wq output is the single device's column block, bit for bit;
   * the sharded init (`init_serve_params`) bit-equal to the whole init's
     serve blocks;
+  * every rank along `model` routes each MoE layer's tokens alike (the
+    same dispatch plan, drops included);
   * the families without a partitioned serve raise and name their
-    ROADMAP item.
+    ROADMAP item; both MoE archs build partitioned steps.
 """
 import dataclasses
 import json
@@ -49,7 +54,7 @@ from repro.configs import smoke_config as jax_smoke_config
 from repro.distributed.sharding import Sharder as JSharder
 from repro.distributed.sharding import _path_str
 from repro.models.model import Model as JModel
-from repro_torch.configs import get_config, list_archs
+from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.core.numerics import DotEngine
 from repro_torch.distributed.sharding import P, Sharder
 from repro_torch.distributed.train import (block_shape, jit_decode_step,
@@ -59,10 +64,11 @@ from repro_torch.kernels.online_dot.matmul import (olm_error_bound,
 from repro_torch.launch.mesh import make_abstract_mesh
 from repro_torch.models.layers import embed, rmsnorm
 from repro_torch.models.model import Model
-from torch_rank_cases import (TP_BATCH, TP_CASES, TP_LEN, TP_MESH,
-                              TP_OLM_CASE, TP_OLM_GEMMS_PER_PASS, free_port,
-                              tp_config, tp_gemm_operands, tp_inputs,
-                              tp_rank)
+from torch_rank_cases import (MOE_CASES, MOE_DROPS_TOKENS, TP_BATCH,
+                              TP_CASES, TP_LEN, TP_MESH, TP_OLM_CASE,
+                              TP_OLM_GEMMS_PER_PASS, free_port,
+                              moe_drops_tokens, tp_config, tp_gemm_operands,
+                              tp_inputs, tp_rank)
 
 RANKS = 4
 # relative to the largest |logit| of the reference: f32 compute; the
@@ -135,13 +141,16 @@ def _reference(name, seed=0, **over):
 
 
 def _reference_logits(jm, jp):
-    """The reference's prefill and decode logits, (1 + steps, B, V)."""
+    """The reference's prefill and decode logits, (1 + steps, B, V), each
+    step under jax.jit as its serve runs it (a third of the eager
+    dispatch's wall here)."""
     prompt, steps, pos = (jnp.asarray(a) for a in tp_inputs())
-    logits, cache, _ = jm.prefill(jp, {"tokens": prompt},
-                                  jm.init_cache(TP_BATCH, TP_LEN))
+    decode = jax.jit(jm.decode_step)
+    logits, cache, _ = jax.jit(jm.prefill)(jp, {"tokens": prompt},
+                                           jm.init_cache(TP_BATCH, TP_LEN))
     seen = [logits]
     for tok, p in zip(steps, pos):
-        logits, cache = jm.decode_step(jp, tok, p, cache)
+        logits, cache = decode(jp, tok, p, cache)
         seen.append(logits)
     return np.stack([np.asarray(a, np.float32) for a in seen])
 
@@ -208,8 +217,9 @@ def runs(tmp_path_factory):
     out_dir = str(tmp_path_factory.mktemp("tp_serve"))
     refs = {name: _reference(name) for name in TP_CASES}
     olm = _reference(TP_OLM_CASE, seed=1, n_layers=1)
-    trees = {name: jax.tree.map(np.asarray, jp)
-             for name, (_, jp) in {**refs, "olm": olm}.items()}
+    drops = _reference("moe_drops", seed=2)
+    trees = {name: jax.tree.map(np.asarray, jp) for name, (_, jp) in {
+        **refs, "olm": olm, "moe_drops": drops}.items()}
     torch.save(trees, os.path.join(out_dir, "given.pt"))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [os.path.join(os.path.dirname(__file__), "..", "src"),
@@ -220,7 +230,11 @@ def runs(tmp_path_factory):
     ctx = mp.start_processes(tp_rank, args=(RANKS, free_port(), out_dir),
                              nprocs=RANKS, join=False, start_method="spawn")
     try:
+        jm, jp = drops
         mine = {"ref": {n: _reference_logits(*refs[n]) for n in TP_CASES},
+                "drops": np.asarray(jm.prefill(
+                    jp, {"tokens": jnp.asarray(moe_drops_tokens())},
+                    jm.init_cache(1, TP_LEN))[0], np.float32),
                 "whole": {n: _port_whole_logits(n, trees[n])
                           for n in TP_CASES},
                 "shapes": {n: _shard_shapes(n) for n in TP_CASES}}
@@ -348,17 +362,109 @@ def test_olm16_layer0_wq_is_the_single_devices_column_block(runs):
             params["layers"][0]["attn"]["wq"], rank))
 
 
+def _along_model(ranks, key):
+    """Each group of ranks that share a `data` coordinate: their `key`."""
+    d, m = TP_MESH
+    return [[ranks[i * m + j][key] for j in range(m)] for i in range(d)]
+
+
+@pytest.mark.parametrize("name", MOE_CASES)
+def test_every_rank_along_model_routes_alike(runs, name):
+    for group in _along_model(runs[1], f"{name}/plans"):
+        # 2 layers a forward pass, a plan a lane
+        assert len(group[0]) == 2 * (1 + len(tp_inputs()[1])) * (
+            TP_BATCH // TP_MESH[0])
+        for plans in group[1:]:
+            assert len(plans) == len(group[0])
+            assert all(torch.equal(a, b) for a, b in zip(plans, group[0]))
+
+
+def test_a_prefill_that_drops_matches_the_reference_and_routes_alike(runs):
+    mine, ranks, _, _ = runs
+    cfg = tp_config("moe_drops")
+    TK = MOE_DROPS_TOKENS * cfg.experts_per_token
+    for r in ranks:
+        assert len(r["moe_drops/plans"]) == cfg.n_layers
+        for plan, first in zip(r["moe_drops/plans"],
+                               ranks[0]["moe_drops/plans"]):
+            assert torch.equal(plan, first)
+            # capacity 8 of each expert's 12 assignments: 4 dropped each
+            assert int((plan[-TK:] == 0).sum()) == 4 * cfg.n_experts
+    for group in _along_model(ranks, "moe_drops/logits"):
+        got = torch.cat(group, dim=-1).numpy()
+        assert got.shape == mine["drops"].shape
+        assert _rel(got, mine["drops"], "moe_drops") <= LOGIT_TOL
+
+
 @pytest.mark.parametrize("arch", [a for a in list_archs()
-                                  if get_config(a).family != "dense"])
+                                  if get_config(a).family
+                                  not in ("dense", "moe")])
 def test_other_families_raise_and_name_their_item(arch):
     cfg = get_config(arch)
     sharder = Sharder(make_abstract_mesh((1, 2), ("data", "model")), cfg)
     model = Model(cfg, device="meta")
     with pytest.raises(NotImplementedError, match=r"ROADMAP section 1, "
-                       r"item 1[2-5]"):
+                       r"item 1[3-5]"):
         jit_prefill_step(model, sharder, None, ["tokens"], None)
-    with pytest.raises(NotImplementedError, match=r"item 1[2-5]"):
+    with pytest.raises(NotImplementedError, match=r"item 1[3-5]"):
         jit_decode_step(model, sharder, None, None, has_memory=False)
+
+
+@pytest.mark.parametrize("arch,over,mesh,layout,dims", [
+    ("qwen3_moe_235b_a22b", {}, (2, 2), "ep", (1, 1, 1)),
+    ("mixtral_8x22b", {}, (2, 2), "tp", (1, 1, 2)),
+    # ep asked for, but 6 experts do not divide 4 ranks: the d_ff split
+    ("qwen3_moe_235b_a22b", dict(n_experts=6), (1, 4), "tp", (1, 1, 2))])
+def test_the_expert_layout_and_data_dims_follow_the_specs(arch, over, mesh,
+                                                          layout, dims):
+    """Rank 0's Partition on a fake world: the layout read from the
+    Sharder's spec of the expert leaves (not from cfg.moe_sharding alone),
+    its expert range, and the dim of wg, wu and wd gathered over `data`
+    (under ep, wd's is its f)."""
+    from repro_torch.distributed.partition import Partition
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(smoke_config(arch), **over)
+    with dryrun.fake_world(mesh[0] * mesh[1]):
+        part = Partition(Sharder(dryrun._meta_mesh(make_abstract_mesh(
+            mesh, ("data", "model"))), cfg))
+        assert part.experts_by == layout
+        assert part.expert_range() == ((0, cfg.n_experts // mesh[1])
+                                       if layout == "ep" else
+                                       (0, cfg.n_experts))
+        assert tuple(part.expert_data_dim(leaf) for leaf in (
+            "wg", "wu", "wd")) == dims
+
+
+@pytest.mark.parametrize("arch", [a for a in list_archs()
+                                  if get_config(a).family == "moe"])
+def test_moe_archs_build_partitioned_steps(arch):
+    """As published, on a (1, 2) mesh over a fake world of two ranks:
+    this rank's blocks on meta pass the steps' check, and a whole leaf
+    does not."""
+    from repro_torch.distributed.train import (init_serve_cache,
+                                               init_serve_params)
+    from repro_torch.launch import dryrun
+    cfg = get_config(arch)
+    with dryrun.fake_world(2):
+        sharder = Sharder(dryrun._meta_mesh(make_abstract_mesh(
+            (1, 2), ("data", "model"))), cfg)
+        sharder.set_batch(2)
+        model = Model(cfg, device="meta")
+        params = init_serve_params(model, sharder)
+        cache = init_serve_cache(model, sharder, 2, 64)
+        assert callable(jit_prefill_step(model, sharder, params, ["tokens"],
+                                         cache))
+        assert callable(jit_decode_step(model, sharder, params, cache,
+                                        has_memory=False))
+        moe = params["layers"][0]["moe"]
+        E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        assert tuple(moe["wg"].shape) == ((E // 2, d, f) if
+                                          cfg.moe_sharding == "ep" else
+                                          (E, d, f // 2))
+        params["layers"][0]["moe"]["wd"] = torch.empty(
+            (E, f, d), device="meta")
+        with pytest.raises(ValueError, match="this rank's block"):
+            jit_prefill_step(model, sharder, params, ["tokens"], cache)
 
 
 def test_a_sharded_engine_and_whole_params_are_refused():

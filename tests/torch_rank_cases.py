@@ -277,11 +277,16 @@ def train_rank(rank, world, port, out_dir):
 
 # ------------------------------------------------------ partitioned serve
 # tests/test_torch_tp_serve.py: one gloo group of 4 ranks on a (data 2,
-# model 2) mesh; each case a smoke-size dense config at f32 compute, 2
-# layers. The kv heads divide `model` in "heads" and "fsdp_bias" (cache
-# over heads), not in the others (cache over length); 3 query heads over
-# 2 ranks in "uneven"; `data`-sharded weights in the fsdp cases; vocab 500
-# (padded to 512) in "heads"; a tied head in "fsdp_length_tied".
+# model 2) mesh; each case a smoke-size config at f32 compute, 2 layers.
+# The kv heads divide `model` in "heads", "fsdp_bias", "moe_ep" and
+# "moe_tp_ring" (cache over heads), not in the others (cache over
+# length); 3 query heads over 2 ranks in "uneven"; `data`-sharded weights
+# in the fsdp cases and the MoE ones (fsdp_tp); vocab 500 (padded to 512)
+# in "heads" and "moe_ep"; a tied head in "fsdp_length_tied". The MoE
+# cases: Qwen3-MoE's 8 smoke experts split over `model` (ep, 4 a rank),
+# Mixtral's split by d_ff (tp) with a window of 4, so that the 6-token
+# prompt is longer than the ring and the decodes wrap it, the ring over
+# kv heads and, with one kv head, over its length (2 slots a rank).
 TP_MESH = (2, 2)
 TP_BATCH, TP_PROMPT, TP_LEN, TP_DECODES = 4, 6, 16, 4
 TP_COMMON = dict(n_layers=2, compute_dtype="float32")
@@ -291,7 +296,18 @@ TP_CASES = {
     "uneven": ("internlm2_1_8b", dict(n_heads=3, n_kv_heads=1)),
     "fsdp_bias": ("qwen1_5_110b", {}),
     "fsdp_length_tied": ("yi_34b", dict(n_kv_heads=1, tie_embeddings=True)),
+    "moe_ep": ("qwen3_moe_235b_a22b", dict(vocab_size=500)),
+    "moe_tp_ring": ("mixtral_8x22b", dict(sliding_window=4)),
+    "moe_tp_ring_length": ("mixtral_8x22b", dict(sliding_window=4,
+                                                 n_kv_heads=1)),
 }
+MOE_CASES = [n for n, (arch, _) in TP_CASES.items() if "moe" in arch]
+# one prefill of one MOE_DROPS_TOKENS-token row with 2 experts, both of
+# them a token, at capacity factor 0.5: capacity 8 of the 12 assignments
+# each expert gets, so each drops 4 whatever the router (ep, 1 a rank)
+MOE_DROPS = ("qwen3_moe_235b_a22b", dict(n_experts=2, experts_per_token=2,
+                                         capacity_factor=0.5))
+MOE_DROPS_TOKENS = 12
 # one olm16 pass of the "heads" case at one layer: K1 (its plain version
 # here) on each rank's shards
 TP_OLM_CASE = "heads"
@@ -299,13 +315,42 @@ TP_OLM_GEMMS_PER_PASS = 8       # wq wk wv wo wg wu wd, the head
 
 
 def tp_config(name, smoke=None):
-    """The case's config from `smoke` (the port's smoke_config, or the
-    reference's for the test's side)."""
+    """The case's config ("moe_drops" too) from `smoke` (the port's
+    smoke_config, or the reference's for the test's side)."""
     import dataclasses
     if smoke is None:
         from repro_torch.configs import smoke_config as smoke
-    arch, over = TP_CASES[name]
+    arch, over = MOE_DROPS if name == "moe_drops" else TP_CASES[name]
     return dataclasses.replace(smoke(arch), **TP_COMMON, **over)
+
+
+def moe_drops_tokens():
+    """The drops case's one row, (1, MOE_DROPS_TOKENS)."""
+    rng = np.random.default_rng(26)
+    return rng.integers(0, 512, (1, MOE_DROPS_TOKENS)).astype(np.int32)
+
+
+class RoutedPlans:
+    """The dispatch plan (token per slot, each assignment's slot, its keep
+    flag) of every `models/moe._route_row` call made inside the block, in
+    call order, on the CPU (tests/test_torch_gpu.py's ranks too)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real, self.plans = moe._route_row, []
+
+        def recorded(*a, **kw):
+            plan = self.real(*a, **kw)
+            self.plans.append(torch.cat([plan[0], plan[1],
+                                         plan[4].to(plan[0].dtype)]).cpu())
+            return plan
+
+        moe._route_row = recorded
+        return self.plans
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route_row = self.real
 
 
 def tp_inputs():
@@ -376,16 +421,18 @@ def tp_rank(rank, world, port, out_dir):
                     + _nbytes(batch),
                     "decode": _nbytes(params) + _nbytes(cache)
                     + 2 * _nbytes(rows(steps[0]))}
-            logits, cache, _ = jit_prefill_step(
-                model, sharder, params, list(batch), cache)(
-                params, batch, cache)
-            seen = [logits]
-            decode = jit_decode_step(model, sharder, params, cache,
-                                     has_memory=False)
-            for tok, p in zip(steps, pos):
-                logits, cache = decode(params, rows(tok), rows(p), cache)
-                seen.append(logits)
-            return torch.stack(seen), shapes, args
+            with RoutedPlans() as plans:
+                logits, cache, _ = jit_prefill_step(
+                    model, sharder, params, list(batch), cache)(
+                    params, batch, cache)
+                seen = [logits]
+                decode = jit_decode_step(model, sharder, params, cache,
+                                         has_memory=False)
+                for tok, p in zip(steps, pos):
+                    logits, cache = decode(params, rows(tok), rows(p),
+                                           cache)
+                    seen.append(logits)
+            return torch.stack(seen), shapes, args, plans
 
         for name in TP_CASES:
             cfg = tp_config(name)
@@ -397,7 +444,8 @@ def tp_rank(rank, world, port, out_dir):
             out[f"{name}/params"] = {p: tuple(t.shape)
                                      for p, t in path_leaves(params)}
             (out[f"{name}/logits"], out[f"{name}/cache"],
-             out[f"{name}/args"]) = serve(model, sharder, params)
+             out[f"{name}/args"], out[f"{name}/plans"]) = serve(
+                model, sharder, params)
             mine = init_serve_params(model, sharder, seed=3)
             want = param_blocks(serve_params(model.init(3)), sharder)
             out[f"{name}/init"] = torch.tensor(all(
@@ -416,6 +464,22 @@ def tp_rank(rank, world, port, out_dir):
                 out["gemm/row"] = part.row(eng, shard_dims(
                     xr, (None, "model"), mesh), shard_dims(
                     wr, ("model", "data"), mesh))
+        # one prefill that drops assignments, the batch of one row whole
+        # on every rank
+        cfg = tp_config("moe_drops")
+        sharder = Sharder(mesh, cfg)
+        sharder.set_batch(1)
+        model = Model(cfg, device="cpu")
+        params = params_from_jax(given["moe_drops"], cfg, device="cpu",
+                                 sharder=sharder)
+        cache = init_serve_cache(model, sharder, 1, TP_LEN)
+        with RoutedPlans() as plans:
+            logits, _, _ = jit_prefill_step(
+                model, sharder, params, ["tokens"], cache)(
+                params, {"tokens": torch.from_numpy(moe_drops_tokens())},
+                cache)
+        out["moe_drops/logits"] = logits
+        out["moe_drops/plans"] = plans
         # one olm16 pass: the GEMMs a rank issues, layer 0's wq
         cfg = dataclasses.replace(tp_config(TP_OLM_CASE), n_layers=1)
         sharder = Sharder(mesh, cfg)
@@ -433,7 +497,7 @@ def tp_rank(rank, world, port, out_dir):
 
         matmul.olm_matmul = counted
         try:
-            logits, _, _ = serve(model, sharder, params)
+            logits, _, _, _ = serve(model, sharder, params)
         finally:
             matmul.olm_matmul = real
         out["olm/calls"] = torch.tensor(len(calls))
