@@ -27,7 +27,8 @@ Phases, each printing its own lines:
                and 17 rows with a ragged N, w transposed (olm16, olm24 and
                olm32 at each), an all-subnormal tile, every GEMM shape of
                the serve path (its LM head included, at decode and
-               prefill), online_mul (K4) and online_dot (K3) at a million
+               prefill; their plain versions computed while the kernels
+               build), online_mul (K4) and online_dot (K3) at a million
                and four thousand rows, tpmm (K5) at tpmm16 and tpmm8 under
                its three level cutoffs on a ragged shape, an all-subnormal
                row, the tile and split edges, A planes at an odd address
@@ -64,8 +65,9 @@ Phases, each printing its own lines:
   4. time    - each kernel at those shapes (and the general K3/K4
                kernels at one shape each, K1 at ChatGLM3-6B's decode and
                prefill GEMMs and at the four families' decode GEMMs)
-               beside its bound, its plain
-               version and a PyTorch context call: the median of CUDA
+               beside its bound, its plain version (K1's where a call of
+               it is at most PLAIN_TIMED_WORK of M x K x N) and a PyTorch
+               context call: the median of CUDA
                event pairs, one per launch, with the L2 cache overwritten
                before each; a time below its bound fails the run;
   5. serve   - ServeEngine at the full published InternLM2-1.8B width,
@@ -220,7 +222,24 @@ Phases, each printing its own lines:
                head and a window of 16, so the ring splits over its
                length, 20-token prompts that wrap it, native, within
                3e-2; (g) one partitioned decode of (e)'s Qwen3-MoE cut
-               walked against each rank's step, as (c);
+               walked against each rank's step, as (c); (h)
+               RecurrentGemma-9B as published (38 layers, the RG-LRU's
+               w channels, state and conv over `model`, wo row-parallel)
+               native: resident blocks equal to the specs' bytes, the
+               init's peak at most the blocks and one whole f32 leaf,
+               logits within 3e-2 of one device's (in this process, before
+               the ranks); (i) RecurrentGemma at full width cut to one
+               (rec, rec, attn) group under olm16: K1 launches == GEMMs,
+               layer 0's wx and the head's columns bit-equal to one
+               device's K1, logits within 3e-2; (j) Mamba2-130M as
+               published under olm16, its weights whole on every rank and
+               the batch over both axes (2 of the 4 rows a rank): K1 49
+               launches a pass, each rank's logit rows within 3e-2 of one
+               device's rows (bit-equality printed); (k) one partitioned
+               decode of (h)'s arch walked as (c); (l) F10: (e)'s
+               Qwen3-MoE cut served a second time, partitioned and on one
+               device, every pass's logits bit-equal to the first serve's
+               and the same tokens;
   14. examples - the port's four examples (examples/*_torch.py) on the
                card at their documented settings, imported and run in
                this process: the quickstart, the numerics walk-through
@@ -253,6 +272,7 @@ directory holding this script without the rest of the repository.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -300,6 +320,10 @@ SERVE_SHAPES = tuple((M, K, N) for M in (4, 64) for K, N in SERVE_KN)
 # bits depend on its own column of w alone), to bound its int64
 # temporaries at the 64-row LM head.
 PLAIN_OUTPUTS = 1 << 17
+# The time phase times the plain olm16 version (a warm-up call and a timed
+# one) beside K1 where its M x K x N is at most this, about 0.6 s a call on
+# the H100, and beside K1 and K2 at DECODE_GEMV and PREFILL_GEMM.
+PLAIN_TIMED_WORK = 4 * 4096 * 8192
 # K5's edges: M on both sides of the 16-row decode tile, K of 1, 31 and 33
 # bytes (not whole 16-byte copies) and one long enough to split, N not a
 # multiple of 8; and A planes starting at an odd address.
@@ -519,11 +543,20 @@ SHARD_DATA_LIMITS = {"loss": 2.5e-4, "grad_norm": 1e-3, "update": 5e-2}
 # whose query heads do not divide `model`, native; (e) MOE_DEPTH's MoE
 # cuts at full width under olm16; (f) TP_RING's ring split over its
 # length, native; (g) one partitioned decode of (e)'s Qwen3-MoE cut at
-# TP_DECODE walked as (c). Logits within TP_LOGIT_TOL of the single
-# device's largest |logit| over the real vocabulary (the repo's
-# flash-attention gate).
+# TP_DECODE walked as (c); (h) TP["rec"] (RecurrentGemma-9B, the RG-LRU's
+# channels over `model`) as published, native; (i) TP["rec"] at full
+# width cut to TP_REC_CUT, one (rec, rec, attn) group, under olm16; (j)
+# TP["ssm"] (Mamba2-130M: the weights whole on every rank, the batch over
+# both axes) as published under olm16; (k) one partitioned decode of
+# (h)'s arch at TP_DECODE walked as (c); (l) F10: TP_F10's cut from (e)
+# served twice, partitioned and on one device, with the same bits each
+# time. Logits within TP_LOGIT_TOL of the single device's largest |logit|
+# over the real vocabulary (the repo's flash-attention gate).
 TP_RANKS = 2
-TP = dict(arch="internlm2_1_8b", big="yi_34b", max_len=32, new=6, seed=0)
+TP = dict(arch="internlm2_1_8b", big="yi_34b", rec="recurrentgemma_9b",
+          ssm="mamba2_130m", max_len=32, new=6, seed=0)
+TP_REC_CUT = dict(n_layers=3)
+TP_F10 = "qwen3_moe_235b_a22b"
 TP_DECODE = ("decode", 4, 32)      # (kind, batch, cache slots)
 TP_CUT = dict(n_layers=2, n_heads=15, n_kv_heads=1, head_dim=128)
 TP_LOGIT_TOL = 3e-2
@@ -606,32 +639,45 @@ def rel_real(got, want, vocab: int) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def tp_greedy(prefill, decode, params, cache, prompts, dev, whole):
+def tp_greedy(prefill, decode, params, cache, prompts, dev, whole,
+              rows=None, every=None):
     """Greedy serve of right-padded `prompts`, TP["new"] tokens each:
     (the prefill's logits, each request's tokens, the forward passes).
-    `whole` turns a step's logits into the whole vocabulary's."""
+    `whole` turns a step's logits into the whole vocabulary's; `rows`
+    takes a batch-major tensor to the rows this rank serves (a batch
+    split over `model`); `every`, a list, gets each pass's logits."""
     import torch
     lens = torch.tensor([len(p) for p in prompts], device=dev)
     toks = torch.zeros((len(prompts), max(map(len, prompts))),
                        dtype=torch.int32, device=dev)
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = torch.from_numpy(p).to(dev)
+    if rows is not None:
+        lens, toks = rows(lens), rows(toks)
+    seen = [] if every is None else every
     first, cache, _ = prefill(params, {"tokens": toks}, cache,
                               last_index=lens - 1)
+    seen.append(first)
     tok = whole(first).argmax(-1)
     out, pos = [tok], lens.clone()
     for _ in range(TP["new"] - 1):
         logits, cache = decode(params, tok, pos, cache)
+        seen.append(logits)
         tok = whole(logits).argmax(-1)
         out.append(tok)
         pos = pos + 1
     return first, torch.stack(out, 1).tolist(), TP["new"]
 
 
-def tp_whole_serve(cfg, params, mode, prompts, dev):
+def same_bits(a, b) -> bool:
+    """Two lists of logits equal bit for bit, pass for pass."""
+    return len(a) == len(b) and all(bits_equal(x, y) for x, y in zip(a, b))
+
+
+def tp_whole_serve(cfg, params, mode, prompts, dev, every=None):
     """One device's greedy serve of `prompts` (tp_greedy) on whole params
     under `mode`: (the prefill's logits, tokens, passes, wall ending in a
-    synchronize)."""
+    synchronize); `every` as tp_greedy's."""
     import torch
     from repro_torch.core.numerics import DotEngine
     from repro_torch.models.model import Model
@@ -642,7 +688,8 @@ def tp_whole_serve(cfg, params, mode, prompts, dev):
     first, tokens, passes = tp_greedy(
         lambda p, b, c, last_index: model.prefill(p, b, c,
                                                   last_index=last_index),
-        model.decode_step, params, cache, prompts, dev, lambda t: t)
+        model.decode_step, params, cache, prompts, dev, lambda t: t,
+        every=every)
     torch.cuda.synchronize()
     return first, tokens, passes, time.monotonic() - t0
 
@@ -693,8 +740,9 @@ def tp_moe_one(_, tmp: str) -> None:
     ranks: each MoE cut whole in bf16 (the sharded init at one rank),
     served like the ranks under olm16, layer 0's wq held against each
     rank's columns and K1 on the whole head table's columns at each
-    rank's head input against the rank's local logits, bit for bit; then
-    (f)'s ring cut native. Its results to tmp/moe_one.pt."""
+    rank's head input against the rank's local logits, bit for bit, and
+    TP_F10's cut served once more for (l); then (f)'s ring cut native.
+    Its results to tmp/moe_one.pt."""
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = TP_ALLOC
     import torch
     from repro_torch.configs import get_config
@@ -710,9 +758,21 @@ def tp_moe_one(_, tmp: str) -> None:
     for arch, depth in MOE_DEPTH:
         cfg = dataclasses.replace(get_config(arch), n_layers=depth)
         params = init_serve_params(Model(cfg, device=dev), None, TP["seed"])
+        runs = [[]]
         with olm_calls({0}) as seen:
             first, tokens, passes, wall = tp_whole_serve(
-                cfg, params, "olm16", tp_prompts(cfg.vocab_size), dev)
+                cfg, params, "olm16", tp_prompts(cfg.vocab_size), dev,
+                every=runs[0])
+        f10 = None
+        if arch == TP_F10:
+            # (l) the same serve again: the same bits, pass for pass
+            runs.append([])
+            _, again, _, wall2 = tp_whole_serve(
+                cfg, params, "olm16", tp_prompts(cfg.vocab_size), dev,
+                every=runs[1])
+            f10 = dict(bits=same_bits(*runs), tokens=again == tokens,
+                       passes=len(runs[0]), walls=(wall, wall2))
+        del runs
         x0, out0 = seen[0]
         table = params["unembed"]["table"]
         n_wq, n_head = out0.shape[1] // TP_RANKS, table.shape[0] // TP_RANKS
@@ -726,7 +786,8 @@ def tp_moe_one(_, tmp: str) -> None:
                 o.to(dev), out0[:, r * n_wq:(r + 1) * n_wq]),
                 bits_equal(hout.to(dev), want)))
         out[arch] = dict(first=first.cpu(), tokens=tokens, passes=passes,
-                         wall=wall, bits=bits, n_wq=n_wq, n_head=n_head)
+                         wall=wall, bits=bits, n_wq=n_wq, n_head=n_head,
+                         f10=f10)
         del params, table, seen, x0, out0
         gc.collect()
         torch.cuda.empty_cache()
@@ -742,7 +803,7 @@ def tp_moe_one(_, tmp: str) -> None:
 
 def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
     """One rank of the tp phase (a process of its own, on cuda:0, in a gloo
-    group of `world` ranks on 127.0.0.1): (a)-(d) on its blocks, its
+    group of `world` ranks on 127.0.0.1): (a)-(l) on its blocks, its
     results in tmp/tp<r>.pt for the parent to hold against one device;
     raises on a launch count or a byte count that is off."""
     # Yi-34B's blocks fill most of the card that two ranks share: segments
@@ -753,7 +814,8 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.core.numerics import DotEngine
-    from repro_torch.distributed.collectives import all_gather_dim
+    from repro_torch.distributed.collectives import (all_gather_dim,
+                                                     shard_dims)
     from repro_torch.distributed.partition import Partition
     from repro_torch.distributed.sharding import Sharder, path_leaves
     from repro_torch.distributed.train import (init_serve_cache,
@@ -783,6 +845,11 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
         def whole(t):
             return all_gather_dim(t, 1, mesh, "model")
 
+        def mine(sharder):
+            """This rank's rows of a batch-major tensor under the
+            sharder's batch spec."""
+            return lambda t: shard_dims(t, sharder.batch_spec(), mesh)
+
         def blocks(cfg):
             """(the sharder, this rank's serve blocks, their bytes, the
             init's wall): the resident bytes equal to the specs' count."""
@@ -802,7 +869,11 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
                                    f"resident, the specs give {want}")
             return sharder, params, held, wall
 
-        def serve(cfg, sharder, params, mode, prompts):
+        def serve(cfg, sharder, params, mode, prompts, every=None):
+            """Greedy serve of `prompts` (tp_greedy) through the
+            partitioned steps: (the prefill's logits, tokens, passes,
+            wall). Where the Sharder replicates the weights the rank
+            serves its rows of the batch, every column of them."""
             model = Model(cfg, DotEngine(mode=mode), device=dev)
             cache = init_serve_cache(model, sharder, len(prompts),
                                      TP["max_len"])
@@ -810,10 +881,15 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
                                        cache)
             decode = jit_decode_step(model, sharder, params, cache,
                                      has_memory=False)
+            if sharder.replicated:
+                rows, cols = mine(sharder), (lambda t: t)
+            else:
+                rows, cols = None, whole
             torch.cuda.synchronize()
             t0 = time.monotonic()
             first, tokens, passes = tp_greedy(prefill, decode, params, cache,
-                                              prompts, dev, whole)
+                                              prompts, dev, cols, rows,
+                                              every)
             torch.cuda.synchronize()
             return first.cpu(), tokens, passes, time.monotonic() - t0
 
@@ -869,38 +945,60 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
+        def peaked_blocks(cfg, tag):
+            """blocks(cfg) with the init's peak: (the sharder, the
+            blocks, their bytes, the init's wall, its peak, the largest
+            whole leaf in f32). The peak is this rank's blocks and one
+            whole f32 leaf being drawn, no more."""
+            biggest = max(t.numel() * 4 for _, t in path_leaves(
+                Model(cfg, device="meta").init(0)))
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            sharder, params, held, init_s = blocks(cfg)
+            init_peak = torch.cuda.max_memory_allocated() - base
+            if init_peak > held + biggest:
+                raise RuntimeError(
+                    f"{tag} {cfg.name}: the init peaked at {init_peak} B, "
+                    f"past its blocks {held} B and one whole f32 leaf "
+                    f"{biggest} B")
+            return sharder, params, held, init_s, init_peak, biggest
+
         # (e) the MoE archs: experts split by d_ff, and by expert --------
         res["moe"] = {}
         for arch, depth in MOE_DEPTH:
             t0 = time.monotonic()
             mcfg = dataclasses.replace(get_config(arch), n_layers=depth)
-            # the init's peak: this rank's blocks and one whole f32 leaf
-            # being drawn (an expert stack), no more
-            biggest = max(t.numel() * 4 for _, t in path_leaves(
-                Model(mcfg, device="meta").init(0)))
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            sharder, params, held, init_s = blocks(mcfg)
-            init_peak = torch.cuda.max_memory_allocated() - base
-            if init_peak > held + biggest:
-                raise RuntimeError(
-                    f"(e) {mcfg.name}: the init peaked at {init_peak} B, "
-                    f"past its blocks {held} B and one whole f32 leaf "
-                    f"{biggest} B")
+            sharder, params, held, init_s, init_peak, biggest = \
+                peaked_blocks(mcfg, "(e)")
             part = Partition(sharder)
             per = gemms_per_pass(mcfg)
+            runs = [[]]
             with olm_calls({0, per - 1}) as seen, route_plans() as plans:
                 k12.launches = 0
                 first, tokens, passes, wall = serve(
                     mcfg, sharder, params, "olm16",
-                    tp_prompts(mcfg.vocab_size))
+                    tp_prompts(mcfg.vocab_size), every=runs[0])
                 launched = k12.launches
+            f10 = None
+            if arch == TP_F10:
+                # (l) F10: the same serve again, the same bits
+                runs.append([])
+                _, again, _, wall2 = serve(mcfg, sharder, params, "olm16",
+                                           tp_prompts(mcfg.vocab_size),
+                                           every=runs[1])
+                f10 = dict(bits=same_bits(*runs), tokens=again == tokens,
+                           passes=len(runs[0]), walls=(wall, wall2))
+                say(f"(l) {mcfg.name} partitioned, served twice: every "
+                    f"pass's logits bit-equal {f10['bits']} over "
+                    f"{f10['passes']} passes, tokens equal "
+                    f"{f10['tokens']}; walls {wall:.3f} and {wall2:.3f} s")
+            del runs
             res["moe"][arch] = dict(
                 first=first, tokens=tokens, wall=wall, wq=seen[0],
                 head=seen[per - 1], launches=launched, gemms=passes * per,
                 held=held, init_s=init_s, init_peak=init_peak,
                 biggest=biggest, plans=plans, layout=part.experts_by,
-                experts=part.expert_range())
+                experts=part.expert_range(), f10=f10)
             say(f"(e) {mcfg.name} at {depth} layers, experts split "
                 f"{part.experts_by} (this rank's experts "
                 f"{part.expert_range()} of {mcfg.n_experts}): {held} B of "
@@ -955,6 +1053,102 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
                 ring.sliding_window:
             raise RuntimeError("(f) the ring is not split over its length")
         del params, part
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (h) the recurrent arch as published, native --------------------
+        t0 = time.monotonic()
+        rec = get_config(TP["rec"])
+        sharder, params, held, init_s, init_peak, biggest = peaked_blocks(
+            rec, "(h)")
+        state = init_serve_cache(Model(rec, device="meta"), sharder,
+                                 SERVE["requests"], TP["max_len"])[0]
+        w = rec.rnn_width // world
+        if tuple(state["h"].shape) != (SERVE["requests"], w) or \
+                tuple(state["conv"].shape) != (SERVE["requests"],
+                                               rec.conv_width - 1, w):
+            raise RuntimeError("(h) the RG-LRU state is not split over "
+                               f"its channels: {state}")
+        first, tokens, passes, wall = serve(rec, sharder, params, "native",
+                                            tp_prompts(rec.vocab_size))
+        res["rec"] = dict(first=first, tokens=tokens, wall=wall, held=held,
+                          init_s=init_s, init_peak=init_peak,
+                          biggest=biggest)
+        say(f"(h) {rec.name} ({rec.n_layers} layers, RG-LRU width "
+            f"{rec.rnn_width}) on {mesh_shape(mesh)}: {held} B of serve "
+            f"blocks resident (the specs' count), drawn in {init_s:.1f} s, "
+            f"the init's peak {init_peak} B (blocks + one whole f32 leaf of "
+            f"{biggest} B at most); this rank's RG-LRU state h "
+            f"{tuple(state['h'].shape)}, conv {tuple(state['conv'].shape)};"
+            f" native {passes} passes in {wall:.3f} s; the part "
+            f"{time.monotonic() - t0:.1f} s")
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (k) one partitioned decode of (h)'s arch against its walk -------
+        t0 = time.monotonic()
+        kind, B, T = TP_DECODE
+        sharder = Sharder(mesh, rec)
+        sharder.set_batch(B)
+        res["rec_card"] = dryrun.card_step(
+            rec, ShapeCase("tp_rec_decode", T, B, kind), sharder)
+        say(f"(k) one partitioned {rec.name} decode ({B} lanes, {T} "
+            f"slots): FLOPs {res['rec_card']['flops']}, peak "
+            f"{res['rec_card']['peak']} B, walls "
+            f"{[round(w * 1e3, 3) for w in res['rec_card']['walls_s']]} ms;"
+            f" the part {time.monotonic() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (i) the recurrent arch cut to one pattern group, olm16 ---------
+        t0 = time.monotonic()
+        rcut = dataclasses.replace(rec, **TP_REC_CUT)
+        sharder, params, held, _ = blocks(rcut)
+        per = gemms_per_pass(rcut)
+        with olm_calls({0, per - 1}) as seen:
+            k12.launches = 0
+            first, tokens, passes, wall = serve(rcut, sharder, params,
+                                                "olm16",
+                                                tp_prompts(rcut.vocab_size))
+            launched = k12.launches
+        res["rec_olm"] = dict(first=first, tokens=tokens, wall=wall,
+                              wx=seen[0], head=seen[per - 1],
+                              launches=launched, gemms=passes * per)
+        say(f"(i) {rcut.name} at {rcut.n_layers} layers "
+            f"{rcut.layer_kinds}: olm16 {passes} passes in {wall:.3f} s, "
+            f"GEMMs issued {passes * per}, K1 launches {launched}; the part "
+            f"{time.monotonic() - t0:.1f} s")
+        if launched != passes * per:
+            raise RuntimeError(f"(i) K1 launched {launched} times for "
+                               f"{passes * per} GEMMs")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (j) the SSM arch as published, olm16: whole weights, its rows ---
+        t0 = time.monotonic()
+        ssm = get_config(TP["ssm"])
+        sharder, params, held, _ = blocks(ssm)
+        per = gemms_per_pass(ssm)
+        k12.launches = 0
+        first, tokens, passes, wall = serve(ssm, sharder, params, "olm16",
+                                            tp_prompts(ssm.vocab_size))
+        launched = k12.launches
+        lanes = mine(sharder)(torch.arange(SERVE["requests"])).tolist()
+        res["ssm"] = dict(first=first, tokens=tokens, wall=wall, held=held,
+                          launches=launched, gemms=passes * per,
+                          per=per, lanes=lanes)
+        say(f"(j) {ssm.name}: {held} B of serve params resident (the "
+            f"specs' count: every weight whole), the batch over "
+            f"{sharder.batch_spec()[0]}, this rank's rows {lanes}; olm16 "
+            f"{passes} passes in "
+            f"{wall:.3f} s, GEMMs issued {passes * per}, K1 launches "
+            f"{launched}; the part {time.monotonic() - t0:.1f} s")
+        if launched != passes * per:
+            raise RuntimeError(f"(j) K1 launched {launched} times for "
+                               f"{passes * per} GEMMs")
+        del params
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1471,6 +1665,45 @@ def main() -> int:
           flush=True)
     rate = sms * INT_OPS_PER_SM_CLOCK * clock_mhz * 1e6
 
+    def plain_olm(xs, ws, a=0, b=None, n=16, p=None):
+        """The plain version on columns a:b of w, PLAIN_OUTPUTS outputs a
+        call."""
+        b = ws.shape[1] if b is None else b
+        step = max(1, PLAIN_OUTPUTS // xs.shape[0])
+        return torch.cat([olm_matmul_ref(xs, ws[:, c:min(c + step, b)],
+                                         n_bits=n, trunc=p)
+                          for c in range(a, b, step)], dim=1)
+
+    def k1_spans(N, whole):
+        """The columns K1 is held on: all, or the first and the last
+        K1_SLICE."""
+        return ([(0, N)] if whole or N <= 2 * K1_SLICE
+                else [(0, K1_SLICE), (N - K1_SLICE, N)])
+
+    # The check phase's widest plain versions, at every serve GEMM shape
+    # and the dense family's M = 4 GEMMs, run on the card on a stream of
+    # their own, from a thread, while nvcc builds the kernels on the host
+    # and the lint phase reads them; the check phase draws the same
+    # operands again from their seeds.
+    WIDE_K1 = ((CHATGLM_KN, "chatglm3_6b", True),
+               (CUT_KN, "yi_34b / qwen1_5_110b", False))
+    side = torch.cuda.Stream(dev)
+
+    def plain_wide():
+        out = {}
+        with torch.cuda.stream(side):
+            for shape in SERVE_SHAPES:
+                out[shape] = plain_olm(*operands(shape, 2, dev))
+            for kns, _, whole in WIDE_K1:
+                for K, N in kns:
+                    xs, ws = operands((4, K, N), 13, dev)
+                    out[(4, K, N)] = [plain_olm(xs, ws, a, b)
+                                      for a, b in k1_spans(N, whole)]
+        return out
+
+    ahead = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    wide = ahead.submit(plain_wide)
+
     # 2. build ---------------------------------------------------------
     phase("build")
     t0 = time.monotonic()
@@ -1520,7 +1753,7 @@ def main() -> int:
                                            yd[:, 0].contiguous(),
                                            OnlinePrecision(n=16)),
         "tpmm": k5.tpmm_kernel(ap, bp, sa, sb, n_bits=16)}
-    torch.cuda.synchronize()
+    torch.cuda.current_stream().synchronize()
     for kernel, out in outputs.items():
         violations += lint_sass.check_dtype(kernel, str(out.dtype),
                                             where=f"{kernel} small launch")
@@ -1556,13 +1789,12 @@ def main() -> int:
             raise SystemExit(f"{kernel} disagrees with its plain version at "
                              f"{label}")
 
-    def hold_both(label, xs, ws, n, p=None, transposed=False):
-        """K1 and K2 against the plain version and K2 against K1; K1 also
-        reading w through the transpose of an (N, K) row-major copy."""
-        cols = max(1, PLAIN_OUTPUTS // xs.shape[0])
-        want = torch.cat([olm_matmul_ref(xs, ws[:, c:c + cols], n_bits=n,
-                                         trunc=p)
-                          for c in range(0, ws.shape[1], cols)], dim=1)
+    def hold_both(label, xs, ws, n, p=None, transposed=False, want=None):
+        """K1 and K2 against the plain version (`want`, else computed
+        here) and K2 against K1; K1 also reading w through the transpose
+        of an (N, K) row-major copy."""
+        if want is None:
+            want = plain_olm(xs, ws, n=n, p=p)
         fused = olm_matmul(xs, ws, n_bits=n, trunc=p)
         hold("olm_matmul_fused", label, fused, want)
         if transposed:
@@ -1595,8 +1827,16 @@ def main() -> int:
                              f"exactly 0 (quantize={quantize!r})")
     print("[check] all-subnormal tile contributes exactly 0 in K1 and K2: "
           "True")
+    t0 = time.monotonic()
+    wants = wide.result()
+    ahead.shutdown()
+    torch.cuda.current_stream().wait_stream(side)
+    side.synchronize()
+    print(f"[check] the plain versions computed since the build phase "
+          f"ready after {time.monotonic() - t0:.1f} s more", flush=True)
     for shape in SERVE_SHAPES:
-        hold_both(f"olm16 M,K,N={shape}", *operands(shape, 2, dev), 16)
+        hold_both(f"olm16 M,K,N={shape}", *operands(shape, 2, dev), 16,
+                  want=wants.pop(shape))
         torch.cuda.empty_cache()
     # F7: row blocks past grid y's 65,535 continue in grid z
     M, K, N = TALL
@@ -1616,35 +1856,27 @@ def main() -> int:
     del xs, ws, fused, host, want
     torch.cuda.empty_cache()
 
-    def plain_olm16(xs, ws, a=0, b=None):
-        """The plain olm16 version on columns a:b of w, PLAIN_OUTPUTS
-        outputs a call."""
-        b = ws.shape[1] if b is None else b
-        step = max(1, PLAIN_OUTPUTS // xs.shape[0])
-        return torch.cat([olm_matmul_ref(xs, ws[:, c:min(c + step, b)],
-                                         n_bits=16)
-                          for c in range(a, b, step)], dim=1)
-
-    def hold_k1(label, xs, ws, whole):
+    def hold_k1(label, xs, ws, whole, wants=None):
         """K1 on the whole GEMM against the plain version on all of its
-        columns, or on the first and the last K1_SLICE."""
+        columns, or on the first and the last K1_SLICE (`wants`, one a
+        span, else computed here)."""
         got = olm_matmul(xs, ws, n_bits=16)
-        N = ws.shape[1]
-        spans = ([(0, N)] if whole or N <= 2 * K1_SLICE
-                 else [(0, K1_SLICE), (N - K1_SLICE, N)])
-        for a, b in spans:
+        spans = k1_spans(ws.shape[1], whole)
+        if wants is None:
+            wants = [plain_olm(xs, ws, a, b) for a, b in spans]
+        for (a, b), want in zip(spans, wants):
             hold("olm_matmul_fused", f"{label} columns {a}:{b}",
-                 got[:, a:b].contiguous(), plain_olm16(xs, ws, a, b))
+                 got[:, a:b].contiguous(), want)
 
     # (K1's 64-row prefill is held at the serve shapes above)
-    for M, kns, arch in ((4, CHATGLM_KN, "chatglm3_6b"),
-                         (4, CUT_KN, "yi_34b / qwen1_5_110b")):
+    for kns, arch, whole in WIDE_K1:
         for K, N in kns:
-            xs, ws = operands((M, K, N), 13, dev)
-            hold_k1(f"olm16 {arch} M,K,N={(M, K, N)}", xs, ws,
-                    whole=M == 4 and arch == "chatglm3_6b")
+            xs, ws = operands((4, K, N), 13, dev)
+            hold_k1(f"olm16 {arch} M,K,N={(4, K, N)}", xs, ws, whole,
+                    wants.pop((4, K, N)))
             del xs, ws
             torch.cuda.empty_cache()
+    assert not wants, wants.keys()
     for arch, kns in FAMILY_KN.items():
         rows = (4,) + (RG_ROWS if arch == "recurrentgemma_9b" else ())
         for M in rows:
@@ -1669,7 +1901,7 @@ def main() -> int:
                 hold("olm_matmul_fused", f"olm16 {arch} M,K,N="
                      f"{(ENC_ROWS, K, N)} rows {a}:{b}",
                      got[a:b].contiguous(),
-                     plain_olm16(xs[a:b].contiguous(), ws))
+                     plain_olm(xs[a:b].contiguous(), ws))
             del xs, ws, got
             torch.cuda.empty_cache()
 
@@ -1888,9 +2120,15 @@ def main() -> int:
                k12.int_ops(M, N, K, n=16, quantize=False), rate,
                planned[1])
         del xd, wd
+    def timed_plain(x, w):
+        """The plain olm16 version's time where its work is at most
+        PLAIN_TIMED_WORK, else None (not timed)."""
+        (M, K), N = x.shape, w.shape[1]
+        return (cuda_ms(lambda: plain_olm(x, w), reps=1)
+                if M * K * N <= PLAIN_TIMED_WORK else None)
+
     # K1 at ChatGLM3-6B's GEMMs: the 4-lane decode and the 64-row prefill
-    # of the dense phase's serve (the plain version timed at M = 4 only:
-    # at M = 64 it takes tens of seconds a shape)
+    # of the dense phase's serve
     for M in (4, 64):
         for K, N in CHATGLM_KN:
             x, w = operands((M, K, N), 14, dev)
@@ -1898,13 +2136,11 @@ def main() -> int:
             record("olm_matmul_fused", f"olm16 chatglm3_6b M={M} K={K} N={N}",
                    cuda_ms(lambda: k12.olm_matmul_fused(x, w, n=16),
                            reps=10 if M == 4 else 5, warmup=1),
-                   cuda_ms(lambda: plain_olm16(x, w), reps=1) if M == 4
-                   else None, (M * K + K * N + M * N) * 4,
+                   timed_plain(x, w), (M * K + K * N + M * N) * 4,
                    k12.int_ops(M, N, K, n=16), rate,
                    f"plan bm x bn x tb {plan.bm} x {plan.bn} x {plan.tb}")
             del x, w
-    # K1 at the recurrent and MoE families' decode GEMMs (the plain
-    # version timed up to WHOLE_N columns)
+    # K1 at the recurrent and MoE families' decode GEMMs
     for arch, kns in FAMILY_KN.items():
         for K, N in kns:
             x, w = operands((4, K, N), 16, dev)
@@ -1912,15 +2148,13 @@ def main() -> int:
             record("olm_matmul_fused", f"olm16 {arch} M=4 K={K} N={N}",
                    cuda_ms(lambda: k12.olm_matmul_fused(x, w, n=16), reps=5,
                            warmup=1),
-                   cuda_ms(lambda: plain_olm16(x, w), reps=1)
-                   if N <= WHOLE_N else None, (4 * K + K * N + 4 * N) * 4,
+                   timed_plain(x, w), (4 * K + K * N + 4 * N) * 4,
                    k12.int_ops(4, N, K, n=16), rate,
                    f"plan bm x bn x tb {plan.bm} x {plan.bn} x {plan.tb}")
             del x, w
             torch.cuda.empty_cache()
     # K1 at the enc-dec and VLM families' new shapes: a 4-lane decode and
-    # the ENC_ROWS-row cross K/V and encoder GEMMs (the plain version timed
-    # at M = 4 up to WHOLE_N columns)
+    # the ENC_ROWS-row cross K/V and encoder GEMMs
     for arch, kns in CROSS_KN.items():
         for M, K, N in ([(4, K, N) for K, N in kns]
                         + [(ENC_ROWS, K, N) for K, N in CROSS_ROWS_KN[arch]]):
@@ -1929,9 +2163,8 @@ def main() -> int:
             record("olm_matmul_fused", f"olm16 {arch} M={M} K={K} N={N}",
                    cuda_ms(lambda: k12.olm_matmul_fused(x, w, n=16),
                            reps=5 if M == 4 else 3, warmup=1),
-                   cuda_ms(lambda: plain_olm16(x, w), reps=1)
-                   if M == 4 and N <= WHOLE_N else None,
-                   (M * K + K * N + M * N) * 4, k12.int_ops(M, N, K, n=16),
+                   timed_plain(x, w), (M * K + K * N + M * N) * 4,
+                   k12.int_ops(M, N, K, n=16),
                    rate, f"plan bm x bn x tb {plan.bm} x {plan.bn} x "
                    f"{plan.tb}")
             del x, w
@@ -3335,6 +3568,30 @@ def main() -> int:
     params = init_serve_params(Model(cut, device=dev), None, TP["seed"])
     ones["cut"] = tp_whole_serve(cut, params, "native", prompts, dev)
     del params
+    # (h), (i) and (j) on one device, on the same bf16 serve params
+    t0 = time.monotonic()
+    rec = get_config(TP["rec"])
+    params = init_serve_params(Model(rec, device=dev), None, TP["seed"])
+    ones["rec"] = tp_whole_serve(rec, params, "native",
+                                 tp_prompts(rec.vocab_size), dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rcut = dataclasses.replace(rec, **TP_REC_CUT)
+    params = init_serve_params(Model(rcut, device=dev), None, TP["seed"])
+    with olm_calls({0}) as seen:
+        ones["rec_olm"] = tp_whole_serve(rcut, params, "olm16",
+                                         tp_prompts(rcut.vocab_size), dev)
+    wx0 = seen[0]
+    rec_head = params["unembed"]["table"].cpu()
+    del params, seen
+    ssm = get_config(TP["ssm"])
+    params = init_serve_params(Model(ssm, device=dev), None, TP["seed"])
+    ones["ssm"] = tp_whole_serve(ssm, params, "olm16",
+                                 tp_prompts(ssm.vocab_size), dev)
+    del params
+    print(f"[tp] one device, (h), (i) and (j): {time.monotonic() - t0:.1f} "
+          "s, the inits included", flush=True)
     for tag, (first, tokens, passes, wall) in ones.items():
         ones[tag] = (first.cpu(), tokens, passes, wall)
         print(f"[tp] one device, {tag}: {passes} passes in {wall:.3f} s",
@@ -3381,6 +3638,12 @@ def main() -> int:
                 moe_cut, ShapeCase("tp_moe_decode", T, B, kind),
                 make_abstract_mesh((1, TP_RANKS), ("data", "model")))
             walk_moe_s = time.monotonic() - t0_walk
+            # (k) the recurrent decode's walk
+            t0_walk = time.monotonic()
+            walked_rec, coll_rec, _ = dryrun.walk_cell(
+                rec, ShapeCase("tp_rec_decode", T, B, kind),
+                make_abstract_mesh((1, TP_RANKS), ("data", "model")))
+            walk_rec_s = time.monotonic() - t0_walk
             # a rank that raises fails this call, and with it the script
             while not ctx.join():
                 pass
@@ -3508,20 +3771,98 @@ def main() -> int:
           f"{sum(map(len, ring['tokens']))}; wall by rank "
           f"{[round(r['ring']['wall'], 3) for r in ranks]} s against one "
           f"device's {ring['wall']:.3f} s", flush=True)
+    def held_to_walk(tag, key, walked, coll, walk_s):
+        """A decode's walk against each rank's step on the card (res[key]):
+        FLOPs equal, peak within DRYRUN_PEAK_TOL."""
+        for r, res in enumerate(ranks):
+            card = res[key]
+            rel = walked["bytes_per_device"]["peak"] / card["peak"] - 1
+            print(f"[tp] {tag} rank {r}: FLOPs walk {walked['flops']} card "
+                  f"{card['flops']}; peak walk "
+                  f"{walked['bytes_per_device']['peak']} B card "
+                  f"{card['peak']} B ({rel:+.2%}; gate "
+                  f"{DRYRUN_PEAK_TOL:.0%}); the walk's collectives "
+                  f"{coll['per_axis']} B, {coll['count']} calls, walked in "
+                  f"{walk_s:.1f} s", flush=True)
+            if walked["flops"] != card["flops"] or \
+                    abs(rel) > DRYRUN_PEAK_TOL:
+                raise SystemExit(f"tp: {tag} the walk is off rank {r}'s "
+                                 "step")
+
     # (g) the MoE decode's walk against each rank's step on the card
+    held_to_walk("(g)", "moe_card", walked_moe, coll_moe, walk_moe_s)
+    # (h) the recurrent arch as published against one device
     for r, res in enumerate(ranks):
-        card = res["moe_card"]
-        rel = walked_moe["bytes_per_device"]["peak"] / card["peak"] - 1
-        print(f"[tp] (g) rank {r}: FLOPs walk {walked_moe['flops']} card "
-              f"{card['flops']}; peak walk "
-              f"{walked_moe['bytes_per_device']['peak']} B card "
-              f"{card['peak']} B ({rel:+.2%}; gate {DRYRUN_PEAK_TOL:.0%}); "
-              f"the walk's collectives {coll_moe['per_axis']} B, "
-              f"{coll_moe['count']} calls, walked in {walk_moe_s:.1f} s",
-              flush=True)
-        if walked_moe["flops"] != card["flops"] or \
-                abs(rel) > DRYRUN_PEAK_TOL:
-            raise SystemExit(f"tp: (g) the walk is off rank {r}'s step")
+        h = res["rec"]
+        print(f"[tp] (h) {rec.name} rank {r}: {h['held']} B of bf16 serve "
+              f"blocks (the specs' count), drawn in {h['init_s']:.1f} s, "
+              f"the init's peak {h['init_peak']} B (at most the blocks and "
+              f"{h['biggest']} B); wall {h['wall']:.3f} s against one "
+              f"device's {ones['rec'][3]:.3f} s", flush=True)
+    gate(f"(h) {rec.name} native", gathered("rec"), ones["rec"][0],
+         rec.vocab_size)
+    n_tok = sum(map(len, ones["rec"][1]))
+    print(f"[tp] (h) tokens equal to one device's "
+          f"{same(ranks[0]['rec']['tokens'], ones['rec'][1])} of {n_tok}; "
+          f"one device's tokens {ones['rec'][1]}, the ranks' "
+          f"{ranks[0]['rec']['tokens']}", flush=True)
+    # (i) the cut under olm16: wx's and the head's columns, bit for bit
+    n_wx = wx0[1].shape[1] // TP_RANKS
+    n_head = rec_head.shape[0] // TP_RANKS
+    for r, res in enumerate(ranks):
+        i = res["rec_olm"]
+        x, out = i["wx"]
+        wx_ok = bits_equal(x, wx0[0]) and bits_equal(
+            out, wx0[1][:, r * n_wx:(r + 1) * n_wx])
+        hx, hout = i["head"]
+        head_ok = bits_equal(hout.to(dev), olm_matmul(
+            hx.to(dev), rec_head[r * n_head:(r + 1) * n_head].to(dev).T
+            .to(torch.float32), n_bits=16))
+        print(f"[tp] (i) rank {r}: layer 0's wx input equal to one device's "
+              f"and its {n_wx} columns of the output bit-equal to one "
+              f"device's K1: {wx_ok}; the head's {n_head} local logits "
+              f"bit-equal to K1 on the whole table's columns at the rank's "
+              f"input: {head_ok}; K1 launches {i['launches']} == GEMMs "
+              f"issued {i['gemms']}; wall {i['wall']:.3f} s against one "
+              f"device's {ones['rec_olm'][3]:.3f} s", flush=True)
+        if not (wx_ok and head_ok):
+            raise SystemExit(f"tp: (i) rank {r}'s column blocks off one "
+                             "device's K1")
+    del wx0, rec_head
+    gate(f"(i) {rcut.name} at {rcut.n_layers} layers olm16",
+         gathered("rec_olm"), ones["rec_olm"][0], rcut.vocab_size)
+    print(f"[tp] (i) tokens equal to one device's "
+          f"{same(ranks[0]['rec_olm']['tokens'], ones['rec_olm'][1])} of "
+          f"{sum(map(len, ones['rec_olm'][1]))}", flush=True)
+    # (j) each rank's rows against one device's
+    for r, res in enumerate(ranks):
+        j = res["ssm"]
+        lanes = j["lanes"]
+        mine, want = j["first"], ones["ssm"][0][lanes]
+        print(f"[tp] (j) {ssm.name} rank {r}: {j['held']} B resident (the "
+              f"whole model); rows {lanes} bit-equal to one device's "
+              f"rows: {bits_equal(mine, want)}; tokens equal "
+              f"{same(j['tokens'], [ones['ssm'][1][i] for i in lanes])} of "
+              f"{sum(map(len, j['tokens']))}; K1 launches {j['launches']} "
+              f"== GEMMs issued {j['gemms']} ({j['per']} a pass); wall "
+              f"{j['wall']:.3f} s against one device's "
+              f"{ones['ssm'][3]:.3f} s", flush=True)
+        gate(f"(j) {ssm.name} olm16 rank {r}'s rows", mine, want,
+             ssm.vocab_size)
+    # (k) the recurrent decode's walk against each rank's step
+    held_to_walk("(k)", "rec_card", walked_rec, coll_rec, walk_rec_s)
+    # (l) F10: two serves of the same requests, the same bits
+    f10 = [("partitioned", f"rank {r}", res["moe"][TP_F10]["f10"])
+           for r, res in enumerate(ranks)]
+    f10.append(("one device", "", moe_one[TP_F10]["f10"]))
+    for side, who, f in f10:
+        print(f"[tp] (l) {get_config(TP_F10).name} {side} {who}: served "
+              f"twice, every pass's logits bit-equal {f['bits']} over "
+              f"{f['passes']} passes, tokens equal {f['tokens']}; walls "
+              f"{[round(w, 3) for w in f['walls']]} s", flush=True)
+        if not (f["bits"] and f["tokens"]):
+            raise SystemExit(f"tp: (l) F10: {side} {who} gave other bits "
+                             "on a second serve")
     print(f"[tp] the phase {time.monotonic() - t_phase:.1f} s; {smi_line}",
           flush=True)
     by_path["olm_matmul_fused"]["tp"] = {
@@ -3530,6 +3871,10 @@ def main() -> int:
         by_path["olm_matmul_fused"]["tp"].update({
             f"rank {r} (e) {get_config(arch).name}":
             res["moe"][arch]["launches"] for r, res in enumerate(ranks)})
+    for tag, key in (("(i)", "rec_olm"), ("(j)", "ssm")):
+        by_path["olm_matmul_fused"]["tp"].update({
+            f"rank {r} {tag}": res[key]["launches"]
+            for r, res in enumerate(ranks)})
     del ranks, ones, moe_one
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 """The partition context of the partitioned serve steps: what GSPMD does
 with the reference's `jit_prefill_step` / `jit_decode_step` shardings,
-done by hand for the dense and MoE families.
+done by hand for the dense, MoE and recurrent families (the SSM family's
+weights are replicated: its step runs with no context).
 
 A `Partition` is the Sharder (its mesh, its config, its specs) plus this
 rank's coordinate along `model`. The layers (`models/layers.py`) take one
@@ -25,7 +26,11 @@ holds its blocks at the Sharder's specs and:
     its input the same bits everywhere), runs its expert GEMMs on the
     rank's experts (`ep`) or on every expert's d_ff block (`tp`), the
     layout the Sharder's spec of the expert leaves gives, and sums the
-    combined f32 partials once over `model` (`models/moe.py`).
+    combined f32 partials once over `model` (`models/moe.py`);
+  * an RG-LRU layer (`models/recurrent.py`) keeps its conv, gates, scan
+    and f32 state on the rank's channels: wx and wy column-parallel, the
+    whole u gathered over `model` once for the wa and wi products on the
+    rank's output columns, wo row-parallel.
 
 The collectives are the c10d calls of `collectives.py` on the mesh's
 groups: gloo on the CPU and between ranks that share a card.

@@ -41,9 +41,12 @@ The serve steps keep one of two layouts:
     (`partition.py`), the logits vocab-sharded at P(batch, vocab_axis()).
     No rank holds a whole weight of a `model`-sharded leaf or more of the
     cache than its block; `init_serve_params` draws the blocks without a
-    whole model ever existing on the rank. The dense and MoE families
-    (sliding-window rings too): the others raise NotImplementedError and
-    name their ROADMAP item.
+    whole model ever existing on the rank. The dense, MoE (sliding-window
+    rings too) and recurrent families run under the partition context;
+    the SSM family, whose weights the Sharder replicates, runs the whole
+    path on the rank's rows of the batch and cache, with no collective,
+    as the reference's compiled program has none. The cross-attention
+    families raise NotImplementedError and name their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -333,10 +336,6 @@ def build_decode_step(model: Model):
 # The families without a partitioned serve yet, and the ROADMAP section 1
 # item that brings it.
 UNPARTITIONED = {
-    "hybrid": "item 13, the partitioned recurrent serve (RG-LRU h and conv "
-              "over model)",
-    "ssm": "item 14, the partitioned SSM serve (replicated weights, batch "
-           "over both axes)",
     "encdec": "item 15, the partitioned cross-attention serve",
     "vlm": "item 15, the partitioned cross-attention serve",
 }
@@ -423,14 +422,16 @@ def init_serve_cache(model: Model, sharder: Sharder, batch: int,
 
 def unpartitioned(cfg: ModelConfig) -> Optional[str]:
     """None where the port has a partitioned serve step for `cfg` (the
-    dense and MoE families, with or without experts or a window), else
-    the ROADMAP item that brings one."""
+    dense, MoE, recurrent and SSM families, with or without experts or a
+    window), else the ROADMAP item that brings one."""
     return UNPARTITIONED.get(cfg.family)
 
 
-def _partition(model: Model, sharder: Sharder) -> Partition:
+def _partition(model: Model, sharder: Sharder) -> Optional[Partition]:
     """The partition context of `model`'s serve steps on the sharder's
-    mesh; raises for a configuration with no partitioned serve yet."""
+    mesh: None where the Sharder replicates every weight (the SSM family:
+    the rank runs the whole path on its rows); raises for a configuration
+    with no partitioned serve yet."""
     cfg = model.cfg
     item = unpartitioned(cfg)
     if item is not None:
@@ -442,7 +443,7 @@ def _partition(model: Model, sharder: Sharder) -> Partition:
         raise ValueError("a partitioned step runs each GEMM on this rank's "
                          "blocks: its engine shards nothing itself "
                          f"(shard={model.eng.shard!r})")
-    return Partition(sharder)
+    return None if sharder.replicated else Partition(sharder)
 
 
 def _check_blocks(model: Model, sharder: Sharder, params) -> None:
@@ -465,12 +466,14 @@ def jit_prefill_step(model: Model, sharder: Sharder, params, batch_keys,
     None), `params` this rank's blocks at `sharder.param_specs` (they are
     checked here), `batch` its rows at `sharder.batch_specs(batch_keys)`,
     `cache` its block at `sharder.cache_specs` (`init_serve_cache`),
-    updated in place; the logits (B_rank, vocab_padded / model) at
-    P(batch, vocab_axis()). `last_index=` (each lane's last prompt
-    position, `Model.prefill`'s) serves right-padded prompts. A MoE
-    layer runs the experts of this rank's blocks, split by expert or by
-    d_ff as the specs of its leaves give (`models/moe.py`); a
-    sliding-window layer keeps its block of the ring (`models/layers.py`)."""
+    updated in place; the logits at P(batch, vocab_axis()): (B_rank,
+    vocab_padded / model), or (B_rank, vocab_padded) where the weights
+    are replicated. `last_index=` (each lane's last prompt position,
+    `Model.prefill`'s) serves right-padded prompts. A MoE layer runs the
+    experts of this rank's blocks, split by expert or by d_ff as the
+    specs of its leaves give (`models/moe.py`); a sliding-window layer
+    keeps its block of the ring (`models/layers.py`); an RG-LRU layer its
+    channels of the state (`models/recurrent.py`)."""
     part = _partition(model, sharder)
     _check_blocks(model, sharder, params)
     if set(batch_keys) - {"tokens", "mask"}:

@@ -11,15 +11,17 @@ For each cell the dry run:
      arguments as meta tensors (`input_specs`): train runs the port's
      sharded step (`build_train_step(model, sharder, microbatches=...)`)
      on the state `distribute_state` rests; prefill and decode keep one of
-     two layouts (the record's `layout`). "partitioned", the dense and
-     MoE families': `jit_prefill_step` / `jit_decode_step` on this rank's
-     blocks of the bf16 serve params (`init_serve_params`), of the batch
-     and of the cache at the Sharder's specs, moving their collectives
-     over `model` and, under fsdp_tp, `data`. "whole", every other
-     family's: `build_prefill_step` / `build_decode_step` on whole bf16
-     serve params (f32 leaves of 2 or more dims cast, the reference's
-     `_serve_params` rule), the rank's rows of the batch and a cache of
-     its rows, no collective (`SERVE_NOTE`);
+     two layouts (the record's `layout`). "partitioned", the dense, MoE,
+     recurrent and SSM families': `jit_prefill_step` / `jit_decode_step`
+     on this rank's blocks of the bf16 serve params (`init_serve_params`),
+     of the batch and of the cache at the Sharder's specs, moving their
+     collectives over `model` and, under fsdp_tp, `data` (none for the
+     SSM family, whose weights are replicated). "whole", the
+     cross-attention families': `build_prefill_step` /
+     `build_decode_step` on whole bf16 serve params (f32 leaves of 2 or
+     more dims cast, the reference's `_serve_params` rule), the rank's
+     rows of the batch and a cache of its rows, no collective
+     (`SERVE_NOTE`);
   3. runs that step once under `roofline.walk`: dot FLOPs, the bytes each
      op reads and writes, the live bytes and their peak, the collectives
      by kind and mesh axis;
@@ -104,8 +106,8 @@ def eval_shape_tree(fn: Callable, *args):
 
 def serve_layout(cfg) -> str:
     """The layout a serve cell of `cfg` walks: "partitioned" where the
-    port has partitioned serve steps (the dense and MoE families), else
-    "whole"."""
+    port has partitioned serve steps (the dense, MoE, recurrent and SSM
+    families), else "whole"."""
     return "whole" if unpartitioned(cfg) else "partitioned"
 
 

@@ -8,7 +8,9 @@ buffer. Assignments past an expert's capacity C go to a sink slot and
 are dropped: their combine weight is zero, so the residual passes
 through. The router and the expert GEMMs are plain matmuls, as they are
 plain `jnp.einsum` in the reference: under a digit mode an MoE layer runs
-the DotEngine on its attention GEMMs only.
+the DotEngine on its attention GEMMs only. The combine adds each token's
+kept updates one by one in ascending slot order (`_combine`), so its bits
+do not depend on the device: no atomic sum.
 
 Under a partition context (`distributed/partition.py`) every rank routes
 the same tokens alike, runs the expert GEMMs on its block of the expert
@@ -114,7 +116,7 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     buf_tok, slot, st, sw, keep, aux = (torch.stack(t) for t in zip(*plans))
     aux = aux.mean()
     if part is not None:
-        return _partitioned(p, x, buf_tok.reshape(B, E, C), slot,
+        return _partitioned(p, x, buf_tok.reshape(B, E, C), slot, st,
                             torch.where(keep, sw, torch.zeros_like(sw)),
                             part), aux
 
@@ -132,28 +134,50 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     wslot = torch.zeros((B, E * C + 1), dtype=torch.float32, device=x.device)
     wslot.scatter_(1, slot, torch.where(keep, sw, torch.zeros_like(sw)))
     upd = ye * wslot[:, :-1].reshape(B, E, C)[..., None].to(x.dtype)
+    return _combine(upd.reshape(B, E * C, d), slot, st, S, 0), aux
 
-    # combine: scatter-add each slot's update into its token's row (the
-    # empty slots into row S, which is cut off)
-    tok = torch.clamp(buf_ec, max=S) + rows * (S + 1)
-    out = x.new_zeros((B * (S + 1), d)).index_add_(
-        0, tok.reshape(-1), upd.reshape(-1, d))
-    return out.reshape(B, S + 1, d)[:, :S], aux
+
+def _combine(upd: torch.Tensor, slot: torch.Tensor, st: torch.Tensor,
+             T: int, lo: int) -> torch.Tensor:
+    """Each of T tokens' updates summed in a fixed order: upd (B, n, d)
+    holds the updates of slots lo .. lo + n - 1, slot and st (B, T * K)
+    each assignment's slot (sink E * C when dropped) and token. Returns
+    (B, T, d) in upd's dtype: zeros, plus the token's K updates one add at
+    a time in ascending slot order, each sum rounded to that dtype. A
+    dropped assignment, or a slot outside the n, adds an exact zero. This
+    is the order of the reference's scatter-add and of the CPU's
+    index_add_; CUDA's index_add_ adds with atomics, in no fixed order,
+    and a reduction that rounds once rounds otherwise."""
+    B, n, d = upd.shape
+    K = slot.shape[1] // T
+    # a token's assignments, grouped by a stable sort on the token, then
+    # its K slots ascending
+    by_tok = slot.gather(1, torch.argsort(st, dim=1, stable=True))
+    mine = torch.sort(by_tok.reshape(B, T, K), dim=-1).values - lo
+    held = (mine >= 0) & (mine < n)
+    mine = mine.clamp(0, n - 1)
+    rows = torch.arange(B, device=upd.device)[:, None]
+    out = torch.zeros((B, T, d), dtype=upd.dtype, device=upd.device)
+    for k in range(K):
+        out = out + torch.where(held[..., k, None], upd[rows, mine[..., k]],
+                                0.0)
+    return out
 
 
 def _partitioned(p: Params, x: torch.Tensor, buf_ec: torch.Tensor,
-                 slot: torch.Tensor, w: torch.Tensor, part) -> torch.Tensor:
+                 slot: torch.Tensor, st: torch.Tensor, w: torch.Tensor,
+                 part) -> torch.Tensor:
     """The experts and the combine on this rank's blocks, from the plan
     every rank made alike: the token id of each (expert, slot) buf_ec
-    (B, E, C), each assignment's slot (sink E * C when dropped) and its
+    (B, E, C), each assignment's slot (sink E * C when dropped), token and
     combine weight w (zero when dropped), (B, T * K).
 
     Under ep the rank gathers the tokens of its experts alone and its
     einsums give their whole updates; under tp it gathers every expert's
     tokens, g and u on its d_ff columns, and wd on its rows an f32 partial
     of every update. Each expert leaf is whole over `data` only inside its
-    einsum. The rank scatter-adds its weighted updates into an f32
-    (B, S, d), summed once over `model` and cast once to x's dtype."""
+    einsum. The rank combines its weighted updates (`_combine`) into an
+    f32 (B, S, d), summed once over `model` and cast once to x's dtype."""
     B, S, d = x.shape
     E, C = buf_ec.shape[1:]
     e0, e1 = part.expert_range()
@@ -175,9 +199,5 @@ def _partitioned(p: Params, x: torch.Tensor, buf_ec: torch.Tensor,
     wslot = torch.zeros((B, E * C + 1), dtype=torch.float32, device=x.device)
     wslot.scatter_(1, slot, w.to(torch.float32))
     upd = ye * wslot[:, :-1].reshape(B, E, C)[:, e0:e1, :, None]
-    tok = torch.clamp(mine, max=S) + rows * (S + 1)
-    out = torch.zeros((B * (S + 1), d), dtype=torch.float32,
-                      device=x.device).index_add_(0, tok.reshape(-1),
-                                                  upd.reshape(-1, d))
-    out = out.reshape(B, S + 1, d)[:, :S].contiguous()
+    out = _combine(upd.reshape(B, -1, d), slot, st, S, e0 * C)
     return part.sum(out).to(x.dtype)

@@ -19,6 +19,15 @@ DotEngine, so they run K1 under olm16; the RG-LRU gates wa and wi and
 every SSD contraction are plain matmuls, as they are plain `jnp.einsum`
 in the reference. A state dict passed in is updated in place (its `h`
 and `conv` keep their f32 storage), as the attention caches are.
+
+Under a partition context (`distributed/partition.py`) the RG-LRU runs on
+this rank's channels, as GSPMD runs the reference's specs: wx and wy
+column-parallel, the depthwise conv, the gates' output columns, the scan
+and the f32 state on the rank's block of the w channels, the whole u
+gathered over `model` once a layer for the wa and wi products, and wo
+row-parallel. The SSD block has no partitioned form: the Sharder
+replicates its weights and splits only the batch, so it runs whole on
+the rank's rows.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.numerics import DotEngine
 from .config import ModelConfig
-from .layers import dense_init
+from .layers import Keep, _col, _row, _whole, dense_init
 
 Params = Dict[str, Any]
 State = Dict[str, torch.Tensor]
@@ -109,25 +118,31 @@ def _write_state(state: Optional[State], new: State) -> None:
 # RG-LRU block (Griffin recurrent block: conv1d + gated linear recurrence)
 # --------------------------------------------------------------------------
 
-def rglru_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def rglru_init(gen: torch.Generator, cfg: ModelConfig, device,
+               keep: Keep = _whole) -> Params:
+    """`keep(name, leaf)` takes each leaf as it is drawn, before the next
+    draw, and returns what the tree holds (Model.init)."""
     d, dt = cfg.d_model, cfg.pdtype
     w = cfg.rnn_width or d
     # Lambda init so a = sigmoid(L)^c is in ~(0.9, 0.999); kept f32
-    lam = 2.0 + 4.0 * torch.rand((w,), generator=gen, dtype=torch.float32,
-                                 device=device)
-    conv = torch.randn((cfg.conv_width, w), generator=gen,
-                       dtype=torch.float32, device=device) * 0.1
-    return {
-        "wx": dense_init(gen, d, w, dt, device),       # recurrence branch
-        "wy": dense_init(gen, d, w, dt, device),       # gate branch
-        "conv": conv.to(dt),
-        "wa": dense_init(gen, w, w, dt, device),
-        "ba": torch.zeros((w,), dtype=dt, device=device),
-        "wi": dense_init(gen, w, w, dt, device),
-        "bi": torch.zeros((w,), dtype=dt, device=device),
-        "lam": lam,
-        "wo": dense_init(gen, w, d, dt, device),
-    }
+    lam = keep("lam", 2.0 + 4.0 * torch.rand(
+        (w,), generator=gen, dtype=torch.float32, device=device))
+    conv = keep("conv", (torch.randn((cfg.conv_width, w), generator=gen,
+                                     dtype=torch.float32, device=device)
+                         * 0.1).to(dt))
+
+    def dense(name, d_in, d_out):
+        return keep(name, dense_init(gen, d_in, d_out, dt, device))
+
+    def zeros(name):
+        return keep(name, torch.zeros((w,), dtype=dt, device=device))
+
+    wx = dense("wx", d, w)                             # recurrence branch
+    wy = dense("wy", d, w)                             # gate branch
+    wa, ba = dense("wa", w, w), zeros("ba")
+    wi, bi = dense("wi", w, w), zeros("bi")
+    return {"wx": wx, "wy": wy, "conv": conv, "wa": wa, "ba": ba,
+            "wi": wi, "bi": bi, "lam": lam, "wo": dense("wo", w, d)}
 
 
 def _causal_conv(x: torch.Tensor, kernel: torch.Tensor,
@@ -146,14 +161,19 @@ def _causal_conv(x: torch.Tensor, kernel: torch.Tensor,
     return y, xp[:, -(K - 1):, :]
 
 
-def _rglru_coeffs(p: Params, u: torch.Tensor
+def _rglru_coeffs(p: Params, u: torch.Tensor, part=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The scan's (a_t, b_t), f32. The gate GEMMs are plain matmuls."""
+    """The scan's (a_t, b_t), f32. The gate GEMMs are plain matmuls.
+    Under a partition context u holds this rank's channels and the
+    gates' products take the whole u, gathered over `model` once for
+    both, on the rank's output columns of wa and wi."""
     f32 = torch.float32
-    r = torch.sigmoid(torch.matmul(u, p["wa"].to(u.dtype)).to(f32)
+    whole = u if part is None else part.gather(u, -1)
+    r = torch.sigmoid(torch.matmul(whole, p["wa"].to(u.dtype)).to(f32)
                       + p["ba"].to(f32))
-    i = torch.sigmoid(torch.matmul(u, p["wi"].to(u.dtype)).to(f32)
+    i = torch.sigmoid(torch.matmul(whole, p["wi"].to(u.dtype)).to(f32)
                       + p["bi"].to(f32))
+    del whole
     # lam in its own dtype, as the reference's log_sigmoid takes it (bf16
     # when a train step casts the stacked layers' leaves)
     log_a = RGLRU_C * r * F.logsigmoid(p["lam"])[None, None]
@@ -163,15 +183,19 @@ def _rglru_coeffs(p: Params, u: torch.Tensor
 
 
 def rglru_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                eng: DotEngine, state: Optional[State] = None
+                eng: DotEngine, state: Optional[State] = None, part=None
                 ) -> Tuple[torch.Tensor, Optional[State]]:
     """x (B, S, d). state = {"h": (B, w), "conv": (B, K-1, w)}: with S == 1
-    one decode step, else a prefill from that state."""
-    u = eng.dot(x, p["wx"])                            # (B, S, w)
-    gate = F.gelu(eng.dot(x, p["wy"]).to(torch.float32), approximate="tanh")
+    one decode step, else a prefill from that state. Under a partition
+    context `part` the params and the state are this rank's blocks (w
+    over `model`) and every step but the gates' products and wo's sum
+    stays on the rank's channels."""
+    u = _col(eng, x, p["wx"], part)                    # (B, S, w)
+    gate = F.gelu(_col(eng, x, p["wy"], part).to(torch.float32),
+                  approximate="tanh")
     u, new_conv = _causal_conv(u, p["conv"],
                                None if state is None else state["conv"])
-    a, b = _rglru_coeffs(p, u)
+    a, b = _rglru_coeffs(p, u, part)
     if state is not None and x.shape[1] == 1:
         h = a[:, 0] * state["h"] + b[:, 0]             # one decode step
         _write_state(state, {"h": h, "conv": new_conv})
@@ -183,7 +207,7 @@ def rglru_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
             h = h + a_run * state["h"][:, None]
         _write_state(state, {"h": h[:, -1], "conv": new_conv})
     y = h.to(x.dtype) * gate.to(x.dtype)
-    return eng.dot(y, p["wo"]), state
+    return _row(eng, y, p["wo"], part), state
 
 
 def rglru_state_init(cfg: ModelConfig, batch: int, device) -> State:
@@ -198,22 +222,27 @@ def rglru_state_init(cfg: ModelConfig, batch: int, device) -> State:
 # Mamba2 / SSD block
 # --------------------------------------------------------------------------
 
-def ssd_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def ssd_init(gen: torch.Generator, cfg: ModelConfig, device,
+             keep: Keep = _whole) -> Params:
+    """`keep(name, leaf)` takes each leaf as it is drawn, before the next
+    draw, and returns what the tree holds (Model.init)."""
     d, din, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
     dt, f32 = cfg.pdtype, torch.float32
-    win = dense_init(gen, d, 2 * din + 2 * N + H, dt, device)
-    conv = torch.randn((cfg.conv_width, din + 2 * N), generator=gen,
-                       dtype=f32, device=device) * 0.1
+    win = keep("win", dense_init(gen, d, 2 * din + 2 * N + H, dt, device))
+    conv = keep("conv", (torch.randn((cfg.conv_width, din + 2 * N),
+                                     generator=gen, dtype=f32, device=device)
+                         * 0.1).to(dt))
     rates = 1.0 + 15.0 * torch.rand((H,), generator=gen, dtype=f32,
                                     device=device)
     return {
         "win": win,
-        "conv": conv.to(dt),
-        "a_log": torch.log(rates),                     # f32 whatever dt is
-        "dt_bias": torch.zeros((H,), dtype=f32, device=device),
-        "d_skip": torch.ones((H,), dtype=f32, device=device),
-        "norm": torch.ones((din,), dtype=dt, device=device),
-        "wout": dense_init(gen, din, d, dt, device),
+        "conv": conv,
+        "a_log": keep("a_log", torch.log(rates)),      # f32 whatever dt is
+        "dt_bias": keep("dt_bias", torch.zeros((H,), dtype=f32,
+                                               device=device)),
+        "d_skip": keep("d_skip", torch.ones((H,), dtype=f32, device=device)),
+        "norm": keep("norm", torch.ones((din,), dtype=dt, device=device)),
+        "wout": keep("wout", dense_init(gen, din, d, dt, device)),
     }
 
 

@@ -34,19 +34,11 @@ def _under(keep: Keep, prefix: str) -> Keep:
     return lambda name, t: keep(f"{prefix}/{name}", t)
 
 
-def _kept(keep: Keep, prefix: str, tree: Params) -> Params:
-    """keep applied to each leaf of a subtree made whole."""
-    return {k: _kept(keep, f"{prefix}/{k}", v) if isinstance(v, dict)
-            else keep(f"{prefix}/{k}", v) for k, v in tree.items()}
-
-
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                device, keep: Keep = _whole) -> Params:
     """One layer's params. `keep(path, leaf)` (a path under the layer,
     "attn/wq") takes each leaf as it is made and returns what the layer
-    holds; an attention layer's, an MLP's and the experts' leaves go to it
-    one by one, before the next draw, the other mixers' once their
-    subtree is drawn."""
+    holds; every leaf goes to it as it is drawn, before the next draw."""
     def ones(name):
         return keep(f"{name}/scale", torch.ones(
             (cfg.d_model,), dtype=cfg.pdtype, device=device))
@@ -55,9 +47,9 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
     if kind == "attn":
         p["attn"] = attention_init(gen, cfg, device, _under(keep, "attn"))
     elif kind == "rec":
-        p["rec"] = _kept(keep, "rec", rglru_init(gen, cfg, device))
+        p["rec"] = rglru_init(gen, cfg, device, _under(keep, "rec"))
     elif kind == "ssm":
-        p["ssm"] = _kept(keep, "ssm", ssd_init(gen, cfg, device))
+        p["ssm"] = ssd_init(gen, cfg, device, _under(keep, "ssm"))
         return p                    # the SSD block has no separate MLP
     elif kind == "cross":
         p["cross"] = attention_init(gen, cfg, device, _under(keep, "cross"))
@@ -121,9 +113,11 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     and in/out projections, not attention). `memory` (B, M, d) is what a
     "cross" or "xdec" layer attends to; causal=False makes self-attention
     bidirectional (the encoder). A partition context `part` runs an
-    "attn" layer, with a dense MLP or experts, on this rank's blocks
-    (layers.py, moe.py); the other blocks have no partitioned form yet."""
-    if part is not None and kind != "attn":
+    "attn" layer, with a dense MLP or experts, or a "rec" layer on this
+    rank's blocks (layers.py, moe.py, recurrent.py). An "ssm" block runs
+    whole under one: the Sharder replicates every SSD weight. The
+    cross-attention blocks have no partitioned form yet."""
+    if part is not None and kind in ("cross", "xdec"):
         raise NotImplementedError(f"a {kind!r} block has no partitioned "
                                   "form")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -142,7 +136,7 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
         o, _ = attention_apply(p["cross"], cfg, h, positions, attn_eng,
                                memory=memory)
     elif kind == "rec":
-        o, _ = rglru_apply(p["rec"], cfg, h, eng, state=cache)
+        o, _ = rglru_apply(p["rec"], cfg, h, eng, state=cache, part=part)
     elif kind == "ssm":
         o, _ = ssd_apply(p["ssm"], cfg, h, eng, state=cache)
         return x + o, aux

@@ -392,8 +392,14 @@ def _hand_count_decode(cfg, B):
     sizes = {"data": 2, "model": 2}
     sharder = Sharder(make_abstract_mesh((2, 2), ("data", "model")), cfg)
     sharder.set_batch(B)
+    if sharder.replicated:
+        # every weight whole on every rank, the batch and cache split by
+        # rows: nothing to exchange
+        return {}
     rows = B // 2
     d, Dh, H, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    n_attn = cfg.layer_kinds.count("attn")
+    n_rec = cfg.layer_kinds.count("rec")
     out = {}
 
     def add(kind, axis, n):
@@ -402,12 +408,17 @@ def _hand_count_decode(cfg, B):
     # the embedding's sum, then each layer's wo partials and its wd
     # partials or, with experts, its one combine of (rows, 1, d), in f32
     add("all-reduce", "model", rows * d * 4 * (1 + 2 * cfg.n_layers))
+    if n_rec:
+        # each RG-LRU layer's u, gathered whole for the gates' products,
+        # in the compute dtype
+        add("all-gather", "model", n_rec * rows * cfg.rnn_width
+            * cfg.cdtype.itemsize)
     if Hkv % 2:
         # the cache over its length: k, v and q gathered whole, the
         # partial softmax's largest score and its sums
-        add("all-gather", "model", cfg.n_layers * rows * Dh * 2
+        add("all-gather", "model", n_attn * rows * Dh * 2
             * (2 * Hkv + H))
-        add("all-reduce", "model", cfg.n_layers * rows * H * (Dh + 2) * 4)
+        add("all-reduce", "model", n_attn * rows * H * (Dh + 2) * 4)
     if cfg.sharding_profile == "fsdp_tp":
         # each weight whole over "data" for its GEMM or, an expert leaf,
         # its einsum (the head's table, tied or not, once more for the
@@ -433,7 +444,9 @@ def _hand_count_decode(cfg, B):
                                      ("qwen1_5_110b", 2), ("yi_34b", 1),
                                      ("qwen3_moe_235b_a22b", 2),
                                      ("mixtral_8x22b", 2),
-                                     ("mixtral_8x22b", 1)])
+                                     ("mixtral_8x22b", 1),
+                                     ("recurrentgemma_9b", 1),
+                                     ("mamba2_130m", 2)])
 def test_partitioned_decode_collectives_equal_a_count_from_the_specs(arch,
                                                                     kv):
     cfg = dataclasses.replace(smoke_config(arch), n_kv_heads=kv)
@@ -457,7 +470,10 @@ def test_a_partitioned_cells_peak_is_below_the_whole_layouts(kind):
     assert dryrun.serve_layout(cfg) == "partitioned"
     assert dryrun.serve_layout(smoke_config("mixtral_8x22b")) == \
         "partitioned"
-    assert dryrun.serve_layout(smoke_config("recurrentgemma_9b")) == "whole"
+    assert dryrun.serve_layout(smoke_config("recurrentgemma_9b")) == \
+        "partitioned"
+    assert dryrun.serve_layout(smoke_config("llama_3_2_vision_11b")) == \
+        "whole"
 
 
 @pytest.mark.parametrize("arch", ["mixtral_8x22b", "qwen3_moe_235b_a22b"])

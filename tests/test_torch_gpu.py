@@ -902,17 +902,20 @@ def _tp_moe_cfg(name):
                                compute_dtype="float32", **over)
 
 
-def _tp_moe_serve(prefill, decode, params, cache, dev):
+def _tp_moe_serve(prefill, decode, params, cache, dev, rows=None):
     """The prefill of TP_MOE_TOKENS (longer than the smoke window of 16)
     and TP_MOE_DECODES decodes of seeded tokens, each lane at its own
-    depth: each pass's logits."""
+    depth: each pass's logits. `rows` takes a batch-major tensor to the
+    rows served (a rank's, where the batch is split over `model`)."""
     g = torch.Generator(device=dev).manual_seed(1)
     B, S = TP_MOE_TOKENS
     toks = torch.randint(0, 512, (B, S + TP_MOE_DECODES), generator=g,
                          device=dev, dtype=torch.int32)
+    pos = S + torch.arange(B, device=dev)
+    if rows is not None:
+        toks, pos = rows(toks), rows(pos)
     logits, cache, _ = prefill(params, {"tokens": toks[:, :S]}, cache)
     seen = [logits]
-    pos = S + torch.arange(B, device=dev)
     for i in range(TP_MOE_DECODES):
         logits, cache = decode(params, toks[:, S + i], pos + i, cache)
         seen.append(logits)
@@ -1044,6 +1047,211 @@ def test_partitioned_moe_serve_over_two_ranks_on_the_card(cuda, tmp_path):
             v = table.shape[0] // 2
             assert torch.equal(hout, olm_matmul(
                 hx, table[r * v:(r + 1) * v].T.to(torch.float32), n_bits=16))
+    for res in ranks:
+        card = res["card"]
+        assert walked["flops"] == card["flops"]
+        assert abs(walked["bytes_per_device"]["peak"] / card["peak"] - 1) \
+            <= 0.05, (walked["bytes_per_device"], card["peak"])
+
+
+# chip_smoke.py's tp phase (h)-(l) at smoke width and f32 compute: the
+# partitioned recurrent and SSM serves on two ranks that share the card
+# (a gloo group, a (1, 2) mesh). (h) RecurrentGemma at one (rec, rec,
+# attn) group and a "rec" remainder, the RG-LRU's channels over `model`
+# and its one-KV-head ring of 16 over its length (prompts longer than
+# it), native; (i) one group under olm16; (j) Mamba2 under olm16, its
+# weights whole on each rank and the batch over both axes (2 of the 4
+# rows a rank): each rank's resident blocks equal to the specs' count,
+# the init's peak at most the blocks and one whole f32 leaf, K1 launches
+# == GEMMs issued (TP_REC_GEMMS a pass), layer 0's wx and the head's
+# columns bit-equal to one device's K1, every pass's logits within 3e-2
+# of one device's. (k) one partitioned decode of RecurrentGemma at full
+# width, one group, walked on a fake 2-rank world: FLOPs equal to each
+# rank's step on the card, peak within 5%. (l) F10: Qwen3-MoE with every
+# smoke expert a token (K = 8 adds a token, where their order shows)
+# served twice, one device and partitioned: the same bits.
+TP_REC_CFGS = {"rec": ("recurrentgemma_9b", dict(n_layers=4), "native"),
+               "rec_olm": ("recurrentgemma_9b", dict(n_layers=3), "olm16"),
+               "ssm": ("mamba2_130m", {}, "olm16"),
+               "f10": ("qwen3_moe_235b_a22b", dict(experts_per_token=8),
+                       "native")}
+# eng.dot GEMMs a pass: a "rec" layer wx, wy, wo and a SwiGLU MLP's 3, an
+# "attn" layer 4 and its MLP's 3, an "ssm" layer win and wout, the head
+TP_REC_GEMMS = {"rec_olm": 2 * 6 + 7 + 1, "ssm": 2 * 2 + 1}
+
+
+def _tp_rec_cfg(name):
+    arch, over, _ = TP_REC_CFGS[name]
+    return dataclasses.replace(smoke_config(arch), compute_dtype="float32",
+                               **over)
+
+
+def _tp_rec_rank(rank, world, port, out_dir):
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import (all_gather_dim,
+                                                     shard_dims)
+    from repro_torch.distributed.sharding import Sharder, path_leaves
+    from repro_torch.distributed.train import (init_serve_cache,
+                                               init_serve_params,
+                                               jit_decode_step,
+                                               jit_prefill_step,
+                                               serve_block_bytes)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.shapes import ShapeCase
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = make_local_mesh(1, world, device_type="cuda")
+        B = TP_MOE_TOKENS[0]
+        for name, (_, _, mode) in TP_REC_CFGS.items():
+            cfg = _tp_rec_cfg(name)
+            sharder = Sharder(mesh, cfg)
+            sharder.set_batch(B)
+            biggest = max(t.numel() * 4 for _, t in path_leaves(
+                Model(cfg, device="meta").init(0)))
+            gc.collect()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            params = init_serve_params(Model(cfg, device=dev), sharder, 0)
+            peak = torch.cuda.max_memory_allocated() - base
+            sizes = [t.untyped_storage().nbytes()
+                     for _, t in path_leaves(params)]
+            # the caching allocator holds each block in whole 512 B
+            out[f"{name}/bytes"] = [sum(sizes),
+                                    serve_block_bytes(cfg, sharder), peak,
+                                    sum(-(-n // 512) * 512 for n in sizes)
+                                    + biggest]
+            model = Model(cfg, DotEngine(mode=mode), device=dev)
+            # the batch over both axes where the weights are replicated
+            rows = ((lambda t: shard_dims(t, sharder.batch_spec(), mesh))
+                    if sharder.replicated else None)
+            out[f"{name}/rows"] = (rows(torch.arange(B)).tolist() if rows
+                                   else list(range(B)))
+            runs = []
+            for _ in range(2 if name == "f10" else 1):
+                cache = init_serve_cache(model, sharder, B, TP_MOE_LEN)
+                step = jit_prefill_step(model, sharder, params, ["tokens"],
+                                        cache)
+                decode = jit_decode_step(model, sharder, params, cache,
+                                         has_memory=False)
+                before = matmul_kernel.launches
+                with _OlmCalls() as seen:
+                    runs.append(_tp_moe_serve(step, decode, params, cache,
+                                              dev, rows))
+                out[f"{name}/launches"] = matmul_kernel.launches - before
+            per = TP_REC_GEMMS.get(name)
+            out[f"{name}/calls"] = [seen[0], seen[per - 1]] if per else []
+            out[f"{name}/logits"] = [
+                t if sharder.replicated else all_gather_dim(t, 1, mesh,
+                                                            "model")
+                for t in runs[0]]
+            out[f"{name}/same"] = all(
+                len(a) == len(runs[0]) and all(
+                    torch.equal(x.view(torch.int32), y.view(torch.int32))
+                    for x, y in zip(a, runs[0])) for a in runs)
+            del params, runs, seen
+        cfg = dataclasses.replace(get_config("recurrentgemma_9b"),
+                                  n_layers=3)
+        sharder = Sharder(mesh, cfg)
+        B, T = TP_MOE_DECODE
+        sharder.set_batch(B)
+        out["card"] = dryrun.card_step(cfg, ShapeCase("rec_decode", T, B,
+                                                      "decode"), sharder)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_partitioned_recurrent_and_ssm_serve_over_two_ranks_on_the_card(
+        cuda, tmp_path):
+    import socket
+
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.train import init_serve_params
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.launch.shapes import ShapeCase
+    gc.collect()
+    torch.cuda.empty_cache()
+    ones = {}
+    for name, (_, _, mode) in TP_REC_CFGS.items():
+        cfg = _tp_rec_cfg(name)
+        params = init_serve_params(Model(cfg, device=cuda), None, 0)
+        model = Model(cfg, DotEngine(mode=mode), device=cuda)
+        runs = []
+        for _ in range(2 if name == "f10" else 1):
+            with _OlmCalls() as seen:
+                runs.append(_tp_moe_serve(
+                    model.prefill, model.decode_step, params,
+                    model.init_cache(TP_MOE_TOKENS[0], TP_MOE_LEN), cuda))
+        ones[name] = (params, seen, runs)
+    # the ranks' full-width step needs the card this process's cache may
+    # hold
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(_tp_rec_rank, args=(2, port, str(tmp_path)),
+                             nprocs=2, join=False, start_method="spawn")
+    cfg = dataclasses.replace(get_config("recurrentgemma_9b"), n_layers=3)
+    B, T = TP_MOE_DECODE
+    walked, coll, _ = dryrun.walk_cell(
+        cfg, ShapeCase("rec_decode", T, B, "decode"),
+        make_abstract_mesh((1, 2), ("data", "model")))
+    while not ctx.join():
+        pass
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    for name, (_, _, mode) in TP_REC_CFGS.items():
+        cfg = _tp_rec_cfg(name)
+        params, seen, runs = ones[name]
+        want = runs[0]
+        for r, res in enumerate(ranks):
+            held, specs, peak, bound = res[f"{name}/bytes"]
+            assert held == specs, (name, held, specs)
+            # the blocks and one whole f32 leaf being drawn, no more
+            assert peak <= bound, (name, peak, bound)
+            v = cfg.vocab_size
+            for got, one in zip(res[f"{name}/logits"], want):
+                one = one[res[f"{name}/rows"]]
+                assert float((got[:, :v] - one[:, :v]).abs().max()
+                             / one[:, :v].abs().max()) <= 3e-2, name
+            assert res[f"{name}/same"], name
+            if mode != "olm16":
+                continue
+            per = TP_REC_GEMMS[name]
+            assert res[f"{name}/launches"] == per * (1 + TP_MOE_DECODES)
+            (x, out), (hx, hout) = res[f"{name}/calls"]
+            table = params["embed" if cfg.tie_embeddings else "unembed"][
+                "table"]
+            if cfg.family == "ssm":
+                # whole weights: the head is K1 on every column (the rows'
+                # bits against one device's are printed by chip_smoke.py:
+                # a norm's reduction may order its sums by the rows)
+                assert torch.equal(hout, olm_matmul(
+                    hx, table.T.to(torch.float32), n_bits=16))
+                continue
+            wx = params["layers"][0]["rec"]["wx"]
+            n = wx.shape[1] // 2
+            assert torch.equal(x, seen[0][0])
+            assert torch.equal(out, seen[0][1][:, r * n:(r + 1) * n])
+            v = table.shape[0] // 2
+            assert torch.equal(hout, olm_matmul(
+                hx, table[r * v:(r + 1) * v].T.to(torch.float32), n_bits=16))
+    # F10: one device's second serve gives the first's bits too
+    first, again = ones["f10"][2]
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(first, again))
+    assert coll["count"] > 0
     for res in ranks:
         card = res["card"]
         assert walked["flops"] == card["flops"]

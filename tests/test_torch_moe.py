@@ -10,8 +10,11 @@ top-k takes the lower expert index first, as jax.lax.top_k does).
 The plans' indices and keep flags are held exactly, their combine
 weights and the aux loss within 1e-5 relative (the router's f32 matmul
 sums in another order); `moe_apply` within 1e-5 of the largest |output|
-at f32 (the combine adds each token's expert rows in another order too)
-and 3e-2 at bf16.
+at f32 (the expert einsums sum in another order too) and 3e-2 at bf16.
+The combine itself (`_combine`) is held bit for bit on hand-made updates
+whose sum depends on the order of the adds: each token's updates added
+one at a time in ascending slot order, as the reference's scatter-add
+adds them, on one device in bf16 and on each rank's experts in f32.
 """
 import dataclasses
 
@@ -202,3 +205,106 @@ def test_the_route_walks_on_meta_at_full_width(arch):
     logits, _, _ = meta.prefill(meta.init(0), {"tokens": tokens},
                                 meta.init_cache(1, 32))
     assert tuple(logits.shape) == (1, cfg.vocab_padded)
+
+
+def _hand_plan(topi, E, C):
+    """(token per (expert, slot) (E * C,), each sorted assignment's slot
+    (sink E * C when dropped) and token (T * K,)) of the top-k choices
+    topi (T, K), as `_route_row` lays them out."""
+    T, K = topi.shape
+    flat_e = topi.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    st = torch.arange(T).repeat_interleave(K)[order]
+    pos = torch.arange(T * K) - torch.searchsorted(se, se)
+    kept = pos < C
+    slot = torch.where(kept, se * C + pos, torch.full_like(se, E * C))
+    buf = torch.full((E * C,), T, dtype=torch.int64)
+    buf[slot[kept]] = st[kept]
+    return buf, slot, st
+
+
+# 3 tokens, 3 experts each, of 4 experts with 2 slots: expert 2 takes
+# tokens 0 and 1 and drops token 2's assignment
+F10_TOPI = torch.tensor([[0, 1, 2], [0, 2, 3], [1, 2, 3]])
+F10_E, F10_C = 4, 2
+
+
+def _order_updates(slot, st, T, small, dtype):
+    """(E * C, 4) updates: a token's first kept slot 1, its later ones
+    `small`, half an ulp of 1 in `dtype` (each column scaled by a power of
+    two), so that 1 + small + small rounds to 1 in slot order and to
+    1 + 2 small in the reverse one; the empty slots hold 7, which no sum
+    may take."""
+    upd = torch.full((F10_E * F10_C, 4), 7.0, dtype=torch.float64)
+    for t in range(T):
+        mine = sorted(s for s, tt in zip(slot.tolist(), st.tolist())
+                      if tt == t and s < F10_E * F10_C)
+        for i, s_ in enumerate(mine):
+            upd[s_] = 1.0 if i == 0 else small
+    return (upd * torch.tensor([1.0, -1.0, 2.0, 0.5], dtype=torch.float64)
+            ).to(dtype)
+
+
+def _in_order(upd, slot, st, T, lo, hi, reverse=False):
+    """Each token's updates of the slots in [lo, hi), added one at a time
+    in ascending (or descending) slot order from zeros, in upd's dtype."""
+    out = torch.zeros((T, upd.shape[1]), dtype=upd.dtype)
+    for t in range(T):
+        mine = sorted((s for s, tt in zip(slot.tolist(), st.tolist())
+                       if tt == t and lo <= s < hi), reverse=reverse)
+        for s_ in mine:
+            out[t] = out[t] + upd[s_]
+    return out
+
+
+def test_the_combine_adds_each_tokens_updates_in_ascending_slot_order():
+    """F10: CUDA's index_add_ adds with atomics, in no fixed order. The
+    combine adds a token's K updates one at a time in ascending slot
+    order, each sum rounded to the accumulator's dtype: on one device in
+    bf16 (the reference's scatter-add gives the same bits), on a rank's
+    experts in f32 (the partitioned partials; CPU index_add_ gives those
+    bits too). A dropped assignment and the slots of other ranks' experts
+    add nothing."""
+    E, C = F10_E, F10_C
+    T = F10_TOPI.shape[0]
+    buf, slot, st = _hand_plan(F10_TOPI, E, C)
+    assert int((slot == E * C).sum()) == 1          # token 2's, dropped
+
+    # one device, bf16: 1 + 2^-8 + 2^-8 is 1 in slot order, 1 + 2^-7
+    # in the reverse order and in an f32 sum rounded once
+    upd = _order_updates(slot, st, T, 2.0 ** -8, torch.bfloat16)
+    got = tmoe._combine(upd[None], slot[None], st[None], T, 0)[0]
+    want = _in_order(upd, slot, st, T, 0, E * C)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    assert not torch.equal(got, _in_order(upd, slot, st, T, 0, E * C,
+                                          reverse=True))
+    widened = torch.stack([upd[[s for s, tt in zip(slot.tolist(),
+                                                   st.tolist())
+                                if tt == t and s < E * C]].float().sum(0)
+                           for t in range(T)]).to(torch.bfloat16)
+    assert not torch.equal(got, widened)
+    ju = jnp.asarray(upd.to(torch.float32).numpy(), jnp.bfloat16)
+    ref = jnp.zeros((T + 1, 4), jnp.bfloat16).at[
+        jnp.minimum(jnp.asarray(buf.numpy()), T)].add(ju)[:T]
+    np.testing.assert_array_equal(
+        np.asarray(ref.astype(jnp.float32)), got.to(torch.float32).numpy())
+
+    # two ranks' experts, f32 partials: 1 + 2^-24 + 2^-24 is 1 in order
+    upd = _order_updates(slot, st, T, 2.0 ** -24, torch.float32)
+    partials = []
+    for e0, e1 in ((0, E // 2), (E // 2, E)):
+        lo, hi = e0 * C, e1 * C
+        part = tmoe._combine(upd[None, lo:hi], slot[None], st[None], T,
+                             lo)[0]
+        assert torch.equal(part, _in_order(upd, slot, st, T, lo, hi))
+        partials.append(part)
+    whole = tmoe._combine(upd[None], slot[None], st[None], T, 0)[0]
+    assert torch.equal(whole, _in_order(upd, slot, st, T, 0, E * C))
+    assert not torch.equal(whole, _in_order(upd, slot, st, T, 0, E * C,
+                                            reverse=True))
+    # the CPU index_add_'s f32 bits, which the partitioned serve had
+    assert torch.equal(whole, torch.zeros((T + 1, 4)).index_add_(
+        0, buf.clamp(max=T), torch.where(buf[:, None] < T, upd,
+                                         torch.zeros_like(upd)))[:T])

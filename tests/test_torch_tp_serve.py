@@ -8,8 +8,10 @@ One spawn a module runs every case of `torch_rank_cases.TP_CASES`
 over kv heads and over its length, 3 query heads over 2 ranks, fsdp_tp,
 the Qwen1.5 / ChatGLM3 qkv bias, tied and untied heads, a padded
 vocabulary; Qwen3-MoE's experts split by expert, Mixtral's by d_ff with
-a sliding-window ring over kv heads and over its length) and a MoE
-prefill that drops assignments. The test process meanwhile runs the
+a sliding-window ring over kv heads and over its length; RecurrentGemma's
+RG-LRU over `model` beside its ring, one pattern group and a remainder
+layer; Mamba2's replicated weights with the batch over both axes) and a
+MoE prefill that drops assignments. The test process meanwhile runs the
 reference's Model and
 Sharder on the same params, and a subprocess compiles the reference's
 `jit_prefill_step` / `jit_decode_step` on a forced 4-device CPU mesh.
@@ -21,7 +23,8 @@ Held:
     of the batch) equal the reference's
     `memory_analysis().argument_size_in_bytes` of the compiled steps, less
     the reference cache's `len` counters (one int32 a pattern group: the
-    port's cache has none);
+    port's cache has none), plus the bytes of the arguments jax.jit drops
+    because the step does not read them (Mamba2's decode position);
   * the prefill and decode logits, gathered over the ranks, within
     LOGIT_TOL of the largest |logit| of the reference's `Model.prefill` /
     `decode_step` on the same params (`convert.py` carries them); the
@@ -35,7 +38,8 @@ Held:
   * every rank along `model` routes each MoE layer's tokens alike (the
     same dispatch plan, drops included);
   * the families without a partitioned serve raise and name their
-    ROADMAP item; both MoE archs build partitioned steps.
+    ROADMAP item; both MoE archs and the recurrent and SSM archs build
+    partitioned steps as published.
 """
 import dataclasses
 import json
@@ -81,6 +85,7 @@ REF_BYTES = r"""
 import json, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
 sys.path.insert(0, sys.argv[1])
 from repro.configs import smoke_config
 from repro.distributed.sharding import Sharder
@@ -103,12 +108,32 @@ for name in trc.TP_CASES:
     dec = jit_decode_step(model, sharder, params, cache, has_memory=False)
     lens = [a for p, a in jax.tree_util.tree_flatten_with_path(cache)[0]
             if str(p[-1]).endswith("'len']")]
-    out[name] = {
-        "prefill": pre.lower(params, batch, cache).compile()
-        .memory_analysis().argument_size_in_bytes,
-        "decode": dec.lower(params, tok, tok, cache).compile()
-        .memory_analysis().argument_size_in_bytes,
-        "len": sum(a.size * a.dtype.itemsize for a in lens)}
+
+    def nbytes(leaves):
+        return sum(a.size * a.dtype.itemsize for a in leaves)
+
+    def rows(a):
+        # a device's rows of a batch-sharded argument
+        spec = P(sharder.batch_spec()[0], *[None] * (a.ndim - 1))
+        shape = NamedSharding(mesh, spec).shard_shape(a.shape)
+        return jax.ShapeDtypeStruct(shape, a.dtype)
+
+    def compiled(step, *args):
+        # jax.jit drops an argument the step does not read (Mamba2's
+        # decode reads no position, a batch-sharded argument): a device's
+        # bytes of it, beside the rest's
+        exe = step.lower(*args).compile()
+        leaves = jax.tree_util.tree_leaves(args)
+        kept = exe._executable._kept_var_idx
+        return (exe.memory_analysis().argument_size_in_bytes,
+                nbytes([rows(a) for i, a in enumerate(leaves)
+                        if i not in kept]))
+
+    (pre_b, pre_u), (dec_b, dec_u) = (compiled(pre, params, batch, cache),
+                                      compiled(dec, params, tok, tok, cache))
+    out[name] = {"prefill": pre_b, "prefill_unused": pre_u,
+                 "decode": dec_b, "decode_unused": dec_u,
+                 "len": nbytes(lens)}
 print(json.dumps(out))
 """
 
@@ -127,7 +152,7 @@ def _with_biases(tree, seed=7):
     rng = np.random.default_rng(seed)
     for slot in tree["blocks"]["scan"]:
         for key in ("bq", "bk", "bv"):
-            if key in slot["attn"]:
+            if key in slot.get("attn", {}):
                 slot["attn"][key] = jnp.asarray(
                     0.5 * rng.standard_normal(slot["attn"][key].shape),
                     slot["attn"][key].dtype)
@@ -173,11 +198,16 @@ def _port_whole_logits(name, tree):
 
 def _shard_shapes(name):
     """{port path: the reference Sharder's shard shape} of every param and
-    cache leaf on an AbstractMesh of the test's sizes."""
+    cache leaf on an AbstractMesh of the test's sizes. The reference
+    stacks pattern slot s of group g, the port's layer g * pattern + s,
+    over a leading (groups,) axis; its remainder layers follow
+    unstacked."""
     cfg = tp_config(name, jax_smoke_config)
     sharder = JSharder(jax_abstract_mesh(TP_MESH, ("data", "model")), cfg)
     sharder.set_batch(TP_BATCH)
     jm = JModel(cfg)
+    pat = len(cfg.block_pattern)
+    n_scan = cfg.n_layers // pat * pat
 
     def leaves(tree):
         out = []
@@ -188,24 +218,30 @@ def _shard_shapes(name):
     def shard(shape, spec):
         return block_shape(shape, P(*tuple(spec)), SIZES)
 
+    def layers(where, slot, shape, got):
+        """(port layer, its shape) of a stacked slot or a remainder layer"""
+        if where == "scan":
+            return [(g * pat + int(slot), got[1:]) for g in range(shape[0])]
+        return [(n_scan + int(slot), got)]
+
     params, cache = {}, {}
     tree = jax.eval_shape(jm.init, jax.ShapeDtypeStruct((2,), jnp.uint32))
     for path, shape in leaves(tree):
         got = shard(shape, sharder.param_spec(path, shape))
-        if path.startswith("blocks/scan/"):
-            # blocks/scan/<slot>/<rest>: (groups, ...) stacked over layers
-            rest = path.split("/", 3)[3]
-            for g in range(shape[0]):
-                params[f"layers/{g}/{rest}"] = got[1:]
+        if path.startswith("blocks/"):
+            # blocks/<scan or rem>/<slot>/<rest>
+            _, where, slot, rest = path.split("/", 3)
+            for i, block in layers(where, slot, shape, got):
+                params[f"layers/{i}/{rest}"] = block
         else:
             params[path] = got
     tree = jax.eval_shape(lambda: jm.init_cache(TP_BATCH, TP_LEN))
     for path, shape in leaves(tree):
-        leaf = path.split("/")[-1]
+        where, slot, leaf = path.split("/")
         if leaf != "len":
             got = shard(shape, sharder.cache_spec(path, shape))
-            for g in range(shape[0]):
-                cache[f"{g}/{leaf}"] = got[1:]
+            for i, block in layers(where, slot, shape, got):
+                cache[f"{i}/{leaf}"] = block
     return params, cache
 
 
@@ -253,9 +289,13 @@ def runs(tmp_path_factory):
     return mine, ranks, json.loads(text), trees
 
 
-def _gathered(ranks, key):
+def _gathered(ranks, key, name):
     """A (..., B_rank, V_rank) output of every rank put back whole: rank r
-    sits at (data r // 2, model r % 2)."""
+    sits at (data r // 2, model r % 2). Where the case's weights are
+    replicated, each rank holds its rows (the batch over both axes, r's
+    block the r-th) of every column."""
+    if tp_config(name).family == "ssm":
+        return torch.cat([r[key] for r in ranks], dim=-2).numpy()
     d, m = TP_MESH
     return torch.cat([torch.cat([ranks[i * m + j][key] for j in range(m)],
                                 dim=-1) for i in range(d)], dim=-2).numpy()
@@ -284,14 +324,16 @@ def test_argument_bytes_equal_the_references_memory_analysis(runs, name):
     want = compiled[name]
     for r in ranks:
         args = r[f"{name}/args"]
-        assert args["prefill"] + want["len"] == want["prefill"]
-        assert args["decode"] + want["len"] == want["decode"]
+        assert args["prefill"] + want["len"] == want["prefill"] + \
+            want["prefill_unused"]
+        assert args["decode"] + want["len"] == want["decode"] + \
+            want["decode_unused"]
 
 
 @pytest.mark.parametrize("name", list(TP_CASES))
 def test_logits_match_the_reference(runs, name):
     mine, ranks, _, _ = runs
-    got = _gathered(ranks, f"{name}/logits")
+    got = _gathered(ranks, f"{name}/logits", name)
     want = mine["ref"][name]
     assert got.shape == want.shape
     assert _rel(got, want, name) <= LOGIT_TOL
@@ -398,16 +440,62 @@ def test_a_prefill_that_drops_matches_the_reference_and_routes_alike(runs):
 
 @pytest.mark.parametrize("arch", [a for a in list_archs()
                                   if get_config(a).family
-                                  not in ("dense", "moe")])
+                                  in ("vlm", "encdec")])
 def test_other_families_raise_and_name_their_item(arch):
     cfg = get_config(arch)
     sharder = Sharder(make_abstract_mesh((1, 2), ("data", "model")), cfg)
     model = Model(cfg, device="meta")
     with pytest.raises(NotImplementedError, match=r"ROADMAP section 1, "
-                       r"item 1[3-5]"):
+                       r"item 15"):
         jit_prefill_step(model, sharder, None, ["tokens"], None)
-    with pytest.raises(NotImplementedError, match=r"item 1[3-5]"):
+    with pytest.raises(NotImplementedError, match=r"item 15"):
         jit_decode_step(model, sharder, None, None, has_memory=False)
+
+
+@pytest.mark.parametrize("arch,leaf,whole", [
+    ("recurrentgemma_9b", "rec/wx", True),
+    ("mamba2_130m", "ssm/win", False)])
+def test_recurrent_and_ssm_archs_build_partitioned_steps(arch, leaf, whole):
+    """As published, on a (1, 2) mesh over a fake world of two ranks:
+    this rank's blocks on meta pass the steps' check. RecurrentGemma's
+    RG-LRU leaves and state split their w channels over `model`, and a
+    whole wx is refused; Mamba2's leaves are whole (the Sharder
+    replicates them), its batch and state split over both axes, and a
+    leaf of another shape is refused."""
+    from repro_torch.distributed.train import (init_serve_cache,
+                                               init_serve_params)
+    from repro_torch.launch import dryrun
+    cfg = get_config(arch)
+    with dryrun.fake_world(2):
+        sharder = Sharder(dryrun._meta_mesh(make_abstract_mesh(
+            (1, 2), ("data", "model"))), cfg)
+        sharder.set_batch(2)
+        model = Model(cfg, device="meta")
+        params = init_serve_params(model, sharder)
+        cache = init_serve_cache(model, sharder, 2, 64)
+        assert callable(jit_prefill_step(model, sharder, params, ["tokens"],
+                                         cache))
+        assert callable(jit_decode_step(model, sharder, params, cache,
+                                        has_memory=False))
+        layer = params["layers"][0]
+        mixer, name = leaf.split("/")
+        shape = tuple(layer[mixer][name].shape)
+        if whole:
+            w = cfg.rnn_width
+            assert shape == (cfg.d_model, w // 2)
+            assert tuple(cache[0]["h"].shape) == (2, w // 2)
+            assert tuple(cache[0]["conv"].shape) == (2, cfg.conv_width - 1,
+                                                     w // 2)
+            wrong = (cfg.d_model, w)
+        else:
+            whole_model = Model(cfg, device="meta").init(0)
+            assert shape == tuple(whole_model["layers"][0][mixer][name]
+                                  .shape)
+            assert tuple(cache[0]["h"].shape)[0] == 1
+            wrong = (shape[0], shape[1] // 2)
+        layer[mixer][name] = torch.empty(wrong, device="meta")
+        with pytest.raises(ValueError, match="this rank's block"):
+            jit_prefill_step(model, sharder, params, ["tokens"], cache)
 
 
 @pytest.mark.parametrize("arch,over,mesh,layout,dims", [

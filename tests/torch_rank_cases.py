@@ -287,6 +287,10 @@ def train_rank(rank, world, port, out_dir):
 # Mixtral's split by d_ff (tp) with a window of 4, so that the 6-token
 # prompt is longer than the ring and the decodes wrap it, the ring over
 # kv heads and, with one kv head, over its length (2 slots a rank).
+# "hybrid": RecurrentGemma at 4 layers, one (rec, rec, attn) group and a
+# "rec" remainder, the RG-LRU over `model` and its one-KV-head ring of 4
+# over its length; "ssm": Mamba2, its weights replicated and the batch
+# over both axes (1 row a rank).
 TP_MESH = (2, 2)
 TP_BATCH, TP_PROMPT, TP_LEN, TP_DECODES = 4, 6, 16, 4
 TP_COMMON = dict(n_layers=2, compute_dtype="float32")
@@ -300,6 +304,8 @@ TP_CASES = {
     "moe_tp_ring": ("mixtral_8x22b", dict(sliding_window=4)),
     "moe_tp_ring_length": ("mixtral_8x22b", dict(sliding_window=4,
                                                  n_kv_heads=1)),
+    "hybrid": ("recurrentgemma_9b", dict(n_layers=4, sliding_window=4)),
+    "ssm": ("mamba2_130m", {}),
 }
 MOE_CASES = [n for n, (arch, _) in TP_CASES.items() if "moe" in arch]
 # one prefill of one MOE_DROPS_TOKENS-token row with 2 experts, both of
@@ -321,7 +327,7 @@ def tp_config(name, smoke=None):
     if smoke is None:
         from repro_torch.configs import smoke_config as smoke
     arch, over = MOE_DROPS if name == "moe_drops" else TP_CASES[name]
-    return dataclasses.replace(smoke(arch), **TP_COMMON, **over)
+    return dataclasses.replace(smoke(arch), **{**TP_COMMON, **over})
 
 
 def moe_drops_tokens():
