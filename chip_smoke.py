@@ -239,7 +239,21 @@ Phases, each printing its own lines:
                decode of (h)'s arch walked as (c); (l) F10: (e)'s
                Qwen3-MoE cut served a second time, partitioned and on one
                device, every pass's logits bit-equal to the first serve's
-               and the same tokens;
+               and the same tokens; (m) Llama-3.2-Vision-11B as published
+               (40 layers, 8 cross layers, patches (4, 1024, 4096) from
+               the seed) native: resident blocks equal to the specs'
+               bytes, the init's peak at most the blocks and one whole f32
+               leaf, logits within 3e-2 of one device's, equal tokens
+               counted; (n) its first pattern group (4 attn + 1 cross)
+               cut from the same blocks under olm16: K1 launches == GEMMs
+               (36 a pass), layer 0's wq, the cross layer's wk (4 x 1024
+               rows of memory) and the head's columns bit-equal to one
+               device's K1; (o) SeamlessM4T-medium as published (12
+               encoder + 12 xdec layers, frames (4, 1024, 1024)) native,
+               and cut to 2 + 2 layers under olm16 (K1 33 a prefill, 21 a
+               decode; the first encoder wq's columns bit-equal to one
+               device's K1), within 3e-2; (p) one partitioned decode of
+               (n)'s cut with its memory walked as (c);
   14. examples - the port's four examples (examples/*_torch.py) on the
                card at their documented settings, imported and run in
                this process: the quickstart, the numerics walk-through
@@ -550,11 +564,20 @@ SHARD_DATA_LIMITS = {"loss": 2.5e-4, "grad_norm": 1e-3, "update": 5e-2}
 # both axes) as published under olm16; (k) one partitioned decode of
 # (h)'s arch at TP_DECODE walked as (c); (l) F10: TP_F10's cut from (e)
 # served twice, partitioned and on one device, with the same bits each
-# time. Logits within TP_LOGIT_TOL of the single device's largest |logit|
-# over the real vocabulary (the repo's flash-attention gate).
+# time; (m) TP["vlm"] (Llama-3.2-Vision-11B) as published, native, on
+# patches from the seed (`tp_front`); (n) its TP_VLM_CUT (one pattern
+# group) cut from the same blocks under olm16; (o) TP["encdec"]
+# (SeamlessM4T-medium) as published, native, and its TP_ENCDEC_CUT under
+# olm16; (p) one partitioned decode of (n)'s cut, with its memory, at
+# TP_DECODE walked as (c). Logits within TP_LOGIT_TOL of the single
+# device's largest |logit| over the real vocabulary (the repo's
+# flash-attention gate).
 TP_RANKS = 2
 TP = dict(arch="internlm2_1_8b", big="yi_34b", rec="recurrentgemma_9b",
-          ssm="mamba2_130m", max_len=32, new=6, seed=0)
+          ssm="mamba2_130m", vlm="llama_3_2_vision_11b",
+          encdec="seamless_m4t_medium", max_len=32, new=6, seed=0)
+TP_VLM_CUT = dict(n_layers=5)
+TP_ENCDEC_CUT = dict(n_layers=2, n_enc_layers=2)
 TP_REC_CUT = dict(n_layers=3)
 TP_F10 = "qwen3_moe_235b_a22b"
 TP_DECODE = ("decode", 4, 32)      # (kind, batch, cache slots)
@@ -612,6 +635,26 @@ def gemms_per_pass(cfg, encoder: bool = False) -> int:
             + (6 * cfg.n_enc_layers if encoder else 0))
 
 
+def tp_cross_wk(cfg) -> int:
+    """The index, within one forward pass's eng.dot GEMMs, of the first
+    cross layer's wk: after each earlier "attn" layer's 7 (a SwiGLU MLP)
+    and the cross layer's wq."""
+    kinds = cfg.layer_kinds
+    assert set(kinds[:kinds.index("cross")]) == {"attn"}
+    return 7 * kinds.index("cross") + 1
+
+
+def tp_cut_params(params, cut):
+    """The first cut.n_layers decoder layers and cut.n_enc_layers encoder
+    layers of a tree of serve params (whole or a rank's blocks), the rest
+    as it is: the params of `cut` drawn from the same leaves."""
+    out = dict(params, layers=params["layers"][:cut.n_layers])
+    if "encoder" in params:
+        out["encoder"] = dict(params["encoder"], layers=params["encoder"][
+            "layers"][:cut.n_enc_layers])
+    return out
+
+
 def tp_prompts(vocab: int):
     """SERVE's prompts, drawn as the serve phase draws them."""
     import numpy as np
@@ -639,13 +682,29 @@ def rel_real(got, want, vocab: int) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def tp_front(cfg, dev):
+    """(the batch key, SERVE["requests"] rows of frontend embeddings (B,
+    n_frontend_tokens, d_model) f32 from the seed) of a cross-attention
+    arch, None for the others."""
+    import torch
+    from repro_torch.distributed.train import MEMORY_KEYS
+    if cfg.family not in MEMORY_KEYS:
+        return None
+    g = torch.Generator(device=dev).manual_seed(TP["seed"])
+    return MEMORY_KEYS[cfg.family], torch.randn(
+        (SERVE["requests"], cfg.n_frontend_tokens, cfg.d_model),
+        generator=g, device=dev)
+
+
 def tp_greedy(prefill, decode, params, cache, prompts, dev, whole,
-              rows=None, every=None):
+              rows=None, every=None, front=None):
     """Greedy serve of right-padded `prompts`, TP["new"] tokens each:
     (the prefill's logits, each request's tokens, the forward passes).
     `whole` turns a step's logits into the whole vocabulary's; `rows`
     takes a batch-major tensor to the rows this rank serves (a batch
-    split over `model`); `every`, a list, gets each pass's logits."""
+    split over `model`); `every`, a list, gets each pass's logits;
+    `front` (`tp_front`) adds the frontend's embeddings to the prefill's
+    batch, and each decode takes back the memory the prefill returned."""
     import torch
     lens = torch.tensor([len(p) for p in prompts], device=dev)
     toks = torch.zeros((len(prompts), max(map(len, prompts))),
@@ -654,14 +713,18 @@ def tp_greedy(prefill, decode, params, cache, prompts, dev, whole,
         toks[i, :len(p)] = torch.from_numpy(p).to(dev)
     if rows is not None:
         lens, toks = rows(lens), rows(toks)
+    batch = {"tokens": toks}
+    if front is not None:
+        key, emb = front
+        batch[key] = emb if rows is None else rows(emb)
     seen = [] if every is None else every
-    first, cache, _ = prefill(params, {"tokens": toks}, cache,
-                              last_index=lens - 1)
+    first, cache, memory = prefill(params, batch, cache, last_index=lens - 1)
+    extra = () if memory is None else (memory,)
     seen.append(first)
     tok = whole(first).argmax(-1)
     out, pos = [tok], lens.clone()
     for _ in range(TP["new"] - 1):
-        logits, cache = decode(params, tok, pos, cache)
+        logits, cache = decode(params, tok, pos, cache, *extra)
         seen.append(logits)
         tok = whole(logits).argmax(-1)
         out.append(tok)
@@ -677,7 +740,8 @@ def same_bits(a, b) -> bool:
 def tp_whole_serve(cfg, params, mode, prompts, dev, every=None):
     """One device's greedy serve of `prompts` (tp_greedy) on whole params
     under `mode`: (the prefill's logits, tokens, passes, wall ending in a
-    synchronize); `every` as tp_greedy's."""
+    synchronize); `every` as tp_greedy's; a cross-attention arch on its
+    frontend's embeddings (`tp_front`)."""
     import torch
     from repro_torch.core.numerics import DotEngine
     from repro_torch.models.model import Model
@@ -689,7 +753,7 @@ def tp_whole_serve(cfg, params, mode, prompts, dev, every=None):
         lambda p, b, c, last_index: model.prefill(p, b, c,
                                                   last_index=last_index),
         model.decode_step, params, cache, prompts, dev, lambda t: t,
-        every=every)
+        every=every, front=tp_front(cfg, dev))
     torch.cuda.synchronize()
     return first, tokens, passes, time.monotonic() - t0
 
@@ -803,7 +867,7 @@ def tp_moe_one(_, tmp: str) -> None:
 
 def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
     """One rank of the tp phase (a process of its own, on cuda:0, in a gloo
-    group of `world` ranks on 127.0.0.1): (a)-(l) on its blocks, its
+    group of `world` ranks on 127.0.0.1): (a)-(p) on its blocks, its
     results in tmp/tp<r>.pt for the parent to hold against one device;
     raises on a launch count or a byte count that is off."""
     # Yi-34B's blocks fill most of the card that two ranks share: segments
@@ -877,10 +941,12 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
             model = Model(cfg, DotEngine(mode=mode), device=dev)
             cache = init_serve_cache(model, sharder, len(prompts),
                                      TP["max_len"])
-            prefill = jit_prefill_step(model, sharder, params, ["tokens"],
-                                       cache)
+            front = tp_front(cfg, dev)
+            prefill = jit_prefill_step(
+                model, sharder, params,
+                ["tokens"] + ([] if front is None else [front[0]]), cache)
             decode = jit_decode_step(model, sharder, params, cache,
-                                     has_memory=False)
+                                     has_memory=front is not None)
             if sharder.replicated:
                 rows, cols = mine(sharder), (lambda t: t)
             else:
@@ -889,7 +955,7 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
             t0 = time.monotonic()
             first, tokens, passes = tp_greedy(prefill, decode, params, cache,
                                               prompts, dev, cols, rows,
-                                              every)
+                                              every, front)
             torch.cuda.synchronize()
             return first.cpu(), tokens, passes, time.monotonic() - t0
 
@@ -1149,6 +1215,102 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
             raise RuntimeError(f"(j) K1 launched {launched} times for "
                                f"{passes * per} GEMMs")
         del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (m) the VLM arch as published, native --------------------------
+        t0 = time.monotonic()
+        vlm = get_config(TP["vlm"])
+        sharder, params, held, init_s, init_peak, biggest = peaked_blocks(
+            vlm, "(m)")
+        first, tokens, passes, wall = serve(vlm, sharder, params, "native",
+                                            tp_prompts(vlm.vocab_size))
+        res["vlm"] = dict(first=first, tokens=tokens, wall=wall, held=held,
+                          init_s=init_s, init_peak=init_peak,
+                          biggest=biggest)
+        say(f"(m) {vlm.name} ({vlm.n_layers} layers, "
+            f"{vlm.layer_kinds.count('cross')} cross) on {mesh_shape(mesh)}:"
+            f" {held} B of serve blocks resident (the specs' count), drawn "
+            f"in {init_s:.1f} s, the init's peak {init_peak} B (blocks + one "
+            f"whole f32 leaf of {biggest} B at most); native {passes} passes "
+            f"in {wall:.3f} s; the part {time.monotonic() - t0:.1f} s")
+
+        # (n) its first pattern group, cut from the same blocks, olm16 ----
+        t0 = time.monotonic()
+        vcut = dataclasses.replace(vlm, **TP_VLM_CUT)
+        sharder = Sharder(mesh, vcut)
+        sharder.set_batch(SERVE["requests"])
+        per, wk_at = gemms_per_pass(vcut), tp_cross_wk(vcut)
+        with olm_calls({0, wk_at, per - 1}) as seen:
+            k12.launches = 0
+            first, tokens, passes, wall = serve(
+                vcut, sharder, tp_cut_params(params, vcut), "olm16",
+                tp_prompts(vcut.vocab_size))
+            launched = k12.launches
+        res["vlm_olm"] = dict(first=first, tokens=tokens, wall=wall,
+                              wq=seen[0], wk=seen[wk_at], head=seen[per - 1],
+                              launches=launched, gemms=passes * per)
+        say(f"(n) {vcut.name} at {vcut.n_layers} layers {vcut.layer_kinds}:"
+            f" olm16 {passes} passes in {wall:.3f} s, GEMMs issued "
+            f"{passes * per}, K1 launches {launched}; the cross wk GEMM "
+            f"{tuple(seen[wk_at][0].shape)} -> {tuple(seen[wk_at][1].shape)};"
+            f" the part {time.monotonic() - t0:.1f} s")
+        if launched != passes * per:
+            raise RuntimeError(f"(n) K1 launched {launched} times for "
+                               f"{passes * per} GEMMs")
+        del params, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (p) one partitioned decode of (n)'s cut against its walk --------
+        t0 = time.monotonic()
+        kind, B, T = TP_DECODE
+        sharder = Sharder(mesh, vcut)
+        sharder.set_batch(B)
+        res["vlm_card"] = dryrun.card_step(
+            vcut, ShapeCase("tp_vlm_decode", T, B, kind), sharder)
+        say(f"(p) one partitioned {vcut.name} decode at {vcut.n_layers} "
+            f"layers ({B} lanes, {T} slots, the memory's rows): FLOPs "
+            f"{res['vlm_card']['flops']}, peak {res['vlm_card']['peak']} B, "
+            f"walls "
+            f"{[round(w * 1e3, 3) for w in res['vlm_card']['walls_s']]} ms;"
+            f" the part {time.monotonic() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (o) the enc-dec arch as published, native; a 2 + 2 cut, olm16 ---
+        t0 = time.monotonic()
+        enc = get_config(TP["encdec"])
+        prompts = tp_prompts(enc.vocab_size)
+        sharder, params, held, init_s = blocks(enc)
+        first, tokens, passes, wall = serve(enc, sharder, params, "native",
+                                            prompts)
+        res["encdec"] = dict(first=first, tokens=tokens, wall=wall,
+                             held=held, init_s=init_s)
+        ecut = dataclasses.replace(enc, **TP_ENCDEC_CUT)
+        sharder = Sharder(mesh, ecut)
+        sharder.set_batch(SERVE["requests"])
+        with olm_calls({0}) as seen:
+            k12.launches = 0
+            first, tokens, passes, olm_wall = serve(
+                ecut, sharder, tp_cut_params(params, ecut), "olm16", prompts)
+            launched = k12.launches
+        gemms = gemms_per_pass(ecut, True) + (passes - 1) * gemms_per_pass(
+            ecut)
+        res["encdec_olm"] = dict(first=first, tokens=tokens, wall=olm_wall,
+                                 wq=seen[0], launches=launched, gemms=gemms)
+        say(f"(o) {enc.name} ({enc.n_enc_layers} encoder + {enc.n_layers} "
+            f"xdec layers): {held} B of serve blocks resident (the specs' "
+            f"count), drawn in {init_s:.1f} s; native {passes} passes in "
+            f"{wall:.3f} s; at {ecut.n_enc_layers} + {ecut.n_layers} layers "
+            f"olm16 in {olm_wall:.3f} s, GEMMs issued {gemms} "
+            f"({gemms_per_pass(ecut, True)} a prefill, "
+            f"{gemms_per_pass(ecut)} a decode), K1 launches {launched}; the "
+            f"part {time.monotonic() - t0:.1f} s")
+        if launched != gemms:
+            raise RuntimeError(f"(o) K1 launched {launched} times for "
+                               f"{gemms} GEMMs")
+        del params, seen
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3592,6 +3754,36 @@ def main() -> int:
     del params
     print(f"[tp] one device, (h), (i) and (j): {time.monotonic() - t0:.1f} "
           "s, the inits included", flush=True)
+    # (m) and (n), then (o), on one device: each arch's bf16 serve params
+    # drawn once, served as published native and cut under olm16
+    t0 = time.monotonic()
+    vlm = get_config(TP["vlm"])
+    vcut = dataclasses.replace(vlm, **TP_VLM_CUT)
+    params = init_serve_params(Model(vlm, device=dev), None, TP["seed"])
+    ones["vlm"] = tp_whole_serve(vlm, params, "native",
+                                 tp_prompts(vlm.vocab_size), dev)
+    with olm_calls({0, tp_cross_wk(vcut)}) as seen:
+        ones["vlm_olm"] = tp_whole_serve(vcut, tp_cut_params(params, vcut),
+                                         "olm16", tp_prompts(vcut.vocab_size),
+                                         dev)
+    vlm_wq0, vlm_wk0 = seen[0], seen[tp_cross_wk(vcut)]
+    vlm_head = params["unembed"]["table"].cpu()
+    del params, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc = get_config(TP["encdec"])
+    ecut = dataclasses.replace(enc, **TP_ENCDEC_CUT)
+    params = init_serve_params(Model(enc, device=dev), None, TP["seed"])
+    ones["encdec"] = tp_whole_serve(enc, params, "native",
+                                    tp_prompts(enc.vocab_size), dev)
+    with olm_calls({0}) as seen:
+        ones["encdec_olm"] = tp_whole_serve(
+            ecut, tp_cut_params(params, ecut), "olm16",
+            tp_prompts(ecut.vocab_size), dev)
+    enc_wq0 = seen[0]
+    del params, seen
+    print(f"[tp] one device, (m), (n) and (o): {time.monotonic() - t0:.1f} "
+          "s, the inits included", flush=True)
     for tag, (first, tokens, passes, wall) in ones.items():
         ones[tag] = (first.cpu(), tokens, passes, wall)
         print(f"[tp] one device, {tag}: {passes} passes in {wall:.3f} s",
@@ -3644,6 +3836,12 @@ def main() -> int:
                 rec, ShapeCase("tp_rec_decode", T, B, kind),
                 make_abstract_mesh((1, TP_RANKS), ("data", "model")))
             walk_rec_s = time.monotonic() - t0_walk
+            # (p) the VLM cut's decode's walk, with its memory
+            t0_walk = time.monotonic()
+            walked_vlm, coll_vlm, _ = dryrun.walk_cell(
+                vcut, ShapeCase("tp_vlm_decode", T, B, kind),
+                make_abstract_mesh((1, TP_RANKS), ("data", "model")))
+            walk_vlm_s = time.monotonic() - t0_walk
             # a rank that raises fails this call, and with it the script
             while not ctx.join():
                 pass
@@ -3863,6 +4061,83 @@ def main() -> int:
         if not (f["bits"] and f["tokens"]):
             raise SystemExit(f"tp: (l) F10: {side} {who} gave other bits "
                              "on a second serve")
+    # (m) the VLM arch as published against one device
+    for r, res in enumerate(ranks):
+        m = res["vlm"]
+        print(f"[tp] (m) {vlm.name} rank {r}: {m['held']} B of bf16 serve "
+              f"blocks (the specs' count), drawn in {m['init_s']:.1f} s, "
+              f"the init's peak {m['init_peak']} B (at most the blocks and "
+              f"{m['biggest']} B); wall {m['wall']:.3f} s against one "
+              f"device's {ones['vlm'][3]:.3f} s", flush=True)
+    gate(f"(m) {vlm.name} native", gathered("vlm"), ones["vlm"][0],
+         vlm.vocab_size)
+    print(f"[tp] (m) tokens equal to one device's "
+          f"{same(ranks[0]['vlm']['tokens'], ones['vlm'][1])} of "
+          f"{sum(map(len, ones['vlm'][1]))}", flush=True)
+    # (n) the cut under olm16: wq's, the cross wk's and the head's columns
+    n_wq, n_wk = vlm_wq0[1].shape[1] // TP_RANKS, \
+        vlm_wk0[1].shape[1] // TP_RANKS
+    n_head = vlm_head.shape[0] // TP_RANKS
+    for r, res in enumerate(ranks):
+        n = res["vlm_olm"]
+        ok = []
+        for (x, out), (x0, out0), w in ((n["wq"], vlm_wq0, n_wq),
+                                        (n["wk"], vlm_wk0, n_wk)):
+            ok.append(bits_equal(x, x0) and bits_equal(
+                out, out0[:, r * w:(r + 1) * w]))
+        hx, hout = n["head"]
+        ok.append(bits_equal(hout.to(dev), olm_matmul(
+            hx.to(dev), vlm_head[r * n_head:(r + 1) * n_head].to(dev).T
+            .to(torch.float32), n_bits=16)))
+        print(f"[tp] (n) rank {r}: layer 0's wq input equal to one device's "
+              f"and its {n_wq} columns of the output bit-equal to one "
+              f"device's K1: {ok[0]}; the cross layer's wk on the memory's "
+              f"{tuple(n['wk'][0].shape)} rows, its {n_wk} columns: "
+              f"{ok[1]}; the head's {n_head} local logits bit-equal to K1 "
+              f"on the whole table's columns at the rank's input: {ok[2]}; "
+              f"K1 launches {n['launches']} == GEMMs issued {n['gemms']}; "
+              f"wall {n['wall']:.3f} s against one device's "
+              f"{ones['vlm_olm'][3]:.3f} s", flush=True)
+        if not all(ok):
+            raise SystemExit(f"tp: (n) rank {r}'s column blocks off one "
+                             "device's K1")
+    del vlm_wq0, vlm_wk0, vlm_head
+    gate(f"(n) {vcut.name} at {vcut.n_layers} layers olm16",
+         gathered("vlm_olm"), ones["vlm_olm"][0], vcut.vocab_size)
+    print(f"[tp] (n) tokens equal to one device's "
+          f"{same(ranks[0]['vlm_olm']['tokens'], ones['vlm_olm'][1])} of "
+          f"{sum(map(len, ones['vlm_olm'][1]))}", flush=True)
+    # (o) the enc-dec arch, native as published and the cut under olm16
+    n_wq = enc_wq0[1].shape[1] // TP_RANKS
+    for r, res in enumerate(ranks):
+        o, oo = res["encdec"], res["encdec_olm"]
+        x, out = oo["wq"]
+        wq_ok = bits_equal(x, enc_wq0[0]) and bits_equal(
+            out, enc_wq0[1][:, r * n_wq:(r + 1) * n_wq])
+        print(f"[tp] (o) {enc.name} rank {r}: {o['held']} B of bf16 serve "
+              f"blocks (the specs' count), drawn in {o['init_s']:.1f} s; "
+              f"native wall {o['wall']:.3f} s against one device's "
+              f"{ones['encdec'][3]:.3f} s; the cut's first encoder wq on "
+              f"{tuple(x.shape)} frame rows, its {n_wq} columns bit-equal "
+              f"to one device's K1: {wq_ok}; K1 launches {oo['launches']} "
+              f"== GEMMs issued {oo['gemms']}; olm16 wall {oo['wall']:.3f} "
+              f"s against one device's {ones['encdec_olm'][3]:.3f} s",
+              flush=True)
+        if not wq_ok:
+            raise SystemExit(f"tp: (o) rank {r}'s encoder wq columns off "
+                             "one device's K1")
+    del enc_wq0
+    gate(f"(o) {enc.name} native", gathered("encdec"), ones["encdec"][0],
+         enc.vocab_size)
+    gate(f"(o) {ecut.name} at {ecut.n_enc_layers} + {ecut.n_layers} layers "
+         "olm16", gathered("encdec_olm"), ones["encdec_olm"][0],
+         ecut.vocab_size)
+    print(f"[tp] (o) tokens equal to one device's: native "
+          f"{same(ranks[0]['encdec']['tokens'], ones['encdec'][1])}, olm16 "
+          f"{same(ranks[0]['encdec_olm']['tokens'], ones['encdec_olm'][1])}"
+          f" of {sum(map(len, ones['encdec'][1]))}", flush=True)
+    # (p) the VLM cut's decode's walk against each rank's step
+    held_to_walk("(p)", "vlm_card", walked_vlm, coll_vlm, walk_vlm_s)
     print(f"[tp] the phase {time.monotonic() - t_phase:.1f} s; {smi_line}",
           flush=True)
     by_path["olm_matmul_fused"]["tp"] = {
@@ -3871,7 +4146,8 @@ def main() -> int:
         by_path["olm_matmul_fused"]["tp"].update({
             f"rank {r} (e) {get_config(arch).name}":
             res["moe"][arch]["launches"] for r, res in enumerate(ranks)})
-    for tag, key in (("(i)", "rec_olm"), ("(j)", "ssm")):
+    for tag, key in (("(i)", "rec_olm"), ("(j)", "ssm"), ("(n)", "vlm_olm"),
+                     ("(o)", "encdec_olm")):
         by_path["olm_matmul_fused"]["tp"].update({
             f"rank {r} {tag}": res[key]["launches"]
             for r, res in enumerate(ranks)})

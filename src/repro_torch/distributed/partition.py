@@ -1,7 +1,7 @@
 """The partition context of the partitioned serve steps: what GSPMD does
 with the reference's `jit_prefill_step` / `jit_decode_step` shardings,
-done by hand for the dense, MoE and recurrent families (the SSM family's
-weights are replicated: its step runs with no context).
+done by hand for the dense, MoE, recurrent and cross-attention families
+(the SSM family's weights are replicated: its step runs with no context).
 
 A `Partition` is the Sharder (its mesh, its config, its specs) plus this
 rank's coordinate along `model`. The layers (`models/layers.py`) take one
@@ -21,7 +21,10 @@ holds its blocks at the Sharder's specs and:
     weight is whole over `data` at a time);
   * the embedding is vocab-parallel, the KV cache split over kv heads or
     over its length (a sliding-window ring too), attention over whole
-    heads (`layers.py`);
+    heads (`layers.py`); cross-attention and the enc-dec encoder's
+    cache-less layers read k and v of the rank's kv heads, or gathered
+    whole where the kv heads do not divide `model`, the memory being the
+    rank's rows whole over `model`;
   * a MoE layer routes on every rank alike (the router is replicated and
     its input the same bits everywhere), runs its expert GEMMs on the
     rank's experts (`ep`) or on every expert's d_ff block (`tp`), the

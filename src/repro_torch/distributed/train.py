@@ -42,11 +42,13 @@ The serve steps keep one of two layouts:
     No rank holds a whole weight of a `model`-sharded leaf or more of the
     cache than its block; `init_serve_params` draws the blocks without a
     whole model ever existing on the rank. The dense, MoE (sliding-window
-    rings too) and recurrent families run under the partition context;
-    the SSM family, whose weights the Sharder replicates, runs the whole
-    path on the rank's rows of the batch and cache, with no collective,
-    as the reference's compiled program has none. The cross-attention
-    families raise NotImplementedError and name their ROADMAP item.
+    rings too), recurrent and cross-attention families run under the
+    partition context (the enc-dec family's encoder too: the prefill
+    returns the memory as this rank's rows, whole over `model`, and the
+    decode takes it back); the SSM family, whose weights the Sharder
+    replicates, runs the whole path on the rank's rows of the batch and
+    cache, with no collective, as the reference's compiled program has
+    none.
 """
 from __future__ import annotations
 
@@ -71,11 +73,11 @@ from .partition import Partition
 from .sharding import NamedSharding, Sharder, path_leaves, spec_leaves
 
 __all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
-           "jit_prefill_step", "jit_decode_step", "serve_params",
-           "init_serve_params", "init_serve_cache", "param_blocks",
-           "block_shape", "unpartitioned", "serve_block_bytes", "init_train_state", "cast_params",
-           "train_state_specs", "distribute_state", "gather_state",
-           "state_shardings"]
+           "jit_prefill_step", "jit_decode_step", "MEMORY_KEYS",
+           "serve_params", "init_serve_params", "init_serve_cache",
+           "param_blocks", "block_shape", "serve_block_bytes",
+           "init_train_state", "cast_params", "train_state_specs",
+           "distribute_state", "gather_state", "state_shardings"]
 
 
 def init_train_state(model: Model, seed: int = 0) -> Dict[str, Any]:
@@ -333,12 +335,8 @@ def build_decode_step(model: Model):
 
 
 # ---------------------------------------------------------------- serving
-# The families without a partitioned serve yet, and the ROADMAP section 1
-# item that brings it.
-UNPARTITIONED = {
-    "encdec": "item 15, the partitioned cross-attention serve",
-    "vlm": "item 15, the partitioned cross-attention serve",
-}
+# The batch key of each family's frontend embeddings (B, M, d_model).
+MEMORY_KEYS = {"encdec": "frames", "vlm": "patches"}
 
 
 def _serve_dtype(t: torch.Tensor) -> torch.dtype:
@@ -420,25 +418,10 @@ def init_serve_cache(model: Model, sharder: Sharder, batch: int,
         for (path, t) in path_leaves(whole)])
 
 
-def unpartitioned(cfg: ModelConfig) -> Optional[str]:
-    """None where the port has a partitioned serve step for `cfg` (the
-    dense, MoE, recurrent and SSM families, with or without experts or a
-    window), else the ROADMAP item that brings one."""
-    return UNPARTITIONED.get(cfg.family)
-
-
 def _partition(model: Model, sharder: Sharder) -> Optional[Partition]:
     """The partition context of `model`'s serve steps on the sharder's
     mesh: None where the Sharder replicates every weight (the SSM family:
-    the rank runs the whole path on its rows); raises for a configuration
-    with no partitioned serve yet."""
-    cfg = model.cfg
-    item = unpartitioned(cfg)
-    if item is not None:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) has no partitioned serve step yet: "
-            f"ROADMAP section 1, {item}; the whole-weight "
-            "build_prefill_step / build_decode_step serve it")
+    the rank runs the whole path on its rows)."""
     if model.eng.mesh is not None and model.eng.shard is not None:
         raise ValueError("a partitioned step runs each GEMM on this rank's "
                          "blocks: its engine shards nothing itself "
@@ -463,22 +446,30 @@ def jit_prefill_step(model: Model, sharder: Sharder, params, batch_keys,
                      cache):
     """The partitioned prefill one rank runs (the reference's
     `jit_prefill_step`): prefill(params, batch, cache) -> (logits, cache,
-    None), `params` this rank's blocks at `sharder.param_specs` (they are
-    checked here), `batch` its rows at `sharder.batch_specs(batch_keys)`,
-    `cache` its block at `sharder.cache_specs` (`init_serve_cache`),
-    updated in place; the logits at P(batch, vocab_axis()): (B_rank,
-    vocab_padded / model), or (B_rank, vocab_padded) where the weights
-    are replicated. `last_index=` (each lane's last prompt position,
-    `Model.prefill`'s) serves right-padded prompts. A MoE layer runs the
-    experts of this rank's blocks, split by expert or by d_ff as the
-    specs of its leaves give (`models/moe.py`); a sliding-window layer
-    keeps its block of the ring (`models/layers.py`); an RG-LRU layer its
-    channels of the state (`models/recurrent.py`)."""
+    memory), `params` this rank's blocks at `sharder.param_specs` (they are
+    checked here), `batch` its rows at `sharder.batch_specs(batch_keys)`
+    (tokens, an optional mask and, for the enc-dec and VLM families, the
+    frontend's "frames" or "patches"), `cache` its block at
+    `sharder.cache_specs` (`init_serve_cache`), updated in place; the
+    logits at P(batch, vocab_axis()): (B_rank, vocab_padded / model), or
+    (B_rank, vocab_padded) where the weights are replicated; the memory
+    the cross-attention layers read at P(batch, None, None), this rank's
+    rows whole over `model` (None for the other families). `last_index=`
+    (each lane's last prompt position, `Model.prefill`'s) serves
+    right-padded prompts. A MoE layer runs the experts of this rank's
+    blocks, split by expert or by d_ff as the specs of its leaves give
+    (`models/moe.py`); a sliding-window layer keeps its block of the ring
+    (`models/layers.py`); an RG-LRU layer its channels of the state
+    (`models/recurrent.py`); the encoder and the cross-attention layers
+    their heads' columns of wq, wk and wv (`models/layers.py`)."""
     part = _partition(model, sharder)
     _check_blocks(model, sharder, params)
-    if set(batch_keys) - {"tokens", "mask"}:
-        raise ValueError(f"a partitioned prefill takes tokens, got "
-                         f"{batch_keys}")
+    allowed = {"tokens", "mask"}
+    if model.cfg.family in MEMORY_KEYS:
+        allowed.add(MEMORY_KEYS[model.cfg.family])
+    if set(batch_keys) - allowed:
+        raise ValueError(f"a partitioned prefill of {model.cfg.name} takes "
+                         f"{sorted(allowed)}, got {batch_keys}")
 
     def prefill(params, batch, cache, last_index=None):
         return model.prefill(params, batch, cache, last_index=last_index,
@@ -490,14 +481,23 @@ def jit_decode_step(model: Model, sharder: Sharder, params, cache, *,
                     has_memory: bool):
     """The partitioned decode step one rank runs (the reference's
     `jit_decode_step`): decode(params, token, pos, cache) -> (logits,
-    cache), token and pos this rank's rows, the rest as
-    `jit_prefill_step`'s."""
+    cache), or with `has_memory` (the enc-dec and VLM families, and only
+    they) decode(params, token, pos, cache, memory), the memory the
+    prefill returned; token, pos and the memory this rank's rows, the
+    rest as `jit_prefill_step`'s."""
     part = _partition(model, sharder)
     _check_blocks(model, sharder, params)
-    if has_memory:
-        raise NotImplementedError(
-            f"ROADMAP section 1, {UNPARTITIONED['encdec']}")
+    wants = model.cfg.family in MEMORY_KEYS
+    if has_memory != wants:
+        raise ValueError(f"{model.cfg.name} ({model.cfg.family}) decodes "
+                         f"{'with' if wants else 'without'} a memory, got "
+                         f"has_memory={has_memory}")
 
-    def decode(params, token, pos, cache):
-        return model.decode_step(params, token, pos, cache, part=part)
+    if has_memory:
+        def decode(params, token, pos, cache, memory):
+            return model.decode_step(params, token, pos, cache, memory,
+                                     part=part)
+    else:
+        def decode(params, token, pos, cache):
+            return model.decode_step(params, token, pos, cache, part=part)
     return decode

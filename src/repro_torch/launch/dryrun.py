@@ -10,18 +10,17 @@ For each cell the dry run:
   2. builds the model and the Sharder on that mesh, and the step's
      arguments as meta tensors (`input_specs`): train runs the port's
      sharded step (`build_train_step(model, sharder, microbatches=...)`)
-     on the state `distribute_state` rests; prefill and decode keep one of
-     two layouts (the record's `layout`). "partitioned", the dense, MoE,
-     recurrent and SSM families': `jit_prefill_step` / `jit_decode_step`
-     on this rank's blocks of the bf16 serve params (`init_serve_params`),
-     of the batch and of the cache at the Sharder's specs, moving their
-     collectives over `model` and, under fsdp_tp, `data` (none for the
-     SSM family, whose weights are replicated). "whole", the
-     cross-attention families': `build_prefill_step` /
+     on the state `distribute_state` rests; prefill and decode walk the
+     "partitioned" layout (the record's `layout`), every family's:
+     `jit_prefill_step` / `jit_decode_step` on this rank's blocks of the
+     bf16 serve params (`init_serve_params`), of the batch (and of the
+     decode's memory) and of the cache at the Sharder's specs, moving
+     their collectives over `model` and, under fsdp_tp, `data` (none for
+     the SSM family, whose weights are replicated). `cell_step` also
+     keeps the "whole" layout, to compare the two: `build_prefill_step` /
      `build_decode_step` on whole bf16 serve params (f32 leaves of 2 or
      more dims cast, the reference's `_serve_params` rule), the rank's
-     rows of the batch and a cache of its rows, no collective
-     (`SERVE_NOTE`);
+     rows of the batch and a cache of its rows, no collective;
   3. runs that step once under `roofline.walk`: dot FLOPs, the bytes each
      op reads and writes, the live bytes and their peak, the collectives
      by kind and mesh axis;
@@ -63,8 +62,7 @@ from repro_torch.distributed.train import (build_decode_step,
                                            init_serve_params,
                                            init_train_state,
                                            jit_decode_step,
-                                           jit_prefill_step, serve_params,
-                                           unpartitioned)
+                                           jit_prefill_step, serve_params)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import (axis_links, collective_bytes,
                                          roofline_terms, walk)
@@ -79,9 +77,6 @@ __all__ = ["run_cell", "walk_cell", "eval_shape_tree", "main",
            "CARD_BYTES"]
 
 CARD_BYTES = 80e9          # an H100 SXM's HBM3
-SERVE_NOTE = ("whole bf16 weights on every rank; its rows of the batch and "
-              "of the cache; no collective (the port has no partitioned "
-              "serve step for this family yet: ROADMAP section 1)")
 
 
 def microbatches(cfg, case: ShapeCase) -> int:
@@ -105,10 +100,10 @@ def eval_shape_tree(fn: Callable, *args):
 
 
 def serve_layout(cfg) -> str:
-    """The layout a serve cell of `cfg` walks: "partitioned" where the
-    port has partitioned serve steps (the dense, MoE, recurrent and SSM
-    families), else "whole"."""
-    return "whole" if unpartitioned(cfg) else "partitioned"
+    """The layout a serve cell of `cfg` walks: "partitioned", as every
+    family has partitioned serve steps (the dense, MoE, recurrent, SSM
+    and cross-attention families)."""
+    return "partitioned"
 
 
 @contextlib.contextmanager
@@ -192,9 +187,11 @@ def cell_step(model: Model, sharder: Sharder, case: ShapeCase,
             batch = {k: rows(v) for k, v in inputs["batch"].items()}
             return jit_prefill_step(model, sharder, params, list(batch),
                                     cache), (params, batch, cache)
+        args = (params, rows(inputs["token"]), rows(inputs["pos"]), cache)
+        if "memory" in inputs:
+            args += (rows(inputs["memory"]),)
         return jit_decode_step(model, sharder, params, cache,
-                               has_memory=False), (
-            params, rows(inputs["token"]), rows(inputs["pos"]), cache)
+                               has_memory="memory" in inputs), args
     params = serve_params(model.init())
     if case.kind == "prefill":
         batch = {k: rows(v) for k, v in inputs["batch"].items()}
@@ -340,8 +337,6 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool, out_dir: Path
     })
     if case.kind != "train":
         rec["layout"] = serve_layout(cfg)
-        if rec["layout"] == "whole":
-            rec["serve"] = SERVE_NOTE
     out_dir.mkdir(parents=True, exist_ok=True)
     fn = out_dir / f"{arch}__{shape}__{rec['mesh']}.json"
     fn.write_text(json.dumps(rec, indent=1, default=str))

@@ -18,7 +18,7 @@ partition context `part` (`distributed/partition.py`: the mesh, the
 Sharder and this rank's place on `model`). With None they run on whole
 tensors, as on one device. With one, each runs on this rank's blocks at
 the Sharder's specs and moves what it must through the context's c10d
-collectives: the partitioned serve steps of the dense family
+collectives: the partitioned serve steps
 (`distributed/train.py::jit_prefill_step` / `jit_decode_step`).
 """
 from __future__ import annotations
@@ -332,6 +332,29 @@ def _attn_partial(q, k, v, qpos, kpos, part,
     return out.transpose(1, 2).to(v.dtype)
 
 
+def _rank_heads(q, k, v, qpos, kpos, part, H: int, *, causal: bool,
+                window: Optional[int] = None, rope=None) -> torch.Tensor:
+    """Attention of this rank's whole query heads (`Partition.head_range`)
+    over whole k and v (B, T, Hkv, D): q holds this rank's columns of the
+    projection, gathered whole over `model` first where the H heads do not
+    divide it; `rope`, where given, rotates the rank's query heads. Query
+    head h reads kv head h // (H / Hkv). Returns this rank's columns of
+    the output (B, S, H * D / model), the heads' outputs gathered over
+    `model` where they do not divide it (`Partition.heads_to_columns`)."""
+    B, S = q.shape[:2]
+    Hkv, D = k.shape[2], k.shape[3]
+    h0, h1 = part.head_range(H)
+    even = H % part.size == 0
+    q = q.reshape(B, S, -1, D) if even else \
+        part.gather(q, -1).reshape(B, S, H, D)[:, :, h0:h1]
+    if rope is not None:
+        q = rope(q)
+    kv = torch.arange(h0, h1, device=q.device) // (H // Hkv)
+    out = _attn_core(q, k.index_select(2, kv), v.index_select(2, kv), qpos,
+                     kpos, causal=causal, window=window)
+    return out.reshape(B, S, -1) if even else part.heads_to_columns(out, H)
+
+
 def _attention_by_length(p: Params, cfg: ModelConfig, q, k, v,
                          positions: torch.Tensor, eng: DotEngine,
                          cache: Dict[str, Any], part) -> torch.Tensor:
@@ -343,8 +366,7 @@ def _attention_by_length(p: Params, cfg: ModelConfig, q, k, v,
     writes its slot on the rank that owns it, gathers q whole and combines
     the partial softmax of every rank's slots (`_attn_partial`); a
     prefill stores this rank's slot range and attends over the prompt for
-    this rank's whole query heads (`Partition.head_range`), gathering q
-    first and the outputs after where the heads do not divide `model`.
+    this rank's whole query heads (`_rank_heads`).
 
     A whole cache of exactly `cfg.sliding_window` slots is a ring, as in
     `attention_apply`: a decode writes slot pos mod T * model and attends
@@ -394,17 +416,9 @@ def _attention_by_length(p: Params, cfg: ModelConfig, q, k, v,
                                          rounding_mode="floor"))[:n]
         ck[:, :n] = k.index_select(1, src).to(ck.dtype)
         cv[:, :n] = v.index_select(1, src).to(cv.dtype)
-        h0, h1 = part.head_range(H)
-        even = H % part.size == 0
-        q = q.reshape(B, S, -1, Dh) if even else \
-            part.gather(q, -1).reshape(B, S, H, Dh)[:, :, h0:h1]
-        kv = torch.arange(h0, h1, device=q.device) // (H // Hkv)
-        out = _attn_core(rope(q), k.index_select(2, kv),
-                         v.index_select(2, kv), positions,
-                         torch.arange(S, device=q.device), causal=True,
-                         window=window)
-        out = out.reshape(B, S, -1) if even else \
-            part.heads_to_columns(out, H)
+        out = _rank_heads(q, k, v, positions,
+                          torch.arange(S, device=q.device), part, H,
+                          causal=True, window=window, rope=rope)
     return _row(eng, out, p["wo"], part)
 
 
@@ -437,21 +451,25 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     updated cache or None).
 
     With a partition context `part` the layer runs on this rank's blocks:
-    wq, wk, wv (and their biases) column-parallel, wo row-parallel, the
-    cache this rank's block, over its kv heads where n_kv_heads divides
-    `model` (attention then local to this rank's heads, the code below on
-    them, a ring too) and over its length otherwise
-    (`_attention_by_length`). It takes the contiguous cache of a prefill
-    or decode step, without memory or chunks."""
+    wq, wk, wv (and their biases) column-parallel, wo row-parallel. Where
+    the layer's n_kv_heads divide `model` it attends over this rank's
+    heads, the code below on them: a self-attention layer's cache is this
+    rank's block over its kv heads (a ring too), cross-attention reads
+    this rank's kv heads of the memory (whole over `model` on every rank)
+    and the encoder's cache-less layers theirs of x. Otherwise a layer
+    with a cache keeps its block over its length
+    (`_attention_by_length`), and a cache-less one (cross-attention, the
+    encoder) gathers k and v whole over `model` and attends for this
+    rank's whole query heads (`_rank_heads`). It takes the contiguous cache
+    of a prefill or decode step: no chunks, no paged pool."""
     B, S, d = x.shape
     Dh = cfg.head_dim
     src = x if memory is None else memory
-    if part is not None and (
-            memory is not None or chunked or kv_cache is None
-            or "kpool" in kv_cache):
+    if part is not None and (chunked or (kv_cache is not None
+                                         and "kpool" in kv_cache)):
         raise NotImplementedError(
             "a partitioned attention layer takes the contiguous KV cache "
-            "of a prefill or decode step, with no memory or chunks")
+            "of a prefill or decode step, not chunks or a paged pool")
     q = _col(eng, x, p["wq"], part)
     k = _col(eng, src, p["wk"], part)
     v = _col(eng, src, p["wv"], part)
@@ -461,9 +479,23 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
     T = src.shape[1]
-    if part is not None and not part.kv_by_heads:
-        return _attention_by_length(p, cfg, q, k, v, positions, eng,
-                                    kv_cache, part), kv_cache
+    rope = functools.partial(apply_rope, positions=positions,
+                             style=cfg.rope_style, theta=cfg.rope_theta)
+    if part is not None and cfg.n_kv_heads % part.size:
+        if kv_cache is not None:
+            return _attention_by_length(p, cfg, q, k, v, positions, eng,
+                                        kv_cache, part), kv_cache
+        k = part.gather(k, -1).reshape(B, T, cfg.n_kv_heads, Dh)
+        v = part.gather(v, -1).reshape(B, T, cfg.n_kv_heads, Dh)
+        kpos = torch.arange(T, device=x.device)
+        if memory is not None:
+            out = _rank_heads(q, k, v, positions, kpos, part, cfg.n_heads,
+                              causal=False)
+        else:
+            out = _rank_heads(q, rope(k), v, positions, kpos, part,
+                              cfg.n_heads, causal=causal,
+                              window=cfg.sliding_window, rope=rope)
+        return _row(eng, out, p["wo"], part), None
     # this rank's heads under a partition context, every head without
     q = q.reshape(B, S, -1, Dh)
     k = k.reshape(B, T, -1, Dh)
@@ -471,9 +503,8 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if memory is not None:
         out = _attn_core(q, k, v, positions,
                          torch.arange(T, device=x.device), causal=False)
-        return eng.dot(out.reshape(B, S, cfg.d_head_total), p["wo"]), None
-    q = apply_rope(q, positions, style=cfg.rope_style, theta=cfg.rope_theta)
-    k = apply_rope(k, positions, style=cfg.rope_style, theta=cfg.rope_theta)
+        return _row(eng, out.reshape(B, S, -1), p["wo"], part), None
+    q, k = rope(q), rope(k)
     window = cfg.sliding_window
 
     if kv_cache is not None and "kpool" in kv_cache:

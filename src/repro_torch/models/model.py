@@ -24,7 +24,8 @@ JAX parameter tree over instead). `lm_loss` is the causal LM loss over
 
 `prefill` and `decode_step` take an optional partition context `part`
 (`distributed/partition.py`): the params and cache are then this rank's
-blocks at the Sharder's specs, and the logits this rank's vocab columns
+blocks at the Sharder's specs, the batch and the memory this rank's rows
+(the memory whole over `model`), and the logits this rank's vocab columns
 (the partitioned steps of `distributed/train.py`). `init(keep=)` hands
 each leaf, as it is drawn, to `keep`, which returns what the tree holds:
 this rank's block, say, so that no whole model exists on a rank.
@@ -112,12 +113,14 @@ class Model:
             n_experts=0, experts_per_token=0, sliding_window=None,
             mlp_type="gelu")
 
-    def _memory(self, params: Params, batch: Dict[str, torch.Tensor]
-                ) -> Optional[torch.Tensor]:
+    def _memory(self, params: Params, batch: Dict[str, torch.Tensor],
+                part=None) -> Optional[torch.Tensor]:
         """What the cross-attention layers attend to: an encdec model's
         frames through the non-causal encoder and its final norm, a vlm
         model's patches as they are, in the compute dtype; None for the
-        other families."""
+        other families. Under a partition context the encoder runs on
+        this rank's blocks (its final norm is replicated) and the memory
+        is this rank's rows of it, whole over `model`."""
         cfg = self.cfg
         if cfg.family == "encdec":
             frames = batch["frames"].to(self.device, cfg.cdtype)
@@ -125,7 +128,7 @@ class Model:
             pos = torch.arange(M, device=self.device)[None].expand(B, M)
             enc = params["encoder"]
             h, _ = stack_apply(enc["layers"], self._encoder_cfg(), frames,
-                               pos, self.eng, causal=False)
+                               pos, self.eng, causal=False, part=part)
             return rmsnorm(enc["final_norm"], h, cfg.norm_eps)
         if cfg.family == "vlm":
             return batch["patches"].to(self.device, cfg.cdtype)
@@ -205,7 +208,7 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape
-        memory = self._memory(params, batch)
+        memory = self._memory(params, batch, part)
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
         x = embed(params["embed"], tokens, cfg, part)
         x, _ = stack_apply(params["layers"], cfg, x, pos, self.eng,

@@ -113,13 +113,11 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     and in/out projections, not attention). `memory` (B, M, d) is what a
     "cross" or "xdec" layer attends to; causal=False makes self-attention
     bidirectional (the encoder). A partition context `part` runs an
-    "attn" layer, with a dense MLP or experts, or a "rec" layer on this
-    rank's blocks (layers.py, moe.py, recurrent.py). An "ssm" block runs
-    whole under one: the Sharder replicates every SSD weight. The
-    cross-attention blocks have no partitioned form yet."""
-    if part is not None and kind in ("cross", "xdec"):
-        raise NotImplementedError(f"a {kind!r} block has no partitioned "
-                                  "form")
+    "attn" layer, with a dense MLP or experts, a "rec" layer and the
+    cross-attention blocks ("cross", "xdec": each attention and the MLP)
+    on this rank's blocks (layers.py, moe.py, recurrent.py); `memory` is
+    then this rank's rows, whole over `model`. An "ssm" block runs whole
+    under one: the Sharder replicates every SSD weight."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     attn_eng = eng.for_role("attn")
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
@@ -131,10 +129,10 @@ def block_apply(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
             x = x + o
             hx = rmsnorm(p["norm_x"], x, cfg.norm_eps)
             o, _ = attention_apply(p["cross"], cfg, hx, positions, attn_eng,
-                                   memory=memory)
+                                   memory=memory, part=part)
     elif kind == "cross":
         o, _ = attention_apply(p["cross"], cfg, h, positions, attn_eng,
-                               memory=memory)
+                               memory=memory, part=part)
     elif kind == "rec":
         o, _ = rglru_apply(p["rec"], cfg, h, eng, state=cache, part=part)
     elif kind == "ssm":

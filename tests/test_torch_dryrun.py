@@ -473,12 +473,13 @@ def test_a_partitioned_cells_peak_is_below_the_whole_layouts(kind):
     assert dryrun.serve_layout(smoke_config("recurrentgemma_9b")) == \
         "partitioned"
     assert dryrun.serve_layout(smoke_config("llama_3_2_vision_11b")) == \
-        "whole"
+        "partitioned"
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x22b", "qwen3_moe_235b_a22b"])
-def test_a_moe_serve_cells_record_is_partitioned_below_the_whole(
-        tmp_path, monkeypatch, arch):
+def _partitioned_below_the_whole(tmp_path, monkeypatch, arch):
+    """A decode_32k cell of `arch` at smoke width: its record walks the
+    partitioned layout, sums over `model`, and peaks below the whole
+    layout's walk of the same cell."""
     monkeypatch.setattr(dryrun, "get_config", smoke_config)
     rec = dryrun.run_cell(arch, "decode_32k", multi_pod=False,
                           out_dir=tmp_path)
@@ -489,6 +490,20 @@ def test_a_moe_serve_cells_record_is_partitioned_below_the_whole(
         make_abstract_mesh((16, 16), ("data", "model")), "whole")
     assert rec["bytes_per_device"]["peak"] < whole["bytes_per_device"][
         "peak"]
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "qwen3_moe_235b_a22b"])
+def test_a_moe_serve_cells_record_is_partitioned_below_the_whole(
+        tmp_path, monkeypatch, arch):
+    _partitioned_below_the_whole(tmp_path, monkeypatch, arch)
+
+
+@pytest.mark.parametrize("arch", ["llama_3_2_vision_11b",
+                                  "seamless_m4t_medium"])
+def test_a_cross_attention_serve_cells_record_is_partitioned_below_the_whole(
+        tmp_path, monkeypatch, arch):
+    """The decode takes this rank's rows of the memory back."""
+    _partitioned_below_the_whole(tmp_path, monkeypatch, arch)
 
 
 def test_fake_world_refuses_an_existing_group_and_goes_with_its_block():

@@ -1257,3 +1257,123 @@ def test_partitioned_recurrent_and_ssm_serve_over_two_ranks_on_the_card(
         assert walked["flops"] == card["flops"]
         assert abs(walked["bytes_per_device"]["peak"] / card["peak"] - 1) \
             <= 0.05, (walked["bytes_per_device"], card["peak"])
+
+
+# chip_smoke.py's tp phase (m)-(o) at smoke width: the partitioned
+# cross-attention serves on two ranks that share the card (a gloo group, a
+# (1, 2) mesh), the cases "vlm" (Llama-3.2-Vision, 4 attn + 1 cross, GQA
+# 4/2 by heads, fsdp_tp) and "encdec" (SeamlessM4T, 2 encoder + 2 xdec
+# layers) of tests/torch_rank_cases.py at f32 compute, under olm16, on
+# seeded frontend embeddings: each rank's resident blocks equal to the
+# specs' count, K1 launches == GEMMs issued (TP_CROSS_GEMMS: a prefill's,
+# the encoder's included, then a decode's), every pass's logits within
+# 3e-2 of one device's on the real vocabulary.
+TP_CROSS_GEMMS = {"vlm": (36, 36), "encdec": (33, 21)}
+
+
+def _tp_cross_serve(prefill, decode, params, cache, cfg, dev):
+    """A prefill of TP_MOE_TOKENS on seeded frontend embeddings and
+    TP_MOE_DECODES decodes that take the prefill's memory back, each lane
+    at its own depth: each pass's logits."""
+    from repro_torch.distributed.train import MEMORY_KEYS
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, S = TP_MOE_TOKENS
+    toks = torch.randint(0, 512, (B, S + TP_MOE_DECODES), generator=g,
+                         device=dev, dtype=torch.int32)
+    front = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                        generator=g, device=dev)
+    pos = S + torch.arange(B, device=dev)
+    logits, cache, memory = prefill(
+        params, {"tokens": toks[:, :S], MEMORY_KEYS[cfg.family]: front},
+        cache)
+    seen = [logits]
+    for i in range(TP_MOE_DECODES):
+        logits, cache = decode(params, toks[:, S + i], pos + i, cache,
+                               memory)
+        seen.append(logits)
+    return seen
+
+
+def _tp_cross_rank(rank, world, port, out_dir):
+    import os
+
+    from torch_rank_cases import tp_config
+
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import all_gather_dim
+    from repro_torch.distributed.sharding import Sharder, path_leaves
+    from repro_torch.distributed.train import (MEMORY_KEYS,
+                                               init_serve_cache,
+                                               init_serve_params,
+                                               jit_decode_step,
+                                               jit_prefill_step,
+                                               serve_block_bytes)
+    from repro_torch.launch.mesh import make_local_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = make_local_mesh(1, world, device_type="cuda")
+        for name in TP_CROSS_GEMMS:
+            cfg = tp_config(name)
+            sharder = Sharder(mesh, cfg)
+            sharder.set_batch(TP_MOE_TOKENS[0])
+            params = init_serve_params(Model(cfg, device=dev), sharder, 0)
+            out[f"{name}/bytes"] = [sum(
+                t.untyped_storage().nbytes() for _, t in path_leaves(params)),
+                serve_block_bytes(cfg, sharder)]
+            model = Model(cfg, DotEngine(mode="olm16"), device=dev)
+            cache = init_serve_cache(model, sharder, TP_MOE_TOKENS[0],
+                                     TP_MOE_LEN)
+            step = jit_prefill_step(model, sharder, params,
+                                    ["tokens", MEMORY_KEYS[cfg.family]],
+                                    cache)
+            decode = jit_decode_step(model, sharder, params, cache,
+                                     has_memory=True)
+            before = matmul_kernel.launches
+            logits = _tp_cross_serve(step, decode, params, cache, cfg, dev)
+            out[f"{name}/launches"] = matmul_kernel.launches - before
+            out[f"{name}/logits"] = [all_gather_dim(t, 1, mesh, "model")
+                                     for t in logits]
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_partitioned_cross_attention_serve_over_two_ranks_on_the_card(
+        cuda, tmp_path):
+    import socket
+
+    import torch.multiprocessing as mp
+    from torch_rank_cases import tp_config
+
+    from repro_torch.distributed.train import init_serve_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ones = {}
+    for name in TP_CROSS_GEMMS:
+        cfg = tp_config(name)
+        params = init_serve_params(Model(cfg, device=cuda), None, 0)
+        model = Model(cfg, DotEngine(mode="olm16"), device=cuda)
+        ones[name] = _tp_cross_serve(
+            model.prefill, model.decode_step, params,
+            model.init_cache(TP_MOE_TOKENS[0], TP_MOE_LEN), cfg, cuda)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_tp_cross_rank, args=(2, port, str(tmp_path)),
+                       nprocs=2, join=True, start_method="spawn")
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    for name, (prefill, decode) in TP_CROSS_GEMMS.items():
+        v = tp_config(name).vocab_size
+        for res in ranks:
+            held, specs = res[f"{name}/bytes"]
+            assert held == specs, (name, held, specs)
+            assert res[f"{name}/launches"] == prefill + \
+                TP_MOE_DECODES * decode, name
+            for got, one in zip(res[f"{name}/logits"], ones[name]):
+                assert float((got[:, :v] - one[:, :v]).abs().max()
+                             / one[:, :v].abs().max()) <= 3e-2, name

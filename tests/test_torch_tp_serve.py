@@ -10,17 +10,19 @@ the Qwen1.5 / ChatGLM3 qkv bias, tied and untied heads, a padded
 vocabulary; Qwen3-MoE's experts split by expert, Mixtral's by d_ff with
 a sliding-window ring over kv heads and over its length; RecurrentGemma's
 RG-LRU over `model` beside its ring, one pattern group and a remainder
-layer; Mamba2's replicated weights with the batch over both axes) and a
-MoE prefill that drops assignments. The test process meanwhile runs the
-reference's Model and
+layer; Mamba2's replicated weights with the batch over both axes;
+Llama-3.2-Vision's cross layer and SeamlessM4T's encoder and xdec layers
+on frontend embeddings, by heads and, 3 query heads and 1 kv head,
+through the heads' ranges) and a MoE prefill that drops assignments. The
+test process meanwhile runs the reference's Model and
 Sharder on the same params, and a subprocess compiles the reference's
 `jit_prefill_step` / `jit_decode_step` on a forced 4-device CPU mesh.
 Held:
   * every local param and cache leaf of a rank has the shape of the
     reference Sharder's shard of that leaf (an AbstractMesh of the same
     sizes), the leading group axis of its stacked leaves aside;
-  * each rank's argument bytes (its param and cache blocks and its rows
-    of the batch) equal the reference's
+  * each rank's argument bytes (its param and cache blocks, its rows of
+    the batch and of the decode's memory) equal the reference's
     `memory_analysis().argument_size_in_bytes` of the compiled steps, less
     the reference cache's `len` counters (one int32 a pattern group: the
     port's cache has none), plus the bytes of the arguments jax.jit drops
@@ -28,7 +30,8 @@ Held:
   * the prefill and decode logits, gathered over the ranks, within
     LOGIT_TOL of the largest |logit| of the reference's `Model.prefill` /
     `decode_step` on the same params (`convert.py` carries them); the
-    port's own whole path (no partition context) too;
+    port's own whole path (no partition context) too; the prefill's
+    memory on each rank the reference's rows of it, whole over `model`;
   * under olm16, a column-parallel GEMM is bit-equal to the plain K1's
     column block and a row-parallel one within `olm_error_bound`; in one
     olm16 serve, a rank's GEMMs issued equal its K1 calls and layer 0's
@@ -37,9 +40,9 @@ Held:
     serve blocks;
   * every rank along `model` routes each MoE layer's tokens alike (the
     same dispatch plan, drops included);
-  * the families without a partitioned serve raise and name their
-    ROADMAP item; both MoE archs and the recurrent and SSM archs build
-    partitioned steps as published.
+  * the MoE, recurrent, SSM and cross-attention archs build partitioned
+    steps as published; a partitioned layer refuses chunks and a paged
+    pool.
 """
 import dataclasses
 import json
@@ -68,11 +71,11 @@ from repro_torch.kernels.online_dot.matmul import (olm_error_bound,
 from repro_torch.launch.mesh import make_abstract_mesh
 from repro_torch.models.layers import embed, rmsnorm
 from repro_torch.models.model import Model
-from torch_rank_cases import (MOE_CASES, MOE_DROPS_TOKENS, TP_BATCH,
-                              TP_CASES, TP_LEN, TP_MESH, TP_OLM_CASE,
-                              TP_OLM_GEMMS_PER_PASS, free_port,
-                              moe_drops_tokens, tp_config, tp_gemm_operands,
-                              tp_inputs, tp_rank)
+from torch_rank_cases import (MEMORY_CASES, MOE_CASES, MOE_DROPS_TOKENS,
+                              TP_BATCH, TP_CASES, TP_LEN, TP_MESH,
+                              TP_OLM_CASE, TP_OLM_GEMMS_PER_PASS, free_port,
+                              moe_drops_tokens, tp_config, tp_frontend,
+                              tp_gemm_operands, tp_inputs, tp_rank)
 
 RANKS = 4
 # relative to the largest |logit| of the reference: f32 compute; the
@@ -104,33 +107,48 @@ for name in trc.TP_CASES:
     batch = {"tokens": jax.ShapeDtypeStruct((trc.TP_BATCH, trc.TP_PROMPT),
                                             jnp.int32)}
     tok = jax.ShapeDtypeStruct((trc.TP_BATCH,), jnp.int32)
+    key = {"encdec": "frames", "vlm": "patches"}.get(cfg.family)
+    front = (trc.TP_BATCH, cfg.n_frontend_tokens, cfg.d_model)
+    if key is not None:
+        batch[key] = jax.ShapeDtypeStruct(front, jnp.float32)
+    # the decode takes the prefill's memory back, in the compute dtype
+    memory = () if key is None else (jax.ShapeDtypeStruct(front, cfg.cdtype),)
     pre = jit_prefill_step(model, sharder, params, list(batch), cache)
-    dec = jit_decode_step(model, sharder, params, cache, has_memory=False)
+    dec = jit_decode_step(model, sharder, params, cache,
+                          has_memory=bool(memory))
     lens = [a for p, a in jax.tree_util.tree_flatten_with_path(cache)[0]
             if str(p[-1]).endswith("'len']")]
 
     def nbytes(leaves):
         return sum(a.size * a.dtype.itemsize for a in leaves)
 
-    def rows(a):
-        # a device's rows of a batch-sharded argument
-        spec = P(sharder.batch_spec()[0], *[None] * (a.ndim - 1))
+    def shard(a, spec):
+        # a device's block of an argument at its spec
         shape = NamedSharding(mesh, spec).shard_shape(a.shape)
         return jax.ShapeDtypeStruct(shape, a.dtype)
 
-    def compiled(step, *args):
+    def compiled(step, args, specs):
         # jax.jit drops an argument the step does not read (Mamba2's
-        # decode reads no position, a batch-sharded argument): a device's
-        # bytes of it, beside the rest's
+        # decode reads no position, an enc-dec decode no encoder weight):
+        # a device's bytes of it, at its spec, beside the rest's
         exe = step.lower(*args).compile()
         leaves = jax.tree_util.tree_leaves(args)
+        at = jax.tree_util.tree_leaves(specs,
+                                       is_leaf=lambda x: isinstance(x, P))
+        assert len(at) == len(leaves)
         kept = exe._executable._kept_var_idx
         return (exe.memory_analysis().argument_size_in_bytes,
-                nbytes([rows(a) for i, a in enumerate(leaves)
-                        if i not in kept]))
+                nbytes([shard(a, spec) for i, (a, spec) in enumerate(zip(
+                    leaves, at)) if i not in kept]))
 
-    (pre_b, pre_u), (dec_b, dec_u) = (compiled(pre, params, batch, cache),
-                                      compiled(dec, params, tok, tok, cache))
+    pspecs, cspecs = sharder.param_specs(params), sharder.cache_specs(cache)
+    bd = P(sharder.batch_spec()[0])
+    (pre_b, pre_u), (dec_b, dec_u) = (
+        compiled(pre, (params, batch, cache),
+                 (pspecs, sharder.batch_specs(list(batch)), cspecs)),
+        compiled(dec, (params, tok, tok, cache, *memory),
+                 (pspecs, bd, bd, cspecs) + (P(bd[0], None, None),)
+                 * len(memory)))
     out[name] = {"prefill": pre_b, "prefill_unused": pre_u,
                  "decode": dec_b, "decode_unused": dec_u,
                  "len": nbytes(lens)}
@@ -165,19 +183,31 @@ def _reference(name, seed=0, **over):
     return jm, _with_biases(jm.init(jax.random.PRNGKey(seed)))
 
 
-def _reference_logits(jm, jp):
+def _batch(name, asarray):
+    """The case's prompt batch: the tokens and, for a cross-attention
+    case, its frontend embeddings."""
+    key, front = tp_frontend(tp_config(name))
+    batch = {"tokens": asarray(tp_inputs()[0])}
+    if key is not None:
+        batch[key] = asarray(front)
+    return batch
+
+
+def _reference_serve(name, jm, jp):
     """The reference's prefill and decode logits, (1 + steps, B, V), each
     step under jax.jit as its serve runs it (a third of the eager
-    dispatch's wall here)."""
-    prompt, steps, pos = (jnp.asarray(a) for a in tp_inputs())
+    dispatch's wall here), and the prefill's memory (None without a
+    frontend)."""
+    _, steps, pos = (jnp.asarray(a) for a in tp_inputs())
     decode = jax.jit(jm.decode_step)
-    logits, cache, _ = jax.jit(jm.prefill)(jp, {"tokens": prompt},
-                                           jm.init_cache(TP_BATCH, TP_LEN))
+    logits, cache, memory = jax.jit(jm.prefill)(
+        jp, _batch(name, jnp.asarray), jm.init_cache(TP_BATCH, TP_LEN))
     seen = [logits]
     for tok, p in zip(steps, pos):
-        logits, cache = decode(jp, tok, p, cache)
+        logits, cache = decode(jp, tok, p, cache, memory)
         seen.append(logits)
-    return np.stack([np.asarray(a, np.float32) for a in seen])
+    return (np.stack([np.asarray(a, np.float32) for a in seen]),
+            None if memory is None else np.asarray(memory, np.float32))
 
 
 def _port_whole_logits(name, tree):
@@ -186,12 +216,13 @@ def _port_whole_logits(name, tree):
     cfg = tp_config(name)
     model = Model(cfg, device="cpu")
     params = params_from_jax(tree, cfg, device="cpu")
-    prompt, steps, pos = (torch.from_numpy(a) for a in tp_inputs())
-    logits, cache, _ = model.prefill(params, {"tokens": prompt},
-                                     model.init_cache(TP_BATCH, TP_LEN))
+    _, steps, pos = (torch.from_numpy(a) for a in tp_inputs())
+    logits, cache, memory = model.prefill(params,
+                                          _batch(name, torch.from_numpy),
+                                          model.init_cache(TP_BATCH, TP_LEN))
     seen = [logits]
     for tok, p in zip(steps, pos):
-        logits, cache = model.decode_step(params, tok, p, cache)
+        logits, cache = model.decode_step(params, tok, p, cache, memory)
         seen.append(logits)
     return torch.stack(seen).numpy()
 
@@ -218,7 +249,7 @@ def _shard_shapes(name):
     def shard(shape, spec):
         return block_shape(shape, P(*tuple(spec)), SIZES)
 
-    def layers(where, slot, shape, got):
+    def layers(where, slot, shape, got, pat=pat, n_scan=n_scan):
         """(port layer, its shape) of a stacked slot or a remainder layer"""
         if where == "scan":
             return [(g * pat + int(slot), got[1:]) for g in range(shape[0])]
@@ -233,6 +264,12 @@ def _shard_shapes(name):
             _, where, slot, rest = path.split("/", 3)
             for i, block in layers(where, slot, shape, got):
                 params[f"layers/{i}/{rest}"] = block
+        elif path.startswith("encoder/blocks/"):
+            # the encoder's stack: one "attn" slot over n_enc_layers groups
+            _, _, where, slot, rest = path.split("/", 4)
+            for i, block in layers(where, slot, shape, got, 1,
+                                   cfg.n_enc_layers):
+                params[f"encoder/layers/{i}/{rest}"] = block
         else:
             params[path] = got
     tree = jax.eval_shape(lambda: jm.init_cache(TP_BATCH, TP_LEN))
@@ -267,7 +304,9 @@ def runs(tmp_path_factory):
                              nprocs=RANKS, join=False, start_method="spawn")
     try:
         jm, jp = drops
-        mine = {"ref": {n: _reference_logits(*refs[n]) for n in TP_CASES},
+        served = {n: _reference_serve(n, *refs[n]) for n in TP_CASES}
+        mine = {"ref": {n: served[n][0] for n in TP_CASES},
+                "memory": {n: served[n][1] for n in MEMORY_CASES},
                 "drops": np.asarray(jm.prefill(
                     jp, {"tokens": jnp.asarray(moe_drops_tokens())},
                     jm.init_cache(1, TP_LEN))[0], np.float32),
@@ -438,18 +477,82 @@ def test_a_prefill_that_drops_matches_the_reference_and_routes_alike(runs):
         assert _rel(got, mine["drops"], "moe_drops") <= LOGIT_TOL
 
 
+@pytest.mark.parametrize("name", MEMORY_CASES)
+def test_the_prefills_memory_is_the_references_rows(runs, name):
+    """Each rank's memory: its rows of the reference's, whole over
+    `model` (the encoder's output for the enc-dec cases)."""
+    mine, ranks, _, _ = runs
+    want = mine["memory"][name]
+    d, m = TP_MESH
+    n = TP_BATCH // d
+    for r, res in enumerate(ranks):
+        got = res[f"{name}/memory"].numpy()
+        rows = want[r // m * n:(r // m + 1) * n]
+        assert got.shape == rows.shape
+        assert float(np.abs(got - rows).max() / np.abs(rows).max()) <= \
+            LOGIT_TOL
+
+
 @pytest.mark.parametrize("arch", [a for a in list_archs()
                                   if get_config(a).family
                                   in ("vlm", "encdec")])
-def test_other_families_raise_and_name_their_item(arch):
+def test_cross_attention_archs_build_partitioned_steps(arch):
+    """As published, on a (1, 2) mesh over a fake world of two ranks:
+    this rank's blocks on meta pass the steps' check, the prefill takes
+    the frontend's key and the decode the memory (and refuses to go
+    without it); a cross layer's wk holds this rank's half of the kv
+    heads' columns, the encoder's wq its half of the query heads'."""
+    from repro_torch.distributed.train import (MEMORY_KEYS,
+                                               init_serve_cache,
+                                               init_serve_params)
+    from repro_torch.launch import dryrun
     cfg = get_config(arch)
-    sharder = Sharder(make_abstract_mesh((1, 2), ("data", "model")), cfg)
-    model = Model(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP section 1, "
-                       r"item 15"):
-        jit_prefill_step(model, sharder, None, ["tokens"], None)
-    with pytest.raises(NotImplementedError, match=r"item 15"):
-        jit_decode_step(model, sharder, None, None, has_memory=False)
+    d, Dh = cfg.d_model, cfg.head_dim
+    with dryrun.fake_world(2):
+        sharder = Sharder(dryrun._meta_mesh(make_abstract_mesh(
+            (1, 2), ("data", "model"))), cfg)
+        sharder.set_batch(2)
+        model = Model(cfg, device="meta")
+        params = init_serve_params(model, sharder)
+        cache = init_serve_cache(model, sharder, 2, 64)
+        assert callable(jit_prefill_step(
+            model, sharder, params, ["tokens", MEMORY_KEYS[cfg.family]],
+            cache))
+        assert callable(jit_decode_step(model, sharder, params, cache,
+                                        has_memory=True))
+        with pytest.raises(ValueError, match="has_memory=False"):
+            jit_decode_step(model, sharder, params, cache, has_memory=False)
+        cross = next(layer["cross"] for layer in params["layers"]
+                     if "cross" in layer)
+        assert tuple(cross["wk"].shape) == (d, cfg.n_kv_heads * Dh // 2)
+        assert tuple(cross["wo"].shape) == (cfg.n_heads * Dh // 2, d)
+        if cfg.n_enc_layers:
+            wq = params["encoder"]["layers"][0]["attn"]["wq"]
+            assert tuple(wq.shape) == (d, cfg.n_heads * Dh // 2)
+
+
+@pytest.mark.parametrize("cache", ["chunks", "paged pool"])
+def test_a_partitioned_layer_refuses_chunks_and_a_paged_pool(cache):
+    from repro_torch.distributed.partition import Partition
+    from repro_torch.launch import dryrun
+    from repro_torch.models.layers import attention_apply
+    cfg = tp_config(TP_OLM_CASE)
+    S = 4 if cache == "chunks" else 1
+    x = torch.empty((1, S, cfg.d_model), device="meta")
+    pos = torch.zeros((1, S), dtype=torch.int32, device="meta")
+    kv = (torch.empty((1, TP_LEN, 1, cfg.head_dim), device="meta"),) * 2
+    caches = {"chunks": dict(k=kv[0], v=kv[1]),
+              "paged pool": dict(kpool=kv[0], vpool=kv[1],
+                                 table=torch.zeros((1, 1), dtype=torch.int32,
+                                                   device="meta"))}
+    with dryrun.fake_world(2):
+        part = Partition(Sharder(dryrun._meta_mesh(make_abstract_mesh(
+            (1, 2), ("data", "model"))), cfg))
+        with pytest.raises(NotImplementedError, match="not chunks or a "
+                           "paged pool"):
+            attention_apply({}, cfg, x, pos, DotEngine(),
+                            kv_cache=caches[cache],
+                            chunked=cache == "chunks", part=part)
 
 
 @pytest.mark.parametrize("arch,leaf,whole", [

@@ -290,7 +290,13 @@ def train_rank(rank, world, port, out_dir):
 # "hybrid": RecurrentGemma at 4 layers, one (rec, rec, attn) group and a
 # "rec" remainder, the RG-LRU over `model` and its one-KV-head ring of 4
 # over its length; "ssm": Mamba2, its weights replicated and the batch
-# over both axes (1 row a rank).
+# over both axes (1 row a rank). The cross-attention cases, each with
+# TP_BATCH rows of frontend embeddings (`tp_frontend`): "vlm",
+# Llama-3.2-Vision at 5 layers, its pattern once (4 attn + 1 cross), GQA
+# 4/2 by heads under fsdp_tp; "encdec", SeamlessM4T's 2 encoder and 2
+# xdec layers by heads; "encdec_uneven", 3 query heads and 1 kv head: the
+# decoder's cache over its length, the encoder's and the cross layers'
+# heads through `Partition.head_range`.
 TP_MESH = (2, 2)
 TP_BATCH, TP_PROMPT, TP_LEN, TP_DECODES = 4, 6, 16, 4
 TP_COMMON = dict(n_layers=2, compute_dtype="float32")
@@ -306,7 +312,12 @@ TP_CASES = {
                                                  n_kv_heads=1)),
     "hybrid": ("recurrentgemma_9b", dict(n_layers=4, sliding_window=4)),
     "ssm": ("mamba2_130m", {}),
+    "vlm": ("llama_3_2_vision_11b", dict(n_layers=5)),
+    "encdec": ("seamless_m4t_medium", {}),
+    "encdec_uneven": ("seamless_m4t_medium", dict(n_heads=3, n_kv_heads=1)),
 }
+MEMORY_CASES = [n for n, (arch, _) in TP_CASES.items()
+                if arch in ("llama_3_2_vision_11b", "seamless_m4t_medium")]
 MOE_CASES = [n for n, (arch, _) in TP_CASES.items() if "moe" in arch]
 # one prefill of one MOE_DROPS_TOKENS-token row with 2 experts, both of
 # them a token, at capacity factor 0.5: capacity 8 of the 12 assignments
@@ -371,6 +382,18 @@ def tp_inputs():
     return prompt, steps, pos
 
 
+def tp_frontend(cfg):
+    """(the batch key, TP_BATCH rows of frontend embeddings (B, M,
+    d_model) f32) of a cross-attention case, (None, None) otherwise."""
+    from repro_torch.distributed.train import MEMORY_KEYS
+    key = MEMORY_KEYS.get(cfg.family)
+    if key is None:
+        return None, None
+    rng = np.random.default_rng(27)
+    return key, rng.standard_normal((TP_BATCH, cfg.n_frontend_tokens,
+                                     cfg.d_model)).astype(np.float32)
+
+
 def tp_gemm_operands():
     """(x, w) of a column-parallel and of a row-parallel olm16 GEMM."""
     rng = np.random.default_rng(25)
@@ -416,6 +439,8 @@ def tp_rank(rank, world, port, out_dir):
         prompt, steps, pos = (torch.from_numpy(a) for a in tp_inputs())
 
         def serve(model, sharder, params):
+            """(the logits of every pass, the cache's block shapes, the
+            argument bytes, the dispatch plans, the prefill's memory)"""
             bd = sharder.batch_spec()[0]
 
             def rows(t):
@@ -423,22 +448,26 @@ def tp_rank(rank, world, port, out_dir):
             cache = init_serve_cache(model, sharder, TP_BATCH, TP_LEN)
             shapes = {p: tuple(t.shape) for p, t in path_leaves(cache)}
             batch = {"tokens": rows(prompt)}
-            args = {"prefill": _nbytes(params) + _nbytes(cache)
-                    + _nbytes(batch),
-                    "decode": _nbytes(params) + _nbytes(cache)
-                    + 2 * _nbytes(rows(steps[0]))}
+            key, front = tp_frontend(model.cfg)
+            if key is not None:
+                batch[key] = rows(torch.from_numpy(front))
             with RoutedPlans() as plans:
-                logits, cache, _ = jit_prefill_step(
+                logits, cache, memory = jit_prefill_step(
                     model, sharder, params, list(batch), cache)(
                     params, batch, cache)
                 seen = [logits]
+                extra = () if memory is None else (memory,)
                 decode = jit_decode_step(model, sharder, params, cache,
-                                         has_memory=False)
+                                         has_memory=bool(extra))
                 for tok, p in zip(steps, pos):
                     logits, cache = decode(params, rows(tok), rows(p),
-                                           cache)
+                                           cache, *extra)
                     seen.append(logits)
-            return torch.stack(seen), shapes, args, plans
+            args = {"prefill": _nbytes(params) + _nbytes(cache)
+                    + _nbytes(batch),
+                    "decode": _nbytes(params) + _nbytes(cache)
+                    + 2 * _nbytes(rows(steps[0])) + _nbytes(extra)}
+            return torch.stack(seen), shapes, args, plans, memory
 
         for name in TP_CASES:
             cfg = tp_config(name)
@@ -450,8 +479,8 @@ def tp_rank(rank, world, port, out_dir):
             out[f"{name}/params"] = {p: tuple(t.shape)
                                      for p, t in path_leaves(params)}
             (out[f"{name}/logits"], out[f"{name}/cache"],
-             out[f"{name}/args"], out[f"{name}/plans"]) = serve(
-                model, sharder, params)
+             out[f"{name}/args"], out[f"{name}/plans"],
+             out[f"{name}/memory"]) = serve(model, sharder, params)
             mine = init_serve_params(model, sharder, seed=3)
             want = param_blocks(serve_params(model.init(3)), sharder)
             out[f"{name}/init"] = torch.tensor(all(
@@ -503,7 +532,7 @@ def tp_rank(rank, world, port, out_dir):
 
         matmul.olm_matmul = counted
         try:
-            logits, _, _, _ = serve(model, sharder, params)
+            logits = serve(model, sharder, params)[0]
         finally:
             matmul.olm_matmul = real
         out["olm/calls"] = torch.tensor(len(calls))
