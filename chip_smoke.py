@@ -186,7 +186,22 @@ Phases, each printing its own lines:
                of one device's (relative); one olm16 step with
                shard="n" (K1 launches per rank == GEMMs run, every
                gradient zero); the params saved on (2, 1) restored onto
-               (1, 2) with the same bits;
+               (1, 2) with the same bits; (d) the partitioned train step
+               (jit_train_step, each rank its blocks of the f32 state
+               drawn by init_train_state(sharder=)): (d1) InternLM2-1.8B
+               as published on (1, 2), 3 native steps of the train
+               phase's batch, each rank's state the specs' bytes, its
+               peak at most SHARD_TP_PEAK of the train phase's, each
+               step's loss and grad_norm and the update's norm within
+               SHARD_TP_LIMITS of the train phase's first 3 steps; (d2)
+               one olm16 step of (c)'s cut (K1 launches per rank ==
+               GEMMs, layer 0's wq columns bit-equal to one device's K1,
+               every gradient zero, the params the decay-only update's);
+               (d3) Llama-3.2-Vision-11B's first pattern group at full
+               width under fsdp_tp on (2, 1), patches from the seed, 3
+               steps within SHARD_DATA_LIMITS of one device's; (d4) one
+               native step of (d2)'s cut against its walk on a fake
+               2-rank world (FLOPs equal, peak within 5%);
   13b. tp    - the partitioned serve steps (jit_prefill_step /
                jit_decode_step: each rank holds its blocks of the bf16
                serve params at the Sharder's specs, drawn leaf by leaf by
@@ -293,6 +308,7 @@ import gc
 import importlib.util
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -543,6 +559,37 @@ SHARD_TRAIN_LAYERS, SHARD_TRAIN_STEPS = 4, 3
 # one rank's rows 6.8e-3, 0.44 and 0.80, a missing divide 2.6e-5, 1.0 and
 # 6.9e-3 (probes/sharded_train_faults.py)
 SHARD_DATA_LIMITS = {"loss": 2.5e-4, "grad_norm": 1e-3, "update": 5e-2}
+# (d) the partitioned train step (distributed/train.py's jit_train_step:
+# each rank its blocks of the f32 state, the layers' collectives carrying
+# a backward) on the same two ranks: (d1) TRAIN's arch as published on
+# (1, 2), native, TRAIN's seed, batch, lr and schedule, SHARD_TP_STEPS
+# steps on the train phase's one batch, held within SHARD_TP_LIMITS of
+# the train phase's first SHARD_TP_STEPS steps, its state a rank the
+# specs' bytes, its peak at most SHARD_TP_PEAK of the train phase's (a
+# rank holding whole bf16 params and whole f32 gradients would read about
+# 70%); (d2) (c)'s cut, one olm16 step at TRAIN["kernel_batch"] on (1, 2);
+# (d3) SHARD_VLM (Llama-3.2-Vision-11B's first pattern group, 4 attn + 1
+# cross) at full width under fsdp_tp on (2, 1), patches (4, 1024, 4096)
+# from the seed, held to one device's steps in this process;
+# (d4) one native step of (d2)'s cut at TRAIN["batch"] walked on meta over
+# a fake world of two ranks against each rank's step on the card (FLOPs
+# equal, peak within SHARD_WALK_TOL).
+SHARD_TP_STEPS = 3
+SHARD_TP_PEAK = 0.6
+# (d1)'s limits: SHARD_DATA_LIMITS but for grad_norm. The row-parallel sums
+# and the Megatron pair's f32 gradient sums round bf16 otherwise than one
+# device's GEMMs do, and over 24 layers two sound bf16 steps part: the
+# H100 read 1.87e-3 and, in another run of the same code, 7.5e-4 on the
+# second update's grad_norm (the first update amplifies last-bit
+# differences; loss 1.30e-4 and 1.35e-4, update 3.2e-5 and 2.1e-5), and on
+# the CPU at smoke width the partitioned and the one-device bf16 steps
+# read up to 1.43e-3 apart while each sat 0.05-0.26% from the f32 step's
+# grad_norm (at f32 they agree to 3e-7). A sum over `model` left out or a
+# `data` reduce-scatter sliced moves grad_norm by 0.29-0.42
+# (probes/tp_train_faults.py).
+SHARD_TP_LIMITS = {**SHARD_DATA_LIMITS, "grad_norm": 5e-3}
+SHARD_VLM = dict(arch="llama_3_2_vision_11b", n_layers=5)
+SHARD_WALK_TOL = 0.05
 # The tp phase: the partitioned serve steps (distributed/train.py's
 # jit_prefill_step / jit_decode_step) on TP_RANKS ranks that share the card
 # in a gloo group, a (data 1, model 2) mesh, bf16 serve params drawn by
@@ -780,23 +827,23 @@ def olm_calls(keep):
 @contextlib.contextmanager
 def route_plans():
     """The dispatch plan (token per slot, each assignment's slot, its keep
-    flag) of every models/moe._route_row call made in the block, on the
-    CPU, in call order."""
+    flag) of every batch row a models/moe._route_rows call routes in the
+    block, on the CPU, in call and row order."""
     import torch
     from repro_torch.models import moe
-    real, plans = moe._route_row, []
+    real, plans = moe._route_rows, []
 
     def recorded(*a, **kw):
         plan = real(*a, **kw)
-        plans.append(torch.cat([plan[0], plan[1],
-                                plan[4].to(plan[0].dtype)]).cpu())
+        plans.extend(torch.cat([plan[0], plan[1],
+                                plan[4].to(plan[0].dtype)], dim=1).cpu())
         return plan
 
-    moe._route_row = recorded
+    moe._route_rows = recorded
     try:
         yield plans
     finally:
-        moe._route_row = real
+        moe._route_rows = real
 
 
 def tp_moe_one(_, tmp: str) -> None:
@@ -1456,6 +1503,239 @@ def ptxas_summary(log: str) -> str:
             f"{spills} bytes of spill stores, up to {max(smem)} bytes smem")
 
 
+def shard_vlm_batches(cfg, dev):
+    """(d3)'s SHARD_TP_STEPS whole batches: TRAIN["batch"] tokens of the
+    synthetic stream and one set of patches (B, n_frontend_tokens,
+    d_model) N(0, 1) from TRAIN's seed."""
+    import torch
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    B, S = TRAIN["batch"]
+    data = SyntheticLMDataset(cfg, B, S, seed=TRAIN["seed"])
+    g = torch.Generator(device=dev).manual_seed(TRAIN["seed"])
+    patches = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                          generator=g, device=dev)
+    return [{"tokens": torch.from_numpy(data.batch(i)["tokens"]).to(dev),
+             "patches": patches} for i in range(SHARD_TP_STEPS)]
+
+
+def update_sq(model, params, block=None) -> dict:
+    """{path: the squared norm, in f64, of the leaf of `params` less the
+    same leaf of `model`'s init from TRAIN's seed}: the init drawn again
+    leaf by leaf (each cut to this rank's block by `block(path, leaf)`
+    where given), so no copy of the start is kept while the steps run."""
+    from repro_torch.distributed.sharding import path_leaves
+    now = dict(path_leaves(params))
+    out = {}
+
+    def keep(path, t):
+        if block is not None:
+            t = block(path, t)
+        out[path] = float((now[path].double() - t.double()).pow(2).sum())
+        return t.new_zeros(())
+
+    model.init(TRAIN["seed"], keep=keep)
+    return out
+
+
+def shard_partitioned(rank, dev, meshes, tmp, say, res) -> None:
+    """(d) of the shard phase on this rank (`shard_rank`): each part
+    raises on a disagreement and leaves its numbers in res["tp_train"]."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.numerics import DotEngine
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.distributed.collectives import shard_dims
+    from repro_torch.distributed.sharding import Sharder, path_leaves
+    from repro_torch.distributed.train import (block_shape,
+                                               init_train_state,
+                                               jit_train_step)
+    from repro_torch.kernels.online_dot import matmul_kernel as k12
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.launch.shapes import ShapeCase
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import cosine_schedule
+    from repro_torch.tree import tree_leaves, tree_map
+
+    opt_cfg = AdamWConfig(lr=TRAIN["lr"])
+    ref = json.loads(Path(tmp, "train_tp.json").read_text())
+    out = res["tp_train"] = {}
+
+    def local(tree):
+        return [t.to_local() for t in tree_leaves(tree)]
+
+    def spec_bytes(cfg, sharder):
+        """params, m and v of this rank's blocks, f32, from the specs"""
+        sizes = mesh_shape(sharder.mesh)
+        return 3 * sum(4 * math.prod(block_shape(
+            t.shape, sharder.param_spec(p, tuple(t.shape)), sizes))
+            for p, t in path_leaves(Model(cfg, device="meta").init(0)))
+
+    def update_norm(model, sharder, params):
+        """The whole update's norm from this rank's blocks: each leaf's
+        squares summed over the axes that split it, a replicated leaf
+        once (every rank holds it alike)."""
+        def spec(path, t):
+            return sharder.param_spec(path, tuple(t.shape))
+        sq = update_sq(model, params, lambda path, t: shard_dims(
+            t, spec(path, t), sharder.mesh))
+        whole = dict(path_leaves(Model(model.cfg, device="meta").init(0)))
+        sizes = mesh_shape(sharder.mesh)
+        mine = torch.zeros(2, dtype=torch.float64)
+        for path, v in sq.items():
+            shape = tuple(whole[path].shape)
+            if block_shape(shape, spec(path, whole[path]), sizes) != shape:
+                mine[0] += v
+            elif rank == 0:
+                mine[1] += v
+        dist.all_reduce(mine)
+        return float(mine.sum()) ** 0.5
+
+    def run_steps(tag, model, sharder, batches, one, limits):
+        """SHARD_TP_STEPS steps from the sharded init: the state's bytes,
+        the walls, the peak, the readings against one device's `one`
+        within `limits`."""
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state = init_train_state(model, seed=TRAIN["seed"], sharder=sharder)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        held = sum(t.numel() * t.element_size() for t in local(
+            (state["params"], state["opt"]["m"], state["opt"]["v"])))
+        want = spec_bytes(model.cfg, sharder)
+        keys = list(batches[0])
+        specs = sharder.batch_specs(keys)
+        step = jit_train_step(model, sharder, state, keys, opt_cfg=opt_cfg,
+                              schedule_total=TRAIN["total"])
+        walls, seen = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            rows = {k: shard_dims(v, specs[k], sharder.mesh)
+                    for k, v in b.items()}
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, met = step(state, rows)
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+            seen.append([float(met["loss"]), float(met["grad_norm"])])
+        peak = torch.cuda.max_memory_allocated()
+        upd = update_norm(model, sharder, tree_map(
+            lambda t: t.to_local(), state["params"]))
+        read = {"loss": max(abs(a[0] - b[0]) / abs(b[0])
+                            for a, b in zip(seen, one["metrics"])),
+                "grad_norm": max(abs(a[1] - b[1]) / abs(b[1])
+                                 for a, b in zip(seen, one["metrics"])),
+                "update": abs(upd - one["update_norm"]) / one["update_norm"]}
+        ok = held == want and all(read[k] <= limits[k] for k in read)
+        out[tag] = dict(state_bytes=held, spec_bytes=want, init_s=init_s,
+                        walls_s=walls, peak_bytes=peak, metrics=seen,
+                        update_norm=upd, agree=ok, **read)
+        say(f"({tag}) {model.cfg.name} ({model.cfg.n_layers} layers, "
+            f"d_model {model.cfg.d_model}, {model.cfg.sharding_profile}) on "
+            f"{mesh_shape(sharder.mesh)}, partitioned: state (params, m, v) "
+            f"{held} B a rank, the specs' {want} B; drawn in {init_s:.1f} s; "
+            f"{len(batches)} steps, walls {[round(w, 3) for w in walls]} s, "
+            f"peak {peak} B ({peak / 2**30:.2f} GiB); loss and grad_norm by "
+            f"step {seen}, update norm {upd!r}; relative to one device: "
+            f"loss {read['loss']!r}, grad_norm {read['grad_norm']!r}, update "
+            f"{read['update']!r} (limits {limits}): {ok}")
+        if not ok:
+            raise RuntimeError(f"({tag}) disagrees with one device")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return peak
+
+    # (d1) TRAIN's arch as published, native -----------------------------
+    cfg = get_config(TRAIN["arch"])
+    B, S = TRAIN["batch"]
+    sharder = Sharder(meshes[(1, 2)], cfg)
+    sharder.set_batch(B)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMDataset(
+        cfg, B, S, seed=TRAIN["seed"]).batch(0).items()}
+    peak = run_steps("d1", Model(cfg, device=dev), sharder,
+                     [batch] * SHARD_TP_STEPS, ref["d1"], SHARD_TP_LIMITS)
+    share = peak / ref["d1"]["peak"]
+    out["d1"]["peak_share"] = share
+    say(f"(d1) peak {peak} B, {100 * share:.1f}% of the train phase's "
+        f"one-device {ref['d1']['peak']} B (at most "
+        f"{100 * SHARD_TP_PEAK:.0f}%)")
+    if share > SHARD_TP_PEAK:
+        raise RuntimeError(f"(d1) peak {share:.3f} of one device's")
+
+    # (d2) (c)'s cut, one olm16 step --------------------------------------
+    cut = dataclasses.replace(cfg, n_layers=SHARD_TRAIN_LAYERS)
+    kB, kS = TRAIN["kernel_batch"]
+    sharder = Sharder(meshes[(1, 2)], cut)
+    sharder.set_batch(kB)
+    model = Model(cut, DotEngine(mode="olm16"), device=dev)
+    kb = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMDataset(
+        cut, kB, kS, seed=TRAIN["seed"]).batch(0).items()}
+    state = init_train_state(model, seed=TRAIN["seed"], sharder=sharder)
+    start = [t.clone() for t in local(state["params"])]
+    step = jit_train_step(model, sharder, state, ["tokens"],
+                          opt_cfg=opt_cfg, schedule_total=TRAIN["total"])
+    per_pass = gemms_per_pass(cut)
+    recompute = per_pass - 1 - cut.n_layers
+    torch.cuda.synchronize()
+    k12.launches = 0
+    t0 = time.monotonic()
+    with olm_calls({0}) as calls:
+        state, met = step(state, kb)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launched = k12.launches
+    wq = torch.load(os.path.join(tmp, "wq16.pt"))
+    n = wq[1].shape[1] // 2
+    x, got = calls[0]
+    wq_ok = bits_equal(x, wq[0].to(dev)) and bits_equal(
+        got, wq[1][:, rank * n:(rank + 1) * n].to(dev))
+    zero = float(met["grad_norm"]) == 0.0
+    lr = opt_cfg.lr * cosine_schedule(
+        torch.tensor(0, dtype=torch.int32, device=dev), total=TRAIN["total"])
+    decay = all(bits_equal(b, a - lr * (
+        torch.zeros_like(a) / (torch.sqrt(torch.zeros_like(a))
+                               + opt_cfg.eps) + opt_cfg.weight_decay * a))
+        for a, b in zip(start, local(state["params"])))
+    out["d2"] = dict(wall_s=wall, k1_launches=launched,
+                     gemms=per_pass + recompute, wq_bits=wq_ok,
+                     zero_grads=zero, decay_only=decay)
+    res["launches"]["tp_train"] = launched
+    say(f"(d2) {cut.name} at {cut.n_layers} layers, one olm16 partitioned "
+        f"step of {kB} x {kS}: wall {wall:.3f} s, K1 launches {launched} "
+        f"for {per_pass} forward GEMMs + {recompute} recomputed by remat; "
+        f"layer 0's wq input and its {n} columns bit-equal to one device's "
+        f"K1 {wq_ok}; grad_norm {float(met['grad_norm'])} (every gradient "
+        f"zero: {zero}); params bit-equal to the decay-only update {decay}")
+    if launched != per_pass + recompute or not (wq_ok and zero and decay):
+        raise RuntimeError(f"(d2) olm16: {out['d2']}")
+    del state, step, start, calls, wq, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d3) Llama-3.2-Vision's first group under fsdp_tp on (2, 1) ---------
+    vcfg = dataclasses.replace(get_config(SHARD_VLM["arch"]),
+                               n_layers=SHARD_VLM["n_layers"])
+    sharder = Sharder(meshes[(2, 1)], vcfg)
+    sharder.set_batch(B)
+    run_steps("d3", Model(vcfg, device=dev), sharder,
+              shard_vlm_batches(vcfg, dev), ref["d3"], SHARD_DATA_LIMITS)
+
+    # (d4) (d2)'s cut, one native step against its walk ------------------
+    sharder = Sharder(meshes[(1, 2)], cut)
+    sharder.set_batch(B)
+    out["d4"] = dryrun.card_step(cut, ShapeCase("shard_train", S, B,
+                                                "train"), sharder)
+    say(f"(d4) one partitioned native step of {cut.name} at "
+        f"{cut.n_layers} layers, {B} x {S}: FLOPs {out['d4']['flops']}, "
+        f"peak {out['d4']['peak']} B, walls "
+        f"{[round(w, 3) for w in out['d4']['walls_s']]} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def shard_rank(rank: int, world: int, port: int, tmp: str,
                serve_tokens) -> None:
     """One rank of the shard phase (a process of its own, on cuda:0, in a
@@ -1739,6 +2019,12 @@ def shard_rank(rank: int, world: int, port: int, tmp: str,
         if launched != per_pass + recompute or not zero:
             raise RuntimeError(f"(c) olm16: {launched} K1 launches for "
                                f"{per_pass + recompute} GEMMs, zero {zero}")
+        del state, step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the partitioned train step ---------------------------------
+        shard_partitioned(rank, dev, meshes, tmp, say, res)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -3072,7 +3358,7 @@ def main() -> int:
 
     # Mixtral-8x22B and Qwen3-MoE-235B-A22B at full width, depth cut: the
     # experts are plain matmuls, so K1 runs each layer's 4 attention GEMMs
-    real_route = moe_mod._route_row
+    real_route = moe_mod._route_rows
     routed = {"assignments": 0, "dropped": 0}
 
     def counted_route(*a, **kw):
@@ -3082,7 +3368,7 @@ def main() -> int:
         routed["dropped"] += int((~keep).sum())
         return plan
 
-    moe_mod._route_row = counted_route
+    moe_mod._route_rows = counted_route
     try:
         for arch, depth in MOE_DEPTH:
             full = get_config(arch)
@@ -3138,7 +3424,7 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
     finally:
-        moe_mod._route_row = real_route
+        moe_mod._route_rows = real_route
 
     # 10. the autotuner: tune the serve's GEMM buckets, serve on them ------
     phase("tune")
@@ -3327,13 +3613,14 @@ def main() -> int:
         cfg, B, S, seed=TRAIN["seed"]).batch(0).items()}
     opt_cfg = AdamWConfig(lr=TRAIN["lr"])
 
-    def train_steps(step_fn, box, n, tag, batch=batch):
+    def train_steps(step_fn, box, n, tag, batch=batch, first=0):
         """n synchronized steps from the state in the one-element list
         `box`, which it takes, so that no caller holds a state two steps
         old (three states of InternLM2-1.8B do not fit the card): (state,
-        [(loss, grad_norm, wall, peak memory)])."""
+        [(loss, grad_norm, wall, peak memory)]); the steps are printed
+        from `first` on."""
         state, rows = box.pop(), []
-        for i in range(n):
+        for i in range(first, first + n):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.monotonic()
@@ -3362,7 +3649,15 @@ def main() -> int:
           flush=True)
     step_fn = build_train_step(model, opt_cfg=opt_cfg,
                                schedule_total=TRAIN["total"])
-    state, rows = train_steps(step_fn, box, TRAIN["steps"], "native")
+    # the first SHARD_TP_STEPS steps' readings and the update's norm over
+    # them: what the shard phase's (d1) holds its partitioned ranks to
+    state, rows = train_steps(step_fn, box, SHARD_TP_STEPS, "native")
+    first_update = sum(update_sq(model, state["params"]).values()) ** 0.5
+    box = [state]
+    del state
+    state, more = train_steps(step_fn, box, TRAIN["steps"] - SHARD_TP_STEPS,
+                              "native", first=SHARD_TP_STEPS)
+    rows += more
     peak = max(r[3] for r in rows)
     losses = [r[0] for r in rows]
     steady = sorted(r[2] for r in rows[1:])[len(rows[1:]) // 2]
@@ -3373,6 +3668,10 @@ def main() -> int:
           f"({peak / 2**30:.2f} GiB); {smi_line}", flush=True)
     # the dryrun phase prints them beside its own one-rank step
     train_native = {"peak": peak, "wall": steady}
+    train_first = {"metrics": [list(r[:2]) for r in rows[:SHARD_TP_STEPS]],
+                   "update_norm": first_update, "peak": peak}
+    print(f"[train] the first {SHARD_TP_STEPS} steps' update norm "
+          f"{first_update!r} (the shard phase's (d1) reads it)", flush=True)
     if not all(np.isfinite(r[1]) for r in rows):
         raise SystemExit("train: a non-finite grad_norm")
     if not losses[-1] < losses[0] - 0.05:
@@ -3525,7 +3824,11 @@ def main() -> int:
 
         def restore(self, tree_like, step=None, shardings=None):
             out = super().restore(tree_like, step, shardings)
-            restored.append(tree_leaves(gather_state(out)))
+            # copies: on a one-rank mesh a leaf gathered whole is the
+            # state's own storage, which the CLI's steps update in place
+            # (jit_train_step takes its state donated)
+            restored.append([t.clone() for t in tree_leaves(
+                gather_state(out))])
             return out
 
     real_batch = SyntheticLMDataset.batch
@@ -3659,19 +3962,105 @@ def main() -> int:
         del model, step_fn, state, met, start, end
         gc.collect()
         torch.cuda.empty_cache()
+        # (d2)'s one device: layer 0's wq under olm16 on the cut, at the
+        # kernel batch (its input and output)
+        t0 = time.monotonic()
+        kB, kS = TRAIN["kernel_batch"]
+        m16 = Model(cfg, DotEngine(mode="olm16"), device=dev)
+        params = m16.init(seed=TRAIN["seed"])
+        kb = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMDataset(
+            cfg, kB, kS, seed=TRAIN["seed"]).batch(0).items()}
+        with torch.no_grad(), olm_calls({0}) as calls:
+            lm_loss(m16, cast_params(params, cfg), kb)
+        torch.save([t.cpu() for t in calls[0]], os.path.join(tmp,
+                                                             "wq16.pt"))
+        del m16, params, kb, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (d3)'s one device: SHARD_VLM whole, SHARD_TP_STEPS steps
+        vcfg = dataclasses.replace(get_config(SHARD_VLM["arch"]),
+                                   n_layers=SHARD_VLM["n_layers"])
+        describe("shard (d3)", vcfg, cut=get_config(SHARD_VLM["arch"])
+                 .n_layers)
+        vmodel = Model(vcfg, device=dev)
+        state = init_train_state(vmodel, seed=TRAIN["seed"])
+        vstep = build_train_step(vmodel, opt_cfg=AdamWConfig(
+            lr=TRAIN["lr"]), schedule_total=TRAIN["total"])
+        vseen = []
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        for b in shard_vlm_batches(vcfg, dev):
+            state, met = vstep(state, b)
+            vseen.append([float(met["loss"]), float(met["grad_norm"])])
+        torch.cuda.synchronize()
+        vwall = time.monotonic() - t1
+        vupdate = sum(update_sq(vmodel, state["params"]).values()) ** 0.5
+        print(f"[shard] (d3) one device: {SHARD_TP_STEPS} steps of "
+              f"{vcfg.name} at {vcfg.n_layers} layers in {vwall:.3f} s, "
+              f"loss and grad_norm by step {vseen}; update norm "
+              f"{vupdate!r}", flush=True)
+        del vmodel, state, vstep, met
+        gc.collect()
+        torch.cuda.empty_cache()
+        Path(tmp, "train_tp.json").write_text(json.dumps({
+            "d1": train_first,
+            "d3": {"metrics": vseen, "update_norm": vupdate}}))
+        print(f"[shard] (d)'s single-device references in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
         tokens = [[int(t) for t in out] for out in outputs["olm16"]]
         t0 = time.monotonic()
-        # a rank that raises fails this call, and with it the script
-        mp.start_processes(shard_rank, args=(SHARD_RANKS, port, tmp, tokens),
-                           nprocs=SHARD_RANKS, join=True,
-                           start_method="spawn")
+        ctx = mp.start_processes(shard_rank, args=(SHARD_RANKS, port, tmp,
+                                                   tokens),
+                                 nprocs=SHARD_RANKS, join=False,
+                                 start_method="spawn")
+        try:
+            # (d4)'s walk, in this process (no default group here) while
+            # the ranks run
+            from repro_torch.launch import dryrun
+            from repro_torch.launch.mesh import make_abstract_mesh
+            from repro_torch.launch.shapes import ShapeCase
+            t1 = time.monotonic()
+            walked, _, _ = dryrun.walk_cell(
+                cfg, ShapeCase("shard_train", S, B, "train"),
+                make_abstract_mesh((1, SHARD_RANKS), ("data", "model")))
+            walk_s = time.monotonic() - t1
+            # a rank that raises fails this call, and with it the script
+            while not ctx.join():
+                pass
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                  for r in range(SHARD_RANKS)]
         print(f"[shard] {SHARD_RANKS} ranks done in "
               f"{time.monotonic() - t0:.1f} s (spawn included)", flush=True)
+    # (d4): each rank's card step against the walk
+    for r, res in enumerate(ranks):
+        card = res["tp_train"]["d4"]
+        rel = abs(card["peak"] - walked["bytes_per_device"]["peak"]) / \
+            card["peak"]
+        ok = card["flops"] == walked["flops"] and rel <= SHARD_WALK_TOL
+        print(f"[shard] (d4) rank {r}: the walk's FLOPs "
+              f"{walked['flops']} against the card's {card['flops']}, its "
+              f"peak {walked['bytes_per_device']['peak']} B against the "
+              f"card's {card['peak']} B ({100 * rel:.2f}% apart, at most "
+              f"{100 * SHARD_WALK_TOL:.0f}%), the walk {walk_s:.1f} s: "
+              f"{ok}", flush=True)
+        if not ok:
+            raise SystemExit(f"shard: (d4) rank {r}'s step is off its walk")
+    for r, res in enumerate(ranks):
+        tt = res["tp_train"]
+        print(f"[shard] (d) rank {r}: d1 state {tt['d1']['state_bytes']} B, "
+              f"peak {tt['d1']['peak_bytes']} B "
+              f"({100 * tt['d1']['peak_share']:.1f}% of one device's), walls "
+              f"{[round(w, 3) for w in tt['d1']['walls_s']]} s; d3 state "
+              f"{tt['d3']['state_bytes']} B, peak {tt['d3']['peak_bytes']} "
+              f"B, walls {[round(w, 3) for w in tt['d3']['walls_s']]} s; "
+              f"{smi_line}", flush=True)
     # K1's launches on each rank, by part of the phase
     by_path["olm_matmul_fused"]["shard"] = {
         f"rank {r}": res["launches"] for r, res in enumerate(ranks)}

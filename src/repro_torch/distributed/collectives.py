@@ -10,6 +10,21 @@ card run them as they run on the CPU. DTensor's own redistribution
 down in the same probe, so the port keeps DTensor as the container of a
 shard and moves the data with these calls alone. An axis of size 1 moves
 nothing.
+
+`all_gather_dim`, `all_reduce_sum` and `all_reduce_max` are the serve
+paths' calls: no backward, the sums in place. The partitioned train step
+takes gradients through three more, each an autograd Function over the
+same calls that runs only where a gradient is wanted (the plain call, or
+nothing, otherwise, so a step under no_grad moves the same bits):
+  * `sum_over`: forward the sum over the axis, backward the identity
+    (what follows the sum is the same on every rank);
+  * `enter`: forward the identity, backward the gradient summed over the
+    axis (a tensor the same on every rank going into rank-specific work,
+    each rank's gradient of it a partial);
+  * `gather_over`: forward the all-gather along a dim, backward this
+    rank's block of the gradient summed over the axis, one
+    reduce-scatter (what follows the gather is rank-specific).
+Every backward sums in float32 and casts once to the gradient's dtype.
 """
 from __future__ import annotations
 
@@ -21,7 +36,8 @@ import torch.distributed as dist
 from repro_torch.launch.mesh import AbstractMesh, mesh_shape
 
 __all__ = ["axis_coordinate", "all_gather_dim", "all_reduce_sum",
-           "all_reduce_max", "shard_dims", "gather_dims", "gather_dtensor"]
+           "all_reduce_max", "reduce_scatter_dim", "sum_over", "enter",
+           "gather_over", "shard_dims", "gather_dims", "gather_dtensor"]
 
 
 def axis_coordinate(mesh, axis: str) -> Tuple[int, int]:
@@ -40,6 +56,7 @@ def all_gather_dim(t: torch.Tensor, dim: int, mesh, axis: str
     _, size = axis_coordinate(mesh, axis)
     if size == 1:
         return t
+    dim %= t.ndim
     t = t.contiguous().reshape(1, *t.shape)   # gathered along a new dim 0
     out = torch.empty((size, *t.shape[1:]), dtype=t.dtype, device=t.device)
     dist.all_gather_into_tensor(out, t, group=mesh.get_group(axis))
@@ -65,6 +82,91 @@ def all_reduce_max(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if size > 1:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(axis))
     return t
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, mesh, axis: str
+                       ) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of `t` over the ranks
+    along `axis` (the backward of `all_gather_dim`), in t's dtype."""
+    c, size = axis_coordinate(mesh, axis)
+    if size == 1:
+        return t
+    if t.shape[dim] % size:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over the {size} ranks of {axis!r}")
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // size, *src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
+                               group=mesh.get_group(axis))
+    return out.movedim(0, dim)
+
+
+def _summed(g: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    return all_reduce_sum(g.to(torch.float32, copy=True), mesh,
+                          axis).to(g.dtype)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return all_reduce_sum(t.clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.mesh, ctx.axis), None, None
+
+
+class _GatherOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh, axis):
+        ctx.dim, ctx.mesh, ctx.axis = dim, mesh, axis
+        return all_gather_dim(t, dim, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = reduce_scatter_dim(g.to(torch.float32), ctx.dim, ctx.mesh,
+                                 ctx.axis).to(g.dtype)
+        return out, None, None, None
+
+
+def _traced(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def sum_over(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of `t` over the ranks along `axis`: `all_reduce_sum` in
+    place where no gradient is taken, else a new tensor whose gradient
+    goes to `t` unchanged."""
+    if _traced(t):
+        return _SumOver.apply(t, mesh, axis)
+    return all_reduce_sum(t, mesh, axis)
+
+
+def enter(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """`t` itself; its gradient summed over the ranks along `axis`."""
+    if _traced(t) and axis_coordinate(mesh, axis)[1] > 1:
+        return _Enter.apply(t, mesh, axis)
+    return t
+
+
+def gather_over(t: torch.Tensor, dim: int, mesh, axis: str
+                ) -> torch.Tensor:
+    """`all_gather_dim`; its gradient reduce-scattered back over the
+    ranks along `axis` (`reduce_scatter_dim`)."""
+    if _traced(t) and axis_coordinate(mesh, axis)[1] > 1:
+        return _GatherOver.apply(t, dim, mesh, axis)
+    return all_gather_dim(t, dim, mesh, axis)
 
 
 def _axes(entry) -> Tuple[str, ...]:

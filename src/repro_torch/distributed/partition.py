@@ -19,12 +19,13 @@ holds its blocks at the Sharder's specs and:
   * under fsdp_tp a weight's `data`-sharded dim is all-gathered just
     before its GEMM and dropped after it (ZeRO-3 a layer: at most one
     weight is whole over `data` at a time);
-  * the embedding is vocab-parallel, the KV cache split over kv heads or
-    over its length (a sliding-window ring too), attention over whole
-    heads (`layers.py`); cross-attention and the enc-dec encoder's
-    cache-less layers read k and v of the rank's kv heads, or gathered
-    whole where the kv heads do not divide `model`, the memory being the
-    rank's rows whole over `model`;
+  * the embedding is vocab-parallel (under fsdp_tp its looked-up rows
+    gathered over `data` where they are fewer than the table's), the KV
+    cache split over kv heads or over its length (a sliding-window ring
+    too), attention over whole heads (`layers.py`); cross-attention and
+    the enc-dec encoder's cache-less layers read k and v of the rank's kv
+    heads, or gathered whole where the kv heads do not divide `model`,
+    the memory being the rank's rows whole over `model`;
   * a MoE layer routes on every rank alike (the router is replicated and
     its input the same bits everywhere), runs its expert GEMMs on the
     rank's experts (`ep`) or on every expert's d_ff block (`tp`), the
@@ -37,6 +38,27 @@ holds its blocks at the Sharder's specs and:
 
 The collectives are the c10d calls of `collectives.py` on the mesh's
 groups: gloo on the CPU and between ranks that share a card.
+
+The partitioned train step (`distributed/train.py::jit_train_step`) runs
+the same layers under gradients; each crossing carries its Megatron pair
+(`collectives.py`'s Functions, inert under no_grad, so the serve steps
+keep their bits):
+  * `enter`: a tensor whole over `model` (the same on every rank) going
+    into the rank's columns: identity forward, its gradient summed over
+    `model` backward. Each layer calls it once on its input (attention,
+    the MLP, the RG-LRU, the head; the MoE layer on its input and its
+    combine weights), not once a GEMM;
+  * `row` and `sum`: the partials summed forward, the identity backward;
+  * `whole_over_data`: the all-gather over `data` forward, the weight's
+    gradient reduce-scattered over `data` backward, in f32 (ZeRO-3: it
+    lands in the rank's block, summed over the data ranks);
+  * `gather`: the all-gather over `model` forward, a reduce-scatter
+    backward (every training call site feeds rank-specific work: k and v
+    for the rank's heads, the heads' outputs for its columns, the RG-LRU's
+    u for its gate columns);
+  * `max`: detached (the softmax's shift moves no gradient).
+Every tensor whole over `model` that feeds rank-specific work gets its
+gradient summed over `model` once, and nothing is summed twice.
 """
 from __future__ import annotations
 
@@ -46,8 +68,8 @@ import torch
 
 from repro_torch.core.numerics import DotEngine
 from repro_torch.launch.mesh import MODEL_AXIS
-from .collectives import (all_gather_dim, all_reduce_max, all_reduce_sum,
-                          axis_coordinate)
+from .collectives import (all_gather_dim, all_reduce_max,
+                          axis_coordinate, enter, gather_over, sum_over)
 from .sharding import Sharder
 
 __all__ = ["Partition"]
@@ -78,9 +100,28 @@ class Partition:
 
     def whole_over_data(self, w: torch.Tensor, dim: int) -> torch.Tensor:
         """w with its `data`-sharded dim gathered (fsdp_tp), as it goes
-        into one GEMM; w itself under tp."""
-        return w if self.fs is None else all_gather_dim(w, dim, self.mesh,
-                                                        self.fs)
+        into one GEMM; w itself under tp. Its gradient is reduce-scattered
+        back over `data`."""
+        return w if self.fs is None else gather_over(w, dim, self.mesh,
+                                                     self.fs)
+
+    def lookup(self, table: torch.Tensor, ids: torch.Tensor
+               ) -> torch.Tensor:
+        """table[ids], its rows whole over `data`, where table is this
+        rank's block of a table whose d is split over `data` (fsdp_tp;
+        under tp, table[ids]). Where the ids of every rank along `data`
+        are fewer than the table's rows (a decode, a short batch), each
+        rank looks up its columns of all of them and the rows are gathered
+        over `data`; else the table is, as for a GEMM. Either way the
+        gradient is reduce-scattered back over `data`."""
+        if self.fs is None:
+            return table[ids]
+        c, n = axis_coordinate(self.mesh, self.fs)
+        if n * ids.numel() >= table.shape[0]:
+            return self.whole_over_data(table, 1)[ids]
+        every = all_gather_dim(ids, 0, self.mesh, self.fs)
+        return self.whole_over_data(table[every], -1).narrow(
+            0, c * ids.shape[0], ids.shape[0])
 
     def expert_range(self) -> Tuple[int, int]:
         """[e0, e1) of the experts whose GEMMs this rank runs: its block
@@ -106,10 +147,15 @@ class Partition:
         dim = self.expert_data_dim(leaf)
         return p[leaf] if dim is None else self.whole_over_data(p[leaf], dim)
 
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """x, whole over `model`, as it goes into this rank's blocks: its
+        gradient summed over `model`."""
+        return enter(x, self.mesh, MODEL_AXIS)
+
     def col(self, eng: DotEngine, x: torch.Tensor, w: torch.Tensor
             ) -> torch.Tensor:
         """x (..., K) @ this rank's columns (K, N / size): the output's
-        columns, left sharded."""
+        columns, left sharded. x is the layer's input after `enter`."""
         return eng.dot(x, self.whole_over_data(w, 0))
 
     def row(self, eng: DotEngine, x: torch.Tensor, w: torch.Tensor
@@ -120,14 +166,17 @@ class Partition:
         return self.sum(out).to(x.dtype)
 
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        """t's blocks along `model`, concatenated along `dim`."""
-        return all_gather_dim(t, dim % t.ndim, self.mesh, MODEL_AXIS)
+        """t's blocks along `model`, concatenated along `dim`; under
+        gradients a reduce-scatter backward."""
+        return gather_over(t, dim % t.ndim, self.mesh, MODEL_AXIS)
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        return all_reduce_sum(t, self.mesh, MODEL_AXIS)
+        """t summed over `model` (in place under no_grad)."""
+        return sum_over(t, self.mesh, MODEL_AXIS)
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
-        return all_reduce_max(t, self.mesh, MODEL_AXIS)
+        """t's elementwise largest over `model`, detached."""
+        return all_reduce_max(t.detach(), self.mesh, MODEL_AXIS)
 
     def head_range(self, heads: int, rank: Optional[int] = None
                    ) -> Tuple[int, int]:

@@ -1,7 +1,15 @@
 """The train, prefill and decode step builders (port of
 `repro/distributed/train.py`).
 
-build_train_step: loss + grad + AdamW update, with
+Each step keeps one of two layouts:
+  * whole: every rank runs the step on whole params, as on one device;
+  * partitioned: every rank runs it on its blocks at the Sharder's specs
+    under a `Partition` (`partition.py`), as GSPMD partitions the
+    reference's jitted steps. No rank holds a whole weight of a
+    `model`-sharded leaf, or a whole gradient of one.
+
+Training. `build_train_step` is the whole layout: loss + grad + AdamW
+update, with
   * gradient accumulation over microbatches, in the reference's strided
     split: microbatch k holds rows k, k + mb, k + 2 mb, ... of the batch
     (which rows share a microbatch decides the MoE capacity drops and the
@@ -10,45 +18,49 @@ build_train_step: loss + grad + AdamW update, with
   * mixed precision: every f32 leaf the reference casts goes to the
     compute dtype before the forward (`cast_params`), and the gradients
     reach the f32 masters through the cast.
+With a `Sharder` the state rests as DTensors with the placements of
+`train_state_specs` (`distribute_state`); each step casts this rank's
+shards, gathers them whole, runs the forward and backward on its rows,
+sums the gradients over the batch axes and runs AdamW on its shards.
+An `engine_spec` with `shard=` runs every olm GEMM of that step through
+the mesh-sharded front-end on the sharder's mesh.
 
-With a `Sharder` it stands in for the reference's `jit_train_step`: the
-state rests as DTensors with the placements of `train_state_specs`
-(`distribute_state`), and each step
-  * casts this rank's param shards to the compute dtype, then gathers
-    them whole (the cast before the gather, as `_cast_params` pins it);
-  * runs the forward and backward on this rank's rows of the batch (its
-    block along the axes `batch_spec` splits the batch over);
-  * sums the gradients over those axes and divides by their size, as
-    the microbatches divide;
-  * compresses (compress_grads) and takes the global norm on the whole
-    gradients, then runs AdamW on this rank's shards.
-An `engine_spec` with `shard=` runs every olm GEMM of the step through the
-mesh-sharded front-end on the sharder's mesh. The collectives are the
-c10d calls of `distributed.collectives`. The reference's
-`with_sharding_constraint` hints have no eager counterpart.
+`jit_train_step` is the partitioned layout, the reference's name and
+arguments: the state at `train_state_specs` (`distribute_state`, or
+`init_train_state(model, sharder=)`, which draws the blocks without a
+whole model), the batch this rank's rows at `batch_specs`. Each step
+casts the rank's blocks and gathers nothing whole; the forward and
+backward run under the partition context, whose collectives carry a
+backward (`partition.py`, `collectives.py`), so each gradient comes in
+its block; the gradients are summed over the batch axes their specs do
+not split (`data`-split leaves were reduce-scattered over `data` in the
+backward already) and divided by the batch axes' size; the global norm
+and the compression's max |g| are taken over each leaf's blocks; AdamW
+runs on the blocks, in place (the reference's jit donates the state).
+The SSM family, whose weights the Sharder replicates, runs the whole
+path on its rows, its gradients all-reduced.
 
 A digit-mode engine (olm*, tpmm*) runs its kernel on every GEMM of the
 forward, and its derivative is zero, as the reference's
 (core/numerics.py `_DigitDot`).
 
-The serve steps keep one of two layouts:
-  * whole: `build_prefill_step` / `build_decode_step` run `Model.prefill`
-    / `decode_step` on whole params and cache, as on one device (every
-    rank of a mesh holds the whole weights);
-  * partitioned: `jit_prefill_step` / `jit_decode_step`, the reference's
-    names and arguments, run them on this rank's blocks at the Sharder's
-    `param_specs`, `cache_specs` and `batch_specs` under a `Partition`
-    (`partition.py`), the logits vocab-sharded at P(batch, vocab_axis()).
-    No rank holds a whole weight of a `model`-sharded leaf or more of the
-    cache than its block; `init_serve_params` draws the blocks without a
-    whole model ever existing on the rank. The dense, MoE (sliding-window
-    rings too), recurrent and cross-attention families run under the
-    partition context (the enc-dec family's encoder too: the prefill
-    returns the memory as this rank's rows, whole over `model`, and the
-    decode takes it back); the SSM family, whose weights the Sharder
-    replicates, runs the whole path on the rank's rows of the batch and
-    cache, with no collective, as the reference's compiled program has
-    none.
+Serving. `build_prefill_step` / `build_decode_step` run `Model.prefill`
+/ `decode_step` on whole params and cache, as on one device;
+`jit_prefill_step` / `jit_decode_step`, the reference's names and
+arguments, run them on this rank's blocks at the Sharder's
+`param_specs`, `cache_specs` and `batch_specs` under a `Partition`, the
+logits vocab-sharded at P(batch, vocab_axis()), no rank holding more of
+the cache than its block; `init_serve_params` draws the blocks without a
+whole model ever existing on the rank. The dense, MoE (sliding-window
+rings too), recurrent and cross-attention families run under the
+partition context (the enc-dec family's encoder too: the prefill
+returns the memory as this rank's rows, whole over `model`, and the
+decode takes it back); the SSM family runs the whole path on the rank's
+rows of the batch and cache, with no collective, as the reference's
+compiled program has none.
+
+The collectives are the c10d calls of `distributed.collectives`. The
+reference's `with_sharding_constraint` hints have no eager counterpart.
 """
 from __future__ import annotations
 
@@ -67,26 +79,69 @@ from repro_torch.optim.compression import ef_compress_tree
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.tree import (flatten_like, tree_flatten, tree_map,
                               tree_unflatten)
-from .collectives import (all_reduce_sum, gather_dims, gather_dtensor,
-                          shard_dims)
+from .collectives import (all_reduce_max, all_reduce_sum, gather_dims,
+                          gather_dtensor, shard_dims)
 from .partition import Partition
 from .sharding import NamedSharding, Sharder, path_leaves, spec_leaves
 
-__all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
-           "jit_prefill_step", "jit_decode_step", "MEMORY_KEYS",
+__all__ = ["build_train_step", "jit_train_step", "build_prefill_step",
+           "build_decode_step", "jit_prefill_step", "jit_decode_step", "MEMORY_KEYS",
            "serve_params", "init_serve_params", "init_serve_cache",
            "param_blocks", "block_shape", "serve_block_bytes",
            "init_train_state", "cast_params", "train_state_specs",
            "distribute_state", "gather_state", "state_shardings"]
 
 
-def init_train_state(model: Model, seed: int = 0) -> Dict[str, Any]:
-    params = model.init(seed)
-    return {
-        "params": params,
-        "opt": adamw_init(params),
-        "ef": None,  # error-feedback state, created on first compressed step
-    }
+def init_train_state(model: Model, seed: int = 0,
+                     sharder: Optional[Sharder] = None) -> Dict[str, Any]:
+    """The params of `model.init(seed)`, AdamW's zero moments and no
+    error state. With a Sharder, this rank's blocks of it at
+    `train_state_specs`, as DTensors: `distribute_state` of the whole
+    init, bit for bit, but drawn leaf by leaf (each whole leaf cut to its
+    block and freed before the next draw), so no whole model exists on
+    the rank."""
+    if sharder is None:
+        params = model.init(seed)
+        return {
+            "params": params,
+            "opt": adamw_init(params),
+            "ef": None,  # error state, created on first compressed step
+        }
+
+    def keep(path, t):
+        return shard_dims(t, sharder.param_spec(path, tuple(t.shape)),
+                          sharder.mesh).clone()
+
+    params = model.init(seed, keep=keep)
+    shapes = Model(model.cfg, device="meta").init(seed)
+    return _at_rest(sharder, {"params": params, "opt": adamw_init(params),
+                              "ef": None}, shapes)
+
+
+def _contiguous_strides(shape) -> tuple:
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))
+
+
+def _at_rest(sharder: Sharder, local, shapes):
+    """The train state of this rank's blocks `local` as DTensors at
+    `train_state_specs`; `shapes` the whole params (a meta init)."""
+    from torch.distributed.tensor import DTensor
+    whole = {"params": shapes, "opt": {"m": shapes, "v": shapes,
+                                       "step": local["opt"]["step"]},
+             "ef": None if local["ef"] is None else shapes}
+    _, treedef = tree_flatten(local)
+    specs = spec_leaves(train_state_specs(sharder, {
+        "params": shapes, "ef": local["ef"]}), local)
+    return tree_unflatten(treedef, [
+        DTensor.from_local(t, sharder.mesh, sharder.placements(spec),
+                           run_check=False, shape=w.shape,
+                           stride=_contiguous_strides(w.shape))
+        for t, w, spec in zip(tree_flatten(local)[0],
+                              flatten_like(whole, treedef), specs)])
 
 
 def train_state_specs(sharder: Sharder, state) -> Dict[str, Any]:
@@ -155,6 +210,46 @@ def cast_params(params, cfg: ModelConfig):
     return out
 
 
+def _grads_of(model: Model, params, batch, prepare, part=None):
+    """(loss, metrics, the gradient of every leaf of `params`) of
+    `lm_loss` on `prepare(params)`, under the partition context `part`."""
+    leaves, treedef = tree_flatten(params)
+    live = [p.detach().requires_grad_(True) for p in leaves]
+    loss, metrics = lm_loss(
+        model, prepare(tree_unflatten(treedef, live)), batch, part=part)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    if missing := [i for i, g in enumerate(grads) if g is None]:
+        raise RuntimeError(f"leaves {missing} of the params got no "
+                           "gradient: the loss does not reach them")
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_unflatten(treedef, list(grads))
+
+
+def _accumulated(model: Model, params, batch, prepare, microbatches: int,
+                 part=None):
+    """(loss, metrics, f32-summed grads / mb) over the microbatches; the
+    gradient of a leaf comes in the leaf's dtype."""
+    if microbatches == 1:
+        return _grads_of(model, params, batch, prepare, part)
+    B = next(iter(batch.values())).shape[0]
+    if B % microbatches:
+        raise ValueError(f"batch {B} does not split into "
+                         f"{microbatches} microbatches")
+    grads = tree_map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+    for k in range(microbatches):
+        # the reference's (B, ...) -> (B/mb, mb, ...) reshape, swapped:
+        # microbatch k is rows k, k + mb, ...
+        loss, metrics, g = _grads_of(
+            model, params, {n: v[k::microbatches] for n, v in batch.items()},
+            prepare, part)
+        grads = tree_map(torch.add, grads, g)
+        loss_sum = loss_sum + loss
+    mb = torch.tensor(float(microbatches), device=model.device)
+    return loss_sum / mb, metrics, tree_map(lambda g: g / mb, grads)
+
+
 def build_train_step(
     model: Model,
     sharder: Optional[Sharder] = None,
@@ -184,40 +279,8 @@ def build_train_step(
     cfg = model.cfg
     opt_cfg = opt_cfg or AdamWConfig()
 
-    def grads_of(params, batch, prepare):
-        leaves, treedef = tree_flatten(params)
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        loss, metrics = lm_loss(
-            model, prepare(tree_unflatten(treedef, live)), batch)
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
-        if missing := [i for i, g in enumerate(grads) if g is None]:
-            raise RuntimeError(f"leaves {missing} of the params got no "
-                               "gradient: the loss does not reach them")
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, tree_unflatten(treedef, list(grads))
-
     def accumulated(params, batch, prepare):
-        """(loss, metrics, f32-summed grads / mb) over the microbatches;
-        the gradient of a leaf comes in the leaf's dtype."""
-        if microbatches == 1:
-            return grads_of(params, batch, prepare)
-        B = next(iter(batch.values())).shape[0]
-        if B % microbatches:
-            raise ValueError(f"batch {B} does not split into "
-                             f"{microbatches} microbatches")
-        grads = tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
-        for k in range(microbatches):
-            # the reference's (B, ...) -> (B/mb, mb, ...) reshape,
-            # swapped: microbatch k is rows k, k + mb, ...
-            loss, metrics, g = grads_of(
-                params, {n: v[k::microbatches] for n, v in batch.items()},
-                prepare)
-            grads = tree_map(torch.add, grads, g)
-            loss_sum = loss_sum + loss
-        mb = torch.tensor(float(microbatches), device=model.device)
-        return loss_sum / mb, metrics, tree_map(lambda g: g / mb, grads)
+        return _accumulated(model, params, batch, prepare, microbatches)
 
     def on_device(batch):
         return {k: torch.as_tensor(v, device=model.device)
@@ -320,6 +383,156 @@ def build_train_step(
         return new_state, metrics
 
     return sharded_step
+
+
+def _split_axes(spec) -> tuple:
+    """The mesh axes a spec splits its leaf over."""
+    return tuple(a for entry in spec for a in (
+        (entry,) if isinstance(entry, str) else tuple(entry or ())))
+
+
+def _block_norm(blocks, split, mesh) -> torch.Tensor:
+    """The global norm of whole gradients from this rank's `blocks`: each
+    leaf's f32 sum of squares summed over the axes `split` gives it (the
+    axes its spec splits it over; a replicated leaf is counted once), one
+    all-reduce a set of axes and axis."""
+    by_axes: Dict[tuple, torch.Tensor] = {}
+    for t, axes in zip(blocks, split):
+        sq = torch.sum(torch.square(t.to(torch.float32)))
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    for axes, sq in by_axes.items():
+        for a in axes:
+            all_reduce_sum(sq, mesh, a)
+    return torch.sqrt(sum(by_axes.values()))
+
+
+def jit_train_step(
+    model: Model,
+    sharder: Sharder,
+    state,
+    batch_keys,
+    *,
+    opt_cfg: Optional[AdamWConfig] = None,
+    microbatches: int = 1,
+    compress_grads: bool = False,
+    schedule_total: int = 10_000,
+    engine_spec: Optional[EngineSpec] = None,
+):
+    """The partitioned train step one rank runs (the reference's
+    `jit_train_step`): train_step(state, batch) -> (state, metrics), the
+    state this rank's blocks at `train_state_specs` (DTensors, as
+    `distribute_state` or `init_train_state(model, sharder=)` give them;
+    their shapes are checked here), `batch` its rows at
+    `sharder.batch_specs(batch_keys)`; the metrics `build_train_step`'s,
+    the same on every rank. The state is donated, as the reference's
+    `jit_train_step` donates it: its blocks are updated in place and the
+    returned state holds the same storage. The module docstring says what
+    a step does.
+    `train_step.grads(state, batch)` gives (loss, metrics, this rank's
+    gradient blocks after the sums over the batch axes and the divide),
+    what the update is taken from before compression."""
+    from torch.distributed.tensor import DTensor
+    if engine_spec is not None:
+        model = Model(model.cfg, resolve_engine(
+            engine_spec, base=model.eng, mesh=sharder.mesh),
+            device=model.device)
+    part = _partition(model, sharder)
+    cfg = model.cfg
+    opt_cfg = opt_cfg or AdamWConfig()
+    mesh = sharder.mesh
+    shapes = Model(cfg, device="meta").init(0)
+    split = [_split_axes(spec) for spec in spec_leaves(
+        sharder.param_specs(shapes), shapes)]
+    bax = _split_axes(sharder.batch_spec()[:1])
+    # each leaf's gradient is summed over the batch axes its spec does not
+    # split: a leaf split over `data` had its gradient reduce-scattered
+    # over `data` in the backward (`Partition.whole_over_data`)
+    over = [tuple(a for a in bax if a not in axes) for axes in split]
+    n_rows = math.prod(sharder.shape[a] for a in bax)
+    allowed = {"tokens", "mask"}
+    if cfg.family in MEMORY_KEYS:
+        allowed.add(MEMORY_KEYS[cfg.family])
+    if set(batch_keys) - allowed:
+        raise ValueError(f"a partitioned train step of {cfg.name} takes "
+                         f"{sorted(allowed)}, got {list(batch_keys)}")
+    _check_blocks(model, sharder, tree_map(_local, state["params"]))
+
+    def grads(state, batch):
+        params = tree_map(_local, state["params"])
+        batch = {k: torch.as_tensor(v, device=model.device)
+                 for k, v in batch.items()}
+        loss, metrics, g = _accumulated(
+            model, params, batch, lambda p: cast_params(p, cfg),
+            microbatches, part)
+        flat = [t.to(torch.float32) for t in tree_flatten(g)[0]]
+        for t, axes in zip(flat, over):
+            # one leaf at a time: a bucket of them would be a tensor larger
+            # than any leaf's block
+            for a in axes:
+                all_reduce_sum(t, mesh, a)
+        scalars = torch.stack([loss, metrics["loss"], metrics["aux"]])
+        for a in bax:
+            all_reduce_sum(scalars, mesh, a)
+        if n_rows > 1:
+            div = torch.tensor(float(n_rows), device=model.device)
+            flat = [t / div for t in flat]
+            scalars = scalars / div
+            loss = scalars[0]
+            metrics = {**metrics, "loss": scalars[1], "aux": scalars[2],
+                       "ppl_proxy": torch.exp(torch.clamp(scalars[1],
+                                                          max=20.0))}
+        leaves, treedef = tree_flatten(params)
+        return loss, metrics, tree_unflatten(treedef, [
+            t.to(p.dtype) for t, p in zip(flat, leaves)])
+
+    def train_step(state, batch):
+        loss, metrics, g = grads(state, batch)
+        local = tree_map(_local, {"params": state["params"],
+                                  "opt": state["opt"]})
+        ef = state["ef"]
+        if compress_grads:
+            g, ef = ef_compress_tree(
+                g, None if ef is None else tree_map(_local, ef),
+                reduce_max=[_max_over(axes) for axes in split])
+        blocks = tree_flatten(g)[0]
+        del g
+        gnorm = _block_norm(blocks, split, mesh)
+        step = local["opt"]["step"]
+        lr_scale = cosine_schedule(step, total=schedule_total)
+        # the state is donated, as the reference's jit donates it: each
+        # leaf's params, m and v are overwritten one leaf at a time (AdamW
+        # is elementwise), so the step never holds two states
+        for i, (p, m, v) in enumerate(zip(*(tree_flatten(t)[0] for t in (
+                local["params"], local["opt"]["m"], local["opt"]["v"])))):
+            new_p, new_opt, opt_metrics = adamw_update(
+                opt_cfg, [blocks[i]], {"m": [m], "v": [v], "step": step},
+                [p], lr_scale, grad_norm=gnorm)
+            blocks[i] = None
+            for old, new in ((p, new_p[0]), (m, new_opt["m"][0]),
+                             (v, new_opt["v"][0])):
+                old.copy_(new)
+        step.copy_(new_opt["step"])
+        new = {**local, "ef": ef}
+        if isinstance(tree_flatten(state["params"])[0][0], DTensor):
+            new = _at_rest(sharder, new, shapes)
+        metrics = {**metrics, **opt_metrics, "loss_total": loss}
+        return new, metrics
+
+    def _max_over(axes):
+        def reduce(amax):
+            for a in axes:
+                all_reduce_max(amax, mesh, a)
+            return amax
+        return reduce
+
+    train_step.grads = grads
+    return train_step
+
+
+def _local(t):
+    """A DTensor's local block; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def build_prefill_step(model: Model):

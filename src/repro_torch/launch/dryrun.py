@@ -8,16 +8,19 @@ For each cell the dry run:
      DeviceMesh with the axis names and sizes of `make_production_mesh`;
      the world is the cell's, and goes with it;
   2. builds the model and the Sharder on that mesh, and the step's
-     arguments as meta tensors (`input_specs`): train runs the port's
-     sharded step (`build_train_step(model, sharder, microbatches=...)`)
-     on the state `distribute_state` rests; prefill and decode walk the
-     "partitioned" layout (the record's `layout`), every family's:
+     arguments as meta tensors (`input_specs`), and walks the
+     "partitioned" layout (the record's `layout`), every family's: train
+     runs `jit_train_step(model, sharder, ..., microbatches=...)` on this
+     rank's blocks of the f32 train state (`init_train_state(model,
+     sharder=)`) and its rows of the batch; prefill and decode
      `jit_prefill_step` / `jit_decode_step` on this rank's blocks of the
      bf16 serve params (`init_serve_params`), of the batch (and of the
-     decode's memory) and of the cache at the Sharder's specs, moving
-     their collectives over `model` and, under fsdp_tp, `data` (none for
-     the SSM family, whose weights are replicated). `cell_step` also
-     keeps the "whole" layout, to compare the two: `build_prefill_step` /
+     decode's memory) and of the cache at the Sharder's specs; each moves
+     its collectives over `model` and, under fsdp_tp, `data` (the SSM
+     family, whose weights are replicated, only its gradients' sum).
+     `cell_step` also keeps the "whole" layout, to compare the two: the
+     train step `build_train_step` on the state `distribute_state`
+     rests, every param gathered whole; `build_prefill_step` /
      `build_decode_step` on whole bf16 serve params (f32 leaves of 2 or
      more dims cast, the reference's `_serve_params` rule), the rank's
      rows of the batch and a cache of its rows, no collective;
@@ -62,7 +65,8 @@ from repro_torch.distributed.train import (build_decode_step,
                                            init_serve_params,
                                            init_train_state,
                                            jit_decode_step,
-                                           jit_prefill_step, serve_params)
+                                           jit_prefill_step, jit_train_step,
+                                           serve_params)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import (axis_links, collective_bytes,
                                          roofline_terms, walk)
@@ -100,9 +104,9 @@ def eval_shape_tree(fn: Callable, *args):
 
 
 def serve_layout(cfg) -> str:
-    """The layout a serve cell of `cfg` walks: "partitioned", as every
-    family has partitioned serve steps (the dense, MoE, recurrent, SSM
-    and cross-attention families)."""
+    """The layout a cell of `cfg` walks: "partitioned", as every family
+    has partitioned serve steps and a partitioned train step (the dense,
+    MoE, recurrent, SSM and cross-attention families)."""
     return "partitioned"
 
 
@@ -163,15 +167,13 @@ def cell_step(model: Model, sharder: Sharder, case: ShapeCase,
               ) -> Tuple[Callable, tuple]:
     """(the step one rank runs for `case`, its arguments) on the model's
     device: meta for the walk, the card to hold the walk against it.
-    `inputs`: `input_specs`'s entries, or tensors of their shapes. A serve
-    case keeps `layout` ("partitioned" or "whole"; `serve_layout(cfg)`
-    by default)."""
+    `inputs`: `input_specs`'s entries, or tensors of their shapes. A case
+    keeps `layout` ("partitioned" or "whole"; `serve_layout(cfg)` by
+    default): a partitioned train case runs `jit_train_step` on the
+    blocks `init_train_state(model, sharder=)` draws and the rank's rows,
+    a whole one `build_train_step` on the state `distribute_state` rests
+    (every param gathered whole in the step) and the whole batch."""
     cfg = model.cfg
-    if case.kind == "train":
-        state = distribute_state(sharder, init_train_state(model))
-        step = build_train_step(model, sharder,
-                                microbatches=microbatches(cfg, case))
-        return step, (state, inputs["batch"])
     bd = sharder.batch_spec()[0]
 
     def rows(t):
@@ -179,7 +181,19 @@ def cell_step(model: Model, sharder: Sharder, case: ShapeCase,
         return shard_dims(t, (bd,) + (None,) * (t.ndim - 1),
                           sharder.mesh).clone()
 
-    if (layout or serve_layout(cfg)) == "partitioned":
+    partitioned = (layout or serve_layout(cfg)) == "partitioned"
+    if case.kind == "train" and partitioned:
+        state = init_train_state(model, sharder=sharder)
+        batch = {k: rows(v) for k, v in inputs["batch"].items()}
+        step = jit_train_step(model, sharder, state, list(batch),
+                              microbatches=microbatches(cfg, case))
+        return step, (state, batch)
+    if case.kind == "train":
+        state = distribute_state(sharder, init_train_state(model))
+        step = build_train_step(model, sharder,
+                                microbatches=microbatches(cfg, case))
+        return step, (state, inputs["batch"])
+    if partitioned:
         params = init_serve_params(model, sharder)
         cache = init_serve_cache(model, sharder, case.global_batch,
                                  case.seq_len)
@@ -335,8 +349,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool, out_dir: Path
                                    case=case),
         "device": "none: meta tensors over a fake process group",
     })
-    if case.kind != "train":
-        rec["layout"] = serve_layout(cfg)
+    rec["layout"] = serve_layout(cfg)
     out_dir.mkdir(parents=True, exist_ok=True)
     fn = out_dir / f"{arch}__{shape}__{rec['mesh']}.json"
     fn.write_text(json.dumps(rec, indent=1, default=str))

@@ -1,7 +1,8 @@
 """End-to-end training CLI (port of `repro/launch/train.py`).
 
-Wires together: config registry -> model -> sharder -> sharded train step
--> synthetic data pipeline -> checkpoint manager -> fault tolerance
+Wires together: config registry -> model -> sharder -> partitioned train
+step (`jit_train_step`, as the reference's CLI runs; each rank its blocks
+of the state and its rows of each batch) -> synthetic data pipeline -> checkpoint manager -> fault tolerance
 (preemption guard + straggler watchdog). Runs on the CUDA card unless
 --device says otherwise. Weights are drawn from --seed (`Model.init`; they
 are not the reference's, whose numbers jax.random draws), and the batch of
@@ -16,7 +17,8 @@ gloo where the ranks share a card (NCCL refuses two ranks on one device;
 gloo takes CUDA tensors for every collective of the sharded path, through
 the host), run on the CPU, or are one rank (nothing moves between ranks);
 the first line says which, and why. --dot-shard shards
-the olm GEMMs over its "model" axis. --production-mesh builds the 16x16
+the olm GEMMs over its "model" axis; the step is then the whole layout
+(`build_train_step`), whose GEMMs the engine shards itself. --production-mesh builds the 16x16
 Sharder's specs and stops before the first step unless the world has
 its 256 ranks.
 
@@ -46,9 +48,10 @@ from repro_torch.core.numerics import EngineSpec
 from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.distributed.fault import PreemptionGuard, StragglerWatchdog
 from repro_torch.distributed.sharding import Sharder, path_leaves
+from repro_torch.distributed.collectives import shard_dims
 from repro_torch.distributed.train import (build_train_step,
-                                           distribute_state,
-                                           init_train_state, state_shardings)
+                                           init_train_state, jit_train_step,
+                                           state_shardings)
 from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
                                     mesh_shape)
 from repro_torch.models.model import Model, resolve_device
@@ -166,7 +169,7 @@ def _train(args, dev: torch.device, why: str):
     data = SyntheticLMDataset(cfg, args.batch, args.seq, seed=args.seed)
     ckpt = CheckpointManager(Path(args.ckpt_dir) / cfg.name, keep=3)
 
-    state = distribute_state(sharder, init_train_state(model, args.seed))
+    state = init_train_state(model, args.seed, sharder=sharder)
     start_step = 0
     if args.resume and ckpt.latest_step() is not None:
         start_step = ckpt.latest_step()
@@ -181,20 +184,31 @@ def _train(args, dev: torch.device, why: str):
     if args.dot_shard is not None:
         spec_kw["shard"] = args.dot_shard
     engine_spec = EngineSpec(**spec_kw) if spec_kw else None
-    step_fn = build_train_step(
-        model, sharder, opt_cfg=AdamWConfig(lr=args.lr),
-        microbatches=args.microbatches,
-        compress_grads=args.compress_grads,
-        schedule_total=args.steps,
-        engine_spec=engine_spec)
+    step_kw = dict(opt_cfg=AdamWConfig(lr=args.lr),
+                   microbatches=args.microbatches,
+                   compress_grads=args.compress_grads,
+                   schedule_total=args.steps, engine_spec=engine_spec)
+    bspecs = sharder.batch_specs(["tokens"])    # the stream's one key
+    if args.dot_shard is None:
+        # the reference's jit_train_step: this rank's blocks and rows
+        step_fn = jit_train_step(model, sharder, state, list(bspecs),
+                                 **step_kw)
+    else:
+        # every GEMM sharded by the engine itself: the whole layout, each
+        # rank handed the whole batch
+        step_fn = build_train_step(model, sharder, **step_kw)
+        bspecs = {k: (None,) for k in bspecs}
+
+    def rows(batch):
+        return {k: shard_dims(torch.from_numpy(v), bspecs[k], mesh).to(
+            model.device) for k, v in batch.items()}
 
     watchdog = StragglerWatchdog(
         on_straggler=lambda s, dt: say(f"  [watchdog] step {s} straggled: {dt:.2f}s"))
     losses = []
     with PreemptionGuard() as guard:
         for step in range(start_step, args.steps):
-            batch = {k: torch.from_numpy(v).to(model.device)
-                     for k, v in data.batch(step).items()}
+            batch = rows(data.batch(step))
             watchdog.start()
             state, metrics = step_fn(state, batch)
             if model.device.type == "cuda":

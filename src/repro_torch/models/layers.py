@@ -451,7 +451,8 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     updated cache or None).
 
     With a partition context `part` the layer runs on this rank's blocks:
-    wq, wk, wv (and their biases) column-parallel, wo row-parallel. Where
+    wq, wk, wv (and their biases) column-parallel, wo row-parallel (x
+    and the memory enter the rank's columns once, `Partition.enter`). Where
     the layer's n_kv_heads divide `model` it attends over this rank's
     heads, the code below on them: a self-attention layer's cache is this
     rank's block over its kv heads (a ring too), cross-attention reads
@@ -461,7 +462,9 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     (`_attention_by_length`), and a cache-less one (cross-attention, the
     encoder) gathers k and v whole over `model` and attends for this
     rank's whole query heads (`_rank_heads`). It takes the contiguous cache
-    of a prefill or decode step: no chunks, no paged pool."""
+    of a prefill or decode step: no chunks, no paged pool. Without a
+    cache (the train step's call) it attends over the sequence, by heads
+    or through `_rank_heads`, the window a mask as on one device."""
     B, S, d = x.shape
     Dh = cfg.head_dim
     src = x if memory is None else memory
@@ -470,6 +473,9 @@ def attention_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
         raise NotImplementedError(
             "a partitioned attention layer takes the contiguous KV cache "
             "of a prefill or decode step, not chunks or a paged pool")
+    if part is not None:
+        x = part.enter(x)
+        src = x if memory is None else part.enter(memory)
     q = _col(eng, x, p["wq"], part)
     k = _col(eng, src, p["wk"], part)
     v = _col(eng, src, p["wv"], part)
@@ -585,6 +591,8 @@ def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     """SwiGLU: wd(silu(wg x) * wu x); GELU: wd(gelu(wu x)), with the
     tanh approximation (jax.nn.gelu's default). Under a partition context
     wg and wu are column-parallel, wd row-parallel."""
+    if part is not None:
+        x = part.enter(x)
     if cfg.mlp_type == "swiglu":
         g = torch.nn.functional.silu(
             _col(eng, x, p["wg"], part).to(torch.float32)).to(x.dtype)
@@ -612,14 +620,16 @@ def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig,
     partition context the table is vocab-parallel: each rank looks up the
     ids in its row range, writes zeros elsewhere, and the rows are summed
     over `model` in f32. A row plus exact zeros is the row, up to the sign
-    of a zero (-0 + 0 is +0)."""
+    of a zero (-0 + 0 is +0). Under fsdp_tp the rows come whole over
+    `data` (`Partition.lookup`). Under gradients each rank's block of the
+    table gets the gradient of the ids it holds."""
     if part is None:
         return p["table"].to(cfg.cdtype)[tokens]
-    table = part.whole_over_data(p["table"], 1).to(cfg.cdtype)
+    table = p["table"].to(cfg.cdtype)
     rows = table.shape[0]
     ids = tokens.to(torch.int64) - part.rank * rows
     mine = ((ids >= 0) & (ids < rows))[..., None]
-    x = table[ids.clamp(0, rows - 1)]
+    x = part.lookup(table, ids.clamp(0, rows - 1))
     x = torch.where(mine, x, torch.zeros_like(x)).to(torch.float32)
     return part.sum(x).to(cfg.cdtype)
 
@@ -629,9 +639,13 @@ def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Logits against the (vocab_padded, d) table. The table is rounded
     through the compute dtype first, as the reference does, and handed to
     the engine as a transposed view. Under a partition context the head
-    is column-parallel: this rank's vocab columns, left sharded."""
+    is column-parallel: this rank's vocab columns, left sharded (with a
+    tied table its gradient adds to the embedding's in the rank's
+    block)."""
     table = p["table"] if part is None else part.whole_over_data(
         p["table"], 1)
+    if part is not None:
+        x = part.enter(x)
     logits = eng.dot(x, table.to(cfg.cdtype).T)
     if cfg.vocab_padded != cfg.vocab_size:
         first = 0 if part is None else part.rank * logits.shape[-1]

@@ -1,7 +1,7 @@
 """Model facade of every ported family (port of `repro/models/model.py`):
 
   init(seed, keep=)                            -> params
-  forward(params, batch)                       -> (logits (B, S, V), aux)
+  forward(params, batch, part=)                -> (logits (B, S, V), aux)
   init_cache(batch, max_len, paged=)           -> per-layer caches
   prefill(params, batch, cache, last_index=, part=)
                                                -> (last logits, cache, memory)
@@ -22,11 +22,12 @@ device (jax.random's numbers cannot be reproduced; `convert.py` carries a
 JAX parameter tree over instead). `lm_loss` is the causal LM loss over
 `forward`.
 
-`prefill` and `decode_step` take an optional partition context `part`
-(`distributed/partition.py`): the params and cache are then this rank's
-blocks at the Sharder's specs, the batch and the memory this rank's rows
-(the memory whole over `model`), and the logits this rank's vocab columns
-(the partitioned steps of `distributed/train.py`). `init(keep=)` hands
+`forward`, `lm_loss`, `prefill` and `decode_step` take an optional
+partition context `part` (`distributed/partition.py`): the params and
+cache are then this rank's blocks at the Sharder's specs, the batch and
+the memory this rank's rows (the memory whole over `model`), and the
+logits this rank's vocab columns (the partitioned steps of
+`distributed/train.py`; `forward` and `lm_loss` under gradients). `init(keep=)` hands
 each leaf, as it is drawn, to `keep`, which returns what the tree holds:
 this rank's block, say, so that no whole model exists on a rank.
 """
@@ -134,22 +135,24 @@ class Model:
             return batch["patches"].to(self.device, cfg.cdtype)
         return None
 
-    def forward(self, params: Params, batch: Dict[str, torch.Tensor]
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor],
+                part=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward of tokens (B, S): (f32 logits (B, S,
         vocab_padded), aux loss). Not under no_grad, so a training step
-        can take gradients through it."""
+        can take gradients through it. Under a partition context `part`
+        the params are this rank's blocks, the batch its rows, and the
+        logits its vocab columns (B, S, vocab_padded / model)."""
         cfg = self.cfg
         tokens = batch["tokens"].to(self.device)
         B, S = tokens.shape
-        memory = self._memory(params, batch)
+        memory = self._memory(params, batch, part)
         pos = torch.arange(S, device=self.device)[None].expand(B, S)
-        x = embed(params["embed"], tokens, cfg)
+        x = embed(params["embed"], tokens, cfg, part)
         x, aux = stack_apply(params["layers"], cfg, x, pos, self.eng,
-                             memory=memory)
+                             memory=memory, part=part)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = unembed(self._head_table(params), x, cfg,
-                         self.eng.for_role("head"))
+                         self.eng.for_role("head"), part)
         return logits.to(torch.float32), aux
 
     def init_cache(self, batch: int, max_len: int,
@@ -259,12 +262,20 @@ class Model:
 
 
 def lm_loss(model: Model, params: Params, batch: Dict[str, torch.Tensor],
-            *, aux_weight: float = 0.01
+            *, aux_weight: float = 0.01, part=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal LM loss: predict tokens[t+1] from tokens[<=t], a masked
     NLL through logsumexp in f32 (batch["mask"] (B, S) optional).
-    Returns (loss + aux_weight * aux, {"loss", "aux", "ppl_proxy"})."""
-    logits, aux = model.forward(params, batch)
+    Returns (loss + aux_weight * aux, {"loss", "aux", "ppl_proxy"}).
+
+    Under a partition context `part` (`Model.forward`'s) the batch is this
+    rank's rows and the logsumexp runs over the vocab columns of every
+    rank along `model`, padded ones too, as the reference's sees them: the
+    row's largest logit taken over `model` (detached), the sum of the
+    exponentials summed over `model`, the gold logit taken on the rank
+    that holds its column and summed. The loss is the same on every rank
+    along `model`."""
+    logits, aux = model.forward(params, batch, part)
     tokens = batch["tokens"].to(logits.device)
     targets = tokens[:, 1:].to(torch.int64)
     logits = logits[:, :-1]
@@ -272,11 +283,29 @@ def lm_loss(model: Model, params: Params, batch: Dict[str, torch.Tensor],
     mask = (mask[:, 1:].to(logits.device, torch.float32) if mask is not None
             else torch.ones(targets.shape, dtype=torch.float32,
                             device=logits.device))
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    if part is not None and part.size > 1:
+        logz, gold = _vocab_parallel(logits, targets, part)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     nll = (logz - gold) * mask
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = nll.sum() / denom
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux": aux,
                    "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
+
+
+def _vocab_parallel(logits: torch.Tensor, targets: torch.Tensor, part
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, the gold logit) of every row, from this rank's vocab
+    columns of the logits (B, S, V / model), over `model`."""
+    m = part.max(logits.detach().amax(dim=-1))
+    cols = logits.shape[-1]
+    ids = targets - part.rank * cols
+    mine = (ids >= 0) & (ids < cols)
+    gold = torch.gather(logits, -1, ids.clamp(0, cols - 1)[..., None])[..., 0]
+    both = part.sum(torch.stack([
+        torch.exp(logits - m[..., None]).sum(dim=-1),
+        torch.where(mine, gold, torch.zeros_like(gold))]))
+    return torch.log(both[0]) + m, both[1]

@@ -16,6 +16,8 @@ Under a partition context (`distributed/partition.py`) every rank routes
 the same tokens alike, runs the expert GEMMs on its block of the expert
 leaves and combines its updates into an f32 partial that one all-reduce
 over `model` sums: what GSPMD makes of the reference's `constrain` calls.
+Under gradients the layer's input and its combine weights enter the
+rank's experts, their gradients summed over `model` (`_partitioned`).
 """
 from __future__ import annotations
 
@@ -62,33 +64,35 @@ def _capacity(tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)   # round up to 8 for tiling
 
 
-def _route_row(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
-    """Route one batch row's T tokens, xt (T, d). Returns the dispatch
-    plan (token id per (expert, slot) (E*C,), each sorted assignment's
-    slot (sink E*C when dropped), token, weight and keep flag (T*K,)) and
-    the row's aux loss E * sum(me * ce)."""
-    T = xt.shape[0]
+def _route_rows(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """Route each batch row's T tokens on its own, every row in one call:
+    x (B, T, d). Returns each row's dispatch plan (token id per (expert,
+    slot) (B, E*C), each sorted assignment's slot (sink E*C when dropped),
+    token, weight and keep flag (B, T*K)) and each row's aux loss E *
+    sum(me * ce) (B,), as the reference's `_route_row` vmapped over the
+    rows gives them."""
+    B, T = x.shape[:2]
     E, K = cfg.n_experts, cfg.experts_per_token
     C = _capacity(T, cfg)
-    dev = xt.device
+    dev = x.device
     # the router in f32 whatever its dtype, as the reference's einsum
     # promotes it (bf16 when a train step casts the stacked layers' leaves)
-    gates = torch.softmax(torch.matmul(xt.to(torch.float32),
+    gates = torch.softmax(torch.matmul(x.to(torch.float32),
                                        router.to(torch.float32)), dim=-1)
     # jax.lax.top_k's order: descending, the lower index first among ties
     vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
-    topw, topi = vals[:, :K], idx[:, :K]
+    topw, topi = vals[..., :K], idx[..., :K]
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
-    me = gates.mean(dim=0)
-    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
-        0, topi.reshape(-1), torch.ones((T * K,), device=dev)) / (T * K)
-    aux = E * torch.sum(me * ce)
+    me = gates.mean(dim=1)                                       # (B, E)
+    ce = torch.zeros((B, E), dtype=torch.float32, device=dev).scatter_add_(
+        1, topi.reshape(B, -1), torch.ones((B, T * K), device=dev)) / (T * K)
+    aux = E * torch.sum(me * ce, dim=-1)
 
-    flat_e = topi.reshape(-1)                          # (T*K,)
-    flat_t = torch.arange(T, device=dev).repeat_interleave(K)
-    flat_w = topw.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    se, st, sw = flat_e[order], flat_t[order], flat_w[order]
+    flat_e = topi.reshape(B, -1)                                 # (B, T*K)
+    flat_t = torch.arange(T, device=dev).repeat_interleave(K).expand(B, -1)
+    flat_w = topw.reshape(B, -1)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    se, st, sw = (t.gather(1, order) for t in (flat_e, flat_t, flat_w))
     pos = (torch.arange(T * K, device=dev)
            - torch.searchsorted(se, se, side="left"))
     keep = pos < C
@@ -97,23 +101,29 @@ def _route_row(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     # on T alone (a meta walk has no values to count). A dropped
     # assignment writes the empty mark T to the sink slot E * C, which the
     # plan cuts off.
-    buf_tok = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
-    buf_tok.scatter_(0, slot, torch.where(keep, st, torch.full_like(st, T)))
-    return buf_tok[:-1], slot, st, sw, keep, aux
+    buf_tok = torch.full((B, E * C + 1), T, dtype=torch.int64, device=dev)
+    buf_tok.scatter_(1, slot, torch.where(keep, st, torch.full_like(st, T)))
+    return buf_tok[:, :-1], slot, st, sw, keep, aux
+
+
+def _route_row(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """One batch row's plan, xt (T, d): `_route_rows` of the one row (the
+    reference's `_route_row`)."""
+    return tuple(t[0] for t in _route_rows(xt[None], router, cfg))
 
 
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
               eng: DotEngine, part=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (output (B, S, d), aux loss ()). Routing is per
-    batch row; the experts run one batched matmul over (B, E, C, d).
+    batch row, every row in one call (`_route_rows`); the experts run one
+    batched matmul over (B, E, C, d).
     `eng` is the block's MLP engine, which the reference's expert einsums
     do not use either. A partition context `part` runs the layer on this
     rank's expert blocks (`_partitioned`)."""
     B, S, d = x.shape
     E = cfg.n_experts
     C = _capacity(S, cfg)                              # per-row capacity
-    plans = [_route_row(x[b], p["router"], cfg) for b in range(B)]
-    buf_tok, slot, st, sw, keep, aux = (torch.stack(t) for t in zip(*plans))
+    buf_tok, slot, st, sw, keep, aux = _route_rows(x, p["router"], cfg)
     aux = aux.mean()
     if part is not None:
         return _partitioned(p, x, buf_tok.reshape(B, E, C), slot, st,
@@ -177,7 +187,14 @@ def _partitioned(p: Params, x: torch.Tensor, buf_ec: torch.Tensor,
     tokens, g and u on its d_ff columns, and wd on its rows an f32 partial
     of every update. Each expert leaf is whole over `data` only inside its
     einsum. The rank combines its weighted updates (`_combine`) into an
-    f32 (B, S, d), summed once over `model` and cast once to x's dtype."""
+    f32 (B, S, d), summed once over `model` and cast once to x's dtype.
+
+    Under gradients x and the combine weights w, the same on every rank,
+    enter the rank's experts (`Partition.enter`): each rank's gradient of
+    them is a partial (its experts' tokens, its d_ff block's share), which
+    the backward sums over `model`; the router's gradient and x's through
+    the routing are then whole on every rank."""
+    x, w = part.enter(x), part.enter(w)
     B, S, d = x.shape
     E, C = buf_ec.shape[1:]
     e0, e1 = part.expert_range()

@@ -166,7 +166,9 @@ def _rglru_coeffs(p: Params, u: torch.Tensor, part=None
     """The scan's (a_t, b_t), f32. The gate GEMMs are plain matmuls.
     Under a partition context u holds this rank's channels and the
     gates' products take the whole u, gathered over `model` once for
-    both, on the rank's output columns of wa and wi."""
+    both, on the rank's output columns of wa and wi (under gradients the
+    gather's backward sums u's gradient over `model` and keeps the
+    rank's channels)."""
     f32 = torch.float32
     whole = u if part is None else part.gather(u, -1)
     r = torch.sigmoid(torch.matmul(whole, p["wa"].to(u.dtype)).to(f32)
@@ -190,6 +192,8 @@ def rglru_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     context `part` the params and the state are this rank's blocks (w
     over `model`) and every step but the gates' products and wo's sum
     stays on the rank's channels."""
+    if part is not None:
+        x = part.enter(x)
     u = _col(eng, x, p["wx"], part)                    # (B, S, w)
     gate = F.gelu(_col(eng, x, p["wy"], part).to(torch.float32),
                   approximate="tanh")

@@ -168,7 +168,9 @@ def stack_apply(layers: List[Params], cfg: ModelConfig, x: torch.Tensor,
     reference wraps its scanned group body in jax.checkpoint: the backward
     recomputes the group's forward instead of keeping its activations.
     The remainder layers are outside the scan there, and are not
-    checkpointed here either. The bits do not change."""
+    checkpointed here either. The bits do not change. Under a partition
+    context the recompute runs the group's collectives again, in the same
+    order on every rank (the partitioned train step)."""
     kinds = cfg.layer_kinds
     pat = len(cfg.block_pattern)
     n_scan = cfg.pattern_groups * pat

@@ -420,16 +420,19 @@ def _hand_count_decode(cfg, B):
             * (2 * Hkv + H))
         add("all-reduce", "model", n_attn * rows * H * (Dh + 2) * 4)
     if cfg.sharding_profile == "fsdp_tp":
+        # the embedding: every data rank's ids (int64), then the rows each
+        # rank looked up on its columns, in the compute dtype
+        add("all-gather", "data", 2 * rows * 8
+            + 2 * rows * d * cfg.cdtype.itemsize)
         # each weight whole over "data" for its GEMM or, an expert leaf,
-        # its einsum (the head's table, tied or not, once more for the
-        # head; the router is replicated)
+        # its einsum (the head's table, tied or not; the router is
+        # replicated)
         whole = dict(path_leaves(Model(cfg, device="meta").init(0)))
-        head = "embed" if cfg.tie_embeddings else "unembed"
         for path in [p for p in whole if p != "final_norm/scale"
                      and not p.endswith("norm1/scale")
                      and not p.endswith("norm2/scale")
-                     and "/b" not in p] + [f"{head}/table"] * (
-                         cfg.tie_embeddings):
+                     and "/b" not in p
+                     and (p != "embed/table" or cfg.tie_embeddings)]:
             shape = tuple(whole[path].shape)
             spec = sharder.param_spec(path, shape)
             if "data" in spec:
@@ -474,6 +477,28 @@ def test_a_partitioned_cells_peak_is_below_the_whole_layouts(kind):
         "partitioned"
     assert dryrun.serve_layout(smoke_config("llama_3_2_vision_11b")) == \
         "partitioned"
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "llama_3_2_vision_11b"])
+def test_a_train_cell_walks_partitioned_below_the_whole(arch):
+    """A train cell walks `jit_train_step` by default: the same walk as
+    the partitioned layout asked for by name, with reduce-scatters over
+    `data` under fsdp_tp, and a peak below the whole layout's (every param
+    gathered whole in bf16, whole f32 gradients)."""
+    cfg = smoke_config(arch)
+    case = shapes.ShapeCase("t", 64, 4, "train")
+    mesh = make_abstract_mesh((2, 2), ("data", "model"))
+    walks = {layout: dryrun.walk_cell(cfg, case, mesh, layout)[0]
+             for layout in (None, "partitioned", "whole")}
+    peaks = {k: w["bytes_per_device"]["peak"] for k, w in walks.items()}
+    assert peaks[None] == peaks["partitioned"] < peaks["whole"]
+    assert walks[None]["flops"] == walks["partitioned"]["flops"]
+    kinds = {(r["kind"], r["axis"])
+             for r in walks["partitioned"]["collectives"].values()}
+    assert ("all-reduce", "model") in kinds
+    assert (("reduce-scatter", "data") in kinds) == (
+        cfg.sharding_profile == "fsdp_tp")
+    assert dryrun.serve_layout(cfg) == "partitioned"
 
 
 def _partitioned_below_the_whole(tmp_path, monkeypatch, arch):
@@ -550,10 +575,13 @@ def test_run_cell_writes_the_references_record(tmp_path, monkeypatch, shape,
     assert rec["roofline"]["n_chips"] == n
     assert rec["flops"] > 0 and rec["bytes_per_device"]["peak"] > 0
     if shape == "train_4k":
-        # the smoke params are gathered over "model", the gradients summed
-        # over the batch axes
-        assert rec["collectives"]["per_kind"].keys() == {"all-gather",
-                                                         "all-reduce"}
+        # the partitioned train step: the row-parallel and vocab-parallel
+        # sums over "model" and the gradients' sums over the batch axes;
+        # k and v gathered over "model" (2 smoke kv heads do not divide
+        # its 16 ranks), their gradients reduce-scattered back
+        assert rec["layout"] == "partitioned"
+        assert rec["collectives"]["per_kind"].keys() == {
+            "all-gather", "all-reduce", "reduce-scatter"}
         assert rec["collectives"]["link_bw"]["model"] == roofline.IB_BW
     else:
         # the dense family's partitioned decode: the row-parallel sums and

@@ -1377,3 +1377,112 @@ def test_partitioned_cross_attention_serve_over_two_ranks_on_the_card(
             for got, one in zip(res[f"{name}/logits"], ones[name]):
                 assert float((got[:, :v] - one[:, :v]).abs().max()
                              / one[:, :v].abs().max()) <= 3e-2, name
+
+
+# chip_smoke.py's shard phase (d) at smoke width: the partitioned train
+# step (jit_train_step) on two ranks that share the card (a gloo group,
+# a (1, 2) mesh), at f32 compute. InternLM2 by heads and Llama-Vision's
+# pattern group (4 attn + cross) on patches from the seed: each rank's
+# gradient block of every leaf within TP_TRAIN_TOL of that leaf's largest
+# |g| of one device's gradient on the card; one olm16 step, K1 launches
+# == the GEMMs it issues (the smoke configs do not remat).
+TP_TRAIN_CFGS = {"heads": ("internlm2_1_8b", dict(n_layers=2)),
+                 "vlm": ("llama_3_2_vision_11b", dict(n_layers=5))}
+TP_TRAIN_GEMMS = {"heads": 7 * 2 + 1, "vlm": 7 * 5 + 1}
+TP_TRAIN_TOL = 1e-5
+
+
+def _tp_train_cfg(name):
+    arch, over = TP_TRAIN_CFGS[name]
+    return dataclasses.replace(smoke_config(arch), compute_dtype="float32",
+                               **over)
+
+
+def _tp_train_batch(cfg, dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, TP_TOKENS,
+                                     generator=g, device=dev,
+                                     dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(
+            (TP_TOKENS[0], cfg.n_frontend_tokens, cfg.d_model), generator=g,
+            device=dev)
+    return batch
+
+
+def _tp_train_rank(rank, world, port, out_dir):
+    import os
+
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import Sharder, path_leaves
+    from repro_torch.distributed.train import init_train_state, jit_train_step
+    from repro_torch.launch.mesh import make_local_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = make_local_mesh(1, world, device_type="cuda")
+        for name in TP_TRAIN_CFGS:
+            cfg = _tp_train_cfg(name)
+            sharder = Sharder(mesh, cfg)
+            sharder.set_batch(TP_TOKENS[0])
+            batch = _tp_train_batch(cfg, dev)
+            for mode in ("native", "olm16"):
+                model = Model(cfg, DotEngine(mode=mode), device=dev)
+                state = init_train_state(model, 0, sharder=sharder)
+                step = jit_train_step(model, sharder, state, list(batch))
+                before = matmul_kernel.launches
+                _, _, grads = step.grads(state, batch)
+                out[f"{name}/{mode}/launches"] = \
+                    matmul_kernel.launches - before
+                out[f"{name}/{mode}/grads"] = {
+                    p: t.cpu() for p, t in path_leaves(grads)}
+        torch.save(out, os.path.join(out_dir, f"train{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_partitioned_train_step_over_two_ranks_on_the_card(cuda, tmp_path):
+    import socket
+
+    import torch.multiprocessing as mp
+    from repro_torch.distributed.sharding import Sharder, path_leaves
+    from repro_torch.distributed.train import (_grads_of, cast_params,
+                                               init_train_state)
+    from repro_torch.launch.mesh import make_abstract_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ones = {}
+    for name in TP_TRAIN_CFGS:
+        cfg = _tp_train_cfg(name)
+        model = Model(cfg, device=cuda)
+        _, _, grads = _grads_of(model, init_train_state(model, 0)["params"],
+                                _tp_train_batch(cfg, cuda),
+                                lambda p: cast_params(p, cfg))
+        ones[name] = {p: t.cpu() for p, t in path_leaves(grads)}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_tp_train_rank, args=(2, port, str(tmp_path)),
+                       nprocs=2, join=True, start_method="spawn")
+    ranks = [torch.load(tmp_path / f"train{r}.pt") for r in range(2)]
+    for name in TP_TRAIN_CFGS:
+        cfg = _tp_train_cfg(name)
+        sharder = Sharder(make_abstract_mesh((1, 2), ("data", "model")), cfg)
+        for r, res in enumerate(ranks):
+            assert res[f"{name}/native/launches"] == 0
+            assert res[f"{name}/olm16/launches"] == TP_TRAIN_GEMMS[name]
+            assert all(float(g.abs().max()) == 0.0
+                       for g in res[f"{name}/olm16/grads"].values())
+            for path, g in res[f"{name}/native/grads"].items():
+                want = ones[name][path]
+                spec = sharder.param_spec(path, tuple(want.shape))
+                for d, entry in enumerate(spec):
+                    if entry == "model":
+                        n = want.shape[d] // 2
+                        want = want.narrow(d, r * n, n)
+                err = float((g - want).abs().max()) / max(
+                    float(ones[name][path].abs().max()), 1e-30)
+                assert err <= TP_TRAIN_TOL, (name, r, path, err)

@@ -1,7 +1,9 @@
 """The port's MoE layer (`repro_torch/models/moe.py`) against the JAX
 reference's on the same weights and inputs: `_capacity`, the per-row
 dispatch plan of `_route_row` (token per slot, slot, token, weight and
-keep flag per sorted assignment, the aux loss), and `moe_apply`, without
+keep flag per sorted assignment, the aux loss), `_route_rows` routing
+every row at once (each row's plan bit for bit the row's alone, and the
+reference's vmapped), and `moe_apply`, without
 capacity drops (the smoke configs' capacity factor of 4), with them (a
 capacity factor of 1 and a router that piles every token onto one
 expert, so the sink slot takes the overflow) and with tied gates (where
@@ -121,6 +123,47 @@ def test_route_row_plan_matches_reference(routed):
         assert bool((got[1][~keep] == E * C).all())
     else:
         assert bool(keep.all())
+
+
+def _rows_against_row(jcfg, cfg, jp, tp, x):
+    """`_route_rows` over every row of x (B, T, d) at once: each row's
+    plan bit for bit `_route_row`'s on the row alone, and the reference's
+    `_route_row` vmapped over the rows (indices and keep flags exactly,
+    weights and aux within 1e-5 relative)."""
+    got = tmoe._route_rows(torch.from_numpy(x), tp["router"], cfg)
+    for b, row in enumerate(x):
+        one = tmoe._route_row(torch.from_numpy(row), tp["router"], cfg)
+        for g, w in zip(got, one):
+            assert torch.equal(g[b], w)
+    want = jax.vmap(lambda r: jmoe._route_row(r, jp["router"], jcfg))(
+        jnp.asarray(x))
+    for name, w, g in zip(("buf_tok", "slot", "st", "sw", "keep", "aux"),
+                          want, got):
+        w, g = np.asarray(w), g.numpy()
+        if name in ("sw", "aux"):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=0)
+        else:
+            np.testing.assert_array_equal(g, w.astype(g.dtype), name)
+    return got
+
+
+def test_batched_routing_gives_each_rows_plan(routed):
+    case, jcfg, cfg, jp, tp, x = routed
+    _rows_against_row(jcfg, cfg, jp, tp, x)
+
+
+def test_batched_routing_on_a_random_batch_and_the_drops_row():
+    jcfg, cfg = cfgs()
+    jp, tp = params(jcfg)
+    _rows_against_row(jcfg, cfg, jp, tp, rand((8, 24, cfg.d_model), 6))
+    # the partitioned serve test's drops row: 2 experts, both of them a
+    # token, capacity 8 of each expert's 12 assignments
+    from torch_rank_cases import MOE_DROPS, MOE_DROPS_TOKENS
+    jcfg, cfg = cfgs(**MOE_DROPS[1])
+    jp, tp = params(jcfg)
+    got = _rows_against_row(jcfg, cfg, jp, tp,
+                            rand((1, MOE_DROPS_TOKENS, cfg.d_model), 7))
+    assert int((~got[4]).sum()) == 8            # 4 dropped an expert
 
 
 def test_tied_gates_take_the_lower_expert_first():

@@ -349,25 +349,27 @@ def moe_drops_tokens():
 
 class RoutedPlans:
     """The dispatch plan (token per slot, each assignment's slot, its keep
-    flag) of every `models/moe._route_row` call made inside the block, in
-    call order, on the CPU (tests/test_torch_gpu.py's ranks too)."""
+    flag) of every batch row that a `models/moe._route_rows` call made
+    inside the block routes, in call and row order, on the CPU
+    (tests/test_torch_gpu.py's ranks too)."""
 
     def __enter__(self):
         from repro_torch.models import moe
-        self.real, self.plans = moe._route_row, []
+        self.real, self.plans = moe._route_rows, []
 
         def recorded(*a, **kw):
             plan = self.real(*a, **kw)
-            self.plans.append(torch.cat([plan[0], plan[1],
-                                         plan[4].to(plan[0].dtype)]).cpu())
+            rows = torch.cat([plan[0], plan[1], plan[4].to(plan[0].dtype)],
+                             dim=1).cpu()
+            self.plans.extend(rows)
             return plan
 
-        moe._route_row = recorded
+        moe._route_rows = recorded
         return self.plans
 
     def __exit__(self, *exc):
         from repro_torch.models import moe
-        moe._route_row = self.real
+        moe._route_rows = self.real
 
 
 def tp_inputs():
@@ -540,4 +542,190 @@ def tp_rank(rank, world, port, out_dir):
         out["olm/logits"] = logits
     finally:
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+
+
+# ------------------------------------------------------ partitioned train
+# tests/test_torch_tp_train.py: the partitioned train step
+# (`distributed/train.py::jit_train_step`) on the same gloo group of 4
+# ranks on (data 2, model 2), TP_TRAIN_STEPS steps of TP_TRAIN_BATCH x
+# TP_TRAIN_SEQ a run, on the reference's params. The runs reuse TP_CASES'
+# configs by name; "heads" also with 2 microbatches and with compressed
+# gradients, "hybrid" (the RG-LRU's gather under checkpoint) also under
+# remat "block".
+TP_TRAIN_CASES = ("heads", "uneven", "fsdp_length_tied", "moe_ep",
+                  "moe_tp_ring", "hybrid", "ssm", "vlm", "encdec")
+# run -> (its TP_CASES config, jit_train_step's keywords, config overrides)
+TP_TRAIN_RUNS = {
+    **{name: (name, {}, {}) for name in TP_TRAIN_CASES},
+    "heads_mb2": ("heads", {"microbatches": 2}, {}),
+    "heads_compress": ("heads", {"compress_grads": True}, {}),
+    "hybrid_remat": ("hybrid", {}, {"remat": "block"}),
+}
+TP_TRAIN_BATCH, TP_TRAIN_SEQ, TP_TRAIN_STEPS = 4, 8, 2
+# ids a data rank of `Partition.lookup`'s two routes: 2 x 4 rows gathered,
+# 2 x 200 (the two data ranks' 800 ids past the table's 256 rows a model
+# rank) the table gathered
+LOOKUP_IDS = (4, 200)
+
+
+def tp_train_config(run, smoke=None):
+    """The run's config (`tp_config` of its case, its overrides)."""
+    import dataclasses
+    case, _, over = TP_TRAIN_RUNS[run]
+    return dataclasses.replace(tp_config(case, smoke), **over)
+
+
+def tp_train_batches(cfg):
+    """TP_TRAIN_STEPS whole batches of numpy arrays: tokens (B, S) and, for
+    a cross-attention config, its frontend embeddings (B, M, d_model)."""
+    from repro_torch.distributed.train import MEMORY_KEYS
+    rng = np.random.default_rng(28)
+    out = []
+    for _ in range(TP_TRAIN_STEPS):
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (
+            TP_TRAIN_BATCH, TP_TRAIN_SEQ)).astype(np.int32)}
+        key = MEMORY_KEYS.get(cfg.family)
+        if key is not None:
+            b[key] = rng.standard_normal((TP_TRAIN_BATCH,
+                                          cfg.n_frontend_tokens,
+                                          cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+class LargestMade:
+    """The bytes of the largest tensor any op makes inside the block (a
+    TorchDispatchMode over the op's outputs)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        box = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for t in (out if isinstance(out, (list, tuple)) else [out]):
+                    if isinstance(t, torch.Tensor):
+                        box.bytes = max(box.bytes,
+                                        t.numel() * t.element_size())
+                return out
+
+        self.bytes = 0
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def _lookup_routes(sharder, mesh):
+    """`Partition.lookup` under fsdp_tp by both of its routes, the looked-up
+    rows gathered over `data` (LOOKUP_IDS[0] ids a data rank, fewer than
+    the table's rows) and the table gathered (LOOKUP_IDS[1]): each
+    rank's rows and its block's gradient of sum(rows * weights) against
+    the whole table's, every data rank's ids and weights drawn from
+    seeds."""
+    from repro_torch.distributed.collectives import (axis_coordinate,
+                                                     shard_dims)
+    from repro_torch.distributed.partition import Partition
+    part = Partition(sharder)
+    c, n = axis_coordinate(mesh, "data")
+    V, d = sharder.cfg.vocab_padded // part.size, sharder.cfg.d_model
+    whole = torch.from_numpy(np.random.default_rng(29).standard_normal(
+        (V, d)).astype(np.float32))
+    out = {}
+    for k in LOOKUP_IDS:
+        def drawn(r):
+            rng = np.random.default_rng(30 + 100 * k + r)
+            return (torch.from_numpy(rng.integers(0, V, (2, k))),
+                    torch.from_numpy(rng.standard_normal((2, k, d)).astype(
+                        np.float32)))
+        ids, w = drawn(c)
+        block = shard_dims(whole, (None, "data"), mesh).clone()
+        block.requires_grad_(True)
+        rows = part.lookup(block, ids)
+        (grad,) = torch.autograd.grad((rows * w).sum(), block)
+        want = torch.zeros_like(whole)
+        for r in range(n):
+            ids_r, w_r = drawn(r)
+            want.index_put_((ids_r.reshape(-1),), w_r.reshape(-1, d),
+                            accumulate=True)
+        out[f"lookup/{k}"] = torch.tensor(
+            torch.equal(rows, whole[ids]) and torch.allclose(
+                grad, shard_dims(want, (None, "data"), mesh), rtol=0,
+                atol=1e-6))
+    return out
+
+
+def tp_train_rank(rank, world, port, out_dir):
+    """One rank: every TP_TRAIN_RUNS run's partitioned steps on the
+    reference's params (train_given.pt, numpy), its gradient blocks after
+    the first step's sums, the metrics and params after each step, its
+    block shapes, argument bytes and the largest tensor a step makes, and
+    the sharded init against the whole init's blocks; to
+    train_rank<r>.pt."""
+    import torch.distributed as dist
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed.collectives import shard_dims
+    from repro_torch.distributed.sharding import Sharder, path_leaves
+    from repro_torch.distributed.train import (_local, distribute_state,
+                                               init_train_state,
+                                               jit_train_step)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = make_local_mesh(*TP_MESH, device_type="cpu")
+        given = torch.load(os.path.join(out_dir, "train_given.pt"),
+                           weights_only=False)
+        for run, (case, kw, _) in TP_TRAIN_RUNS.items():
+            cfg = tp_train_config(run)
+            sharder = Sharder(mesh, cfg)
+            sharder.set_batch(TP_TRAIN_BATCH)
+            model = Model(cfg, device="cpu")
+            whole = params_from_jax(given[case], cfg, device="cpu")
+            state = distribute_state(sharder, {
+                "params": whole, "opt": adamw_init(whole), "ef": None})
+            del whole
+            batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+                       for b in tp_train_batches(cfg)]
+            specs = sharder.batch_specs(list(batches[0]))
+            rows = [{k: shard_dims(v, specs[k], mesh) for k, v in b.items()}
+                    for b in batches]
+            step = jit_train_step(model, sharder, state, list(specs), **kw)
+            local = tree_map(_local, state)
+            out[f"{run}/shapes"] = {p: tuple(t.shape)
+                                    for p, t in path_leaves(local["params"])}
+            out[f"{run}/args"] = _nbytes(local) + _nbytes(rows[0])
+            _, _, grads = step.grads(state, rows[0])
+            out[f"{run}/grads"] = dict(path_leaves(grads))
+            seen, largest = [], 0
+            for b in rows:
+                with LargestMade() as big:
+                    state, met = step(state, b)
+                largest = max(largest, big.bytes)
+                seen.append(torch.stack([met["loss"], met["grad_norm"]]))
+            out[f"{run}/metrics"] = torch.stack(seen)
+            out[f"{run}/largest"] = largest
+            out[f"{run}/params"] = dict(path_leaves(
+                tree_map(_local, state["params"])))
+            if run == "fsdp_length_tied":
+                out.update(_lookup_routes(sharder, mesh))
+            if run == case:
+                mine = init_train_state(model, seed=3, sharder=sharder)
+                want = distribute_state(sharder, init_train_state(model, 3))
+                out[f"{run}/init"] = torch.tensor(all(
+                    a.dtype == b.dtype and torch.equal(_local(a), _local(b))
+                    and a.placements == b.placements
+                    for a, b in zip(tree_leaves(mine), tree_leaves(want))))
+    finally:
+        torch.save(out, os.path.join(out_dir, f"train_rank{rank}.pt"))
         dist.destroy_process_group()
