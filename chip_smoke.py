@@ -56,8 +56,9 @@ Phases, each printing its own lines:
                RecurrentGemma-9B (M of 4 and 7), Mamba2-130M,
                Mixtral-8x22B and Qwen3-MoE-235B-A22B (M of 4; outputs
                wider than 32768 on their first and last 2048 columns,
-               M = 64 on those columns only); K3 and K4 against the
-               paper's scalar model
+               M = 64 on those columns only; the plain versions of all
+               these K1 shapes computed while the kernels build); K3
+               and K4 against the paper's scalar model
                (core/inner_product.online_dot, core/online_mul.
                online_multiply) row by row; plus the smoke-size model
                under olm16 and under tpmm16 on the card against the same
@@ -77,8 +78,8 @@ Phases, each printing its own lines:
                forward passes issued. Each is run a second time with the
                kernel's launches (and, under tpmm16, the plane
                decompositions) between CUDA events, for their share of the
-               wall, and a third time under torch.profiler, for the
-               device's busy share;
+               wall, and under torch.profiler (the device's activity
+               alone), for the device's busy share;
   6. paths   - the other two paths a user calls: olm_matmul(quantize="host")
                over one decoder layer's GEMMs at decode (K2), and the
                digit-level API online_mul / online_dot (K4, K3), each with
@@ -105,12 +106,12 @@ Phases, each printing its own lines:
                layers) and Qwen1.5-110B (1 layer) at full published width:
                a 64-row prefill and two 4-lane decode steps under olm16,
                K1 launches == GEMMs;
-  9. families - the recurrent and MoE families: RecurrentGemma-9B (26
-               RG-LRU layers, 12 windowed MQA layers) at its full
-               published width and depth served like phase 5 under olm16
-               but not profiled (launches == passes x 241, every prefill
-               at its request's exact length, the same tokens twice,
-               kv_report printed);
+  9. families - the recurrent and MoE families: RecurrentGemma-9B at its
+               full published width, its depth cut to 14 of 38 layers
+               (4 (rec, rec, attn) groups and the (rec, rec) remainder),
+               served like phase 5 under olm16 but not profiled
+               (launches == passes x 89, every prefill at its request's
+               exact length, the same tokens twice, kv_report printed);
                a native prefill of 2100 tokens into a 2304-token cache,
                past the 2048-token window, so every attention ring rolls,
                and 4 decode steps, each within 3e-2 of the largest |logit|
@@ -132,9 +133,10 @@ Phases, each printing its own lines:
                cache (the serve phase's olm16 tokens, launches == passes
                x 169, tuner misses 0 and hits == GEMMs), and the committed
                results/tuning_torch.json against this run's winners;
- 11. crossattn - Llama-3.2-Vision-11B (40 layers, 8 cross-attention) and
-               SeamlessM4T-medium (12 encoder + 12 xdec layers) at full
-               published width and depth under olm16, frontend embeddings
+ 11. crossattn - Llama-3.2-Vision-11B (its depth cut to 10 of 40 layers,
+               2 of them cross-attention) and SeamlessM4T-medium (cut to 6
+               of 12 encoder and 6 of 12 xdec layers) at full published
+               width under olm16, frontend embeddings
                N(0, 1) from the seed: a 2 x 12 prefill and 3 decode steps
                with its memory, and forward over 12 and 15 tokens (the
                prefill bit-identical to forward's last position, each
@@ -158,16 +160,18 @@ Phases, each printing its own lines:
                zero, every param bit-equal to
                the decay-only update, the kernel's share of the wall);
                then the train CLI on Mamba2-130M at full width (batch 8,
-               seq 256): 20 steps with checkpoints every 10 (the loss
-               improves), a resume to 30 (at step 20, the restored state
-               bit-equal to the saved one, the stream's batch 20) and a
-               straight 30-step run (steps 20-29 within 1e-3 of the
-               resumed run's losses).
+               seq 256): 30 steps with checkpoints every 10 (the loss
+               improves), then, its step-30 checkpoint removed, a resume
+               to 30 (at step 20, the restored state bit-equal to the
+               saved one, the stream's batch 20, steps 20-29 within 1e-3
+               of the straight run's losses).
  13. shard   - the sharded path over two ranks that share the one card
-               (NCCL refuses two ranks on one device): two spawned
-               processes, both on cuda:0, in a gloo group on 127.0.0.1,
-               on ("data", "model") meshes; the single-device results
-               they are held against come from this process first.
+               (NCCL refuses two ranks on one device): two processes,
+               both on cuda:0, in one gloo group on 127.0.0.1, spawned
+               once for this phase and the next (each runs this phase's
+               parts, then the tp phase's), on ("data", "model") meshes;
+               the single-device results they are held against come
+               from this process while they start.
                (a) olm_matmul_sharded at InternLM2-1.8B's wq, wg, wd and
                head at M = 64 under olm16, and wq under olm32t16, each
                partitioned m, n and k over the (1, 2) mesh: m and n
@@ -198,15 +202,15 @@ Phases, each printing its own lines:
                GEMMs, layer 0's wq columns bit-equal to one device's K1,
                every gradient zero, the params the decay-only update's);
                (d3) Llama-3.2-Vision-11B's first pattern group at full
-               width under fsdp_tp on (2, 1), patches from the seed, 3
-               steps within SHARD_DATA_LIMITS of one device's; (d4) one
-               native step of (d2)'s cut against its walk on a fake
-               2-rank world (FLOPs equal, peak within 5%);
+               width under fsdp_tp on (2, 1), remat "none", patches from
+               the seed, 2 steps within SHARD_DATA_LIMITS of one device's;
+               (d4) one native step of (d2)'s cut against its walk on a
+               fake 2-rank world (FLOPs equal, peak within 5%);
   13b. tp    - the partitioned serve steps (jit_prefill_step /
                jit_decode_step: each rank holds its blocks of the bf16
                serve params at the Sharder's specs, drawn leaf by leaf by
-               init_serve_params, and its block of the KV cache) on two
-               ranks that share the card in a gloo group, a (1, 2) mesh,
+               init_serve_params, and its block of the KV cache) on the
+               shard phase's two ranks, a (1, 2) mesh,
                SERVE's prompts right-padded, 6 new tokens greedy:
                (a) InternLM2-1.8B as published under olm16 (K1 launches
                per rank == GEMMs issued; layer 0's wq input equal to one
@@ -231,8 +235,8 @@ Phases, each printing its own lines:
                equal to the specs' bytes, the init's peak at most the
                blocks and one whole f32 leaf, K1 launches == GEMMs, layer
                0's wq and the head's columns bit-equal to one device's
-               K1, logits within 3e-2 of one device's (a process of its
-               own after the ranks), every rank's dispatch plans
+               K1, logits within 3e-2 of one device's (in rank 0's
+               process after the ranks' parts), every rank's dispatch plans
                identical; (f) Mixtral at full width, 2 layers, one KV
                head and a window of 16, so the ring splits over its
                length, 20-token prompts that wrap it, native, within
@@ -287,13 +291,17 @@ Phases, each printing its own lines:
                within 5% of torch.cuda.max_memory_allocated(), its
                roofline bound at most 1.05 x the card's synchronized wall;
                (b) production cells over a fake world of 256 or 512
-               ranks, in subprocesses (InternLM2-1.8B train_4k on 16 x 16
-               and 2 x 16 x 16, Mixtral-8x22B decode_32k, Mamba2-130M
-               long_500k), each record's line printed. No kernel runs:
-               the dry run runs the native GEMMs.
+               ranks, in subprocesses on the host's CPU started with the
+               check phase (InternLM2-1.8B train_4k on 16 x 16 and 2 x 16
+               x 16, Mixtral-8x22B decode_32k, Mamba2-130M long_500k),
+               each record's line printed. No kernel runs: the dry run
+               runs the native GEMMs.
 
-Each phase's wall is printed on a line of its own ("[wall] phase ..."),
-and their sum after the last.
+Each phase's wall is printed on a line of its own ("[wall] phase
+<phase>: <s> s"), and each of its parts' before it ("[wall] part <phase>
+<part>: <s> s"; a rank's parts as "[wall] part <phase> rank <r> <part>: <s>
+s", each rank's own walls, sent back with its results); after the last
+phase their sum, and the sum as a share of SMOKE_BUDGET_S.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 and prints no result; so does a machine without a CUDA card, and a
@@ -311,6 +319,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -319,6 +328,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+# The seconds a run of the script may spend in its phases, the build
+# included: their sum is printed against it after the last phase, as a
+# share.
+SMOKE_BUDGET_S = 1000
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 INT8_OPS_PER_S = 1.979e15          # H100 SXM int8 tensor cores, dense
@@ -435,7 +449,8 @@ EXAMPLES = (("quickstart_torch", []), ("online_numerics_matmul_torch", []),
 # roofline bound be at most DRYRUN_BOUND_SLACK x the card's wall. (b) The
 # dry run's production cells, each command in a subprocess of its own (the
 # smoke process never holds a fake default group), all at once on the
-# host's CPU while (a) holds the card.
+# host's CPU from the check phase on, while the card runs the earlier
+# phases.
 DRYRUN_CARD = (("train", 4, 128), ("prefill", 4, 128), ("decode", 4, 128))
 DRYRUN_PEAK_TOL, DRYRUN_BOUND_SLACK = 0.05, 1.05
 DRYRUN_CELLS = (("internlm2_1_8b", "train_4k", "--both-meshes"),
@@ -506,6 +521,11 @@ SERVE_LAYERS = None                # None = the full published depth
 # Mixtral-8x22B and Qwen3-MoE-235B-A22B at full width with their depth cut
 # (f32 weights of 562.5 and 927.0 GB at full depth).
 RING_PROMPT, RING_MAX_LEN, RING_DECODES = 2100, 2304, 4
+# RecurrentGemma-9B's depth here: 4 of its 12 (rec, rec, attn) groups and
+# the (rec, rec) remainder of its 38 layers (depth cut: every layer kind,
+# the remainder, 4 windowed rings that roll; the tp phase's (h) runs all
+# 38 layers)
+FAMILY_RG_LAYERS = 14
 MAMBA_PROMPT = 31
 MOE_DEPTH = (("mixtral_8x22b", 2), ("qwen3_moe_235b_a22b", 2))
 # The crossattn phase: Llama-3.2-Vision-11B and SeamlessM4T-medium at full
@@ -515,6 +535,12 @@ MOE_DEPTH = (("mixtral_8x22b", 2), ("qwen3_moe_235b_a22b", 2))
 # forward over the prompt and over all CROSS_PROMPT + CROSS_DECODES tokens.
 CROSS_ARCHS = ("llama_3_2_vision_11b", "seamless_m4t_medium")
 CROSS_LANES, CROSS_PROMPT, CROSS_DECODES = 2, 12, 3
+# their depth here (depth cut: Llama-3.2-Vision's first 2 of 8 (4 attn,
+# cross) groups, Seamless's first 6 of 12 encoder and of 12 xdec layers;
+# every layer kind, the memory's cross K/V at full width; the tp phase's
+# (m) and (o) run them as published)
+CROSS_DEPTH = {"llama_3_2_vision_11b": dict(n_layers=10),
+               "seamless_m4t_medium": dict(n_layers=6, n_enc_layers=6)}
 # The train phase: InternLM2-1.8B at full width and depth, f32 masters,
 # bf16 compute, remat="block", overfitting one synthetic batch with the
 # reference test's optimizer settings (tests/test_distributed_train.py:
@@ -570,7 +596,8 @@ SHARD_DATA_LIMITS = {"loss": 2.5e-4, "grad_norm": 1e-3, "update": 5e-2}
 # 70%); (d2) (c)'s cut, one olm16 step at TRAIN["kernel_batch"] on (1, 2);
 # (d3) SHARD_VLM (Llama-3.2-Vision-11B's first pattern group, 4 attn + 1
 # cross) at full width under fsdp_tp on (2, 1), patches (4, 1024, 4096)
-# from the seed, held to one device's steps in this process;
+# from the seed, SHARD_VLM["steps"] steps held to one device's in this
+# process;
 # (d4) one native step of (d2)'s cut at TRAIN["batch"] walked on meta over
 # a fake world of two ranks against each rank's step on the card (FLOPs
 # equal, peak within SHARD_WALK_TOL).
@@ -588,7 +615,15 @@ SHARD_TP_PEAK = 0.6
 # `data` reduce-scatter sliced moves grad_norm by 0.29-0.42
 # (probes/tp_train_faults.py).
 SHARD_TP_LIMITS = {**SHARD_DATA_LIMITS, "grad_norm": 5e-3}
-SHARD_VLM = dict(arch="llama_3_2_vision_11b", n_layers=5)
+# (d3)'s steps move every weight through gloo, which stages each
+# collective through the host (~1 GB/s): a step's bf16 gathers over `data`
+# and its f32 reduce-scatters, about 12 GB with remat "block", which
+# gathers each layer's weights again in the backward. Remat "none" gathers
+# them once (its peak a rank is remat "block"'s on the H100, 28.2 GB: it
+# sits in AdamW); 2 steps hold an update's effect on the second step's
+# loss and grad_norm and on the update's norm.
+SHARD_VLM = dict(arch="llama_3_2_vision_11b", n_layers=5, remat="none",
+                 steps=2)
 SHARD_WALK_TOL = 0.05
 # The tp phase: the partitioned serve steps (distributed/train.py's
 # jit_prefill_step / jit_decode_step) on TP_RANKS ranks that share the card
@@ -640,31 +675,66 @@ TP_RING_LEN = 20
 TP_ALLOC = "expandable_segments:True"
 
 
-def tp_one(_, tmp: str) -> None:
-    """(b)'s single device, in a process of its own: TP["big"] whole in
-    bf16 (the sharded init at one rank: 68.8 GB of the card), served like
+class Laps:
+    """The walls of a process's parts, in order: each call closes the
+    running part and opens `name` (none where it is None). `rows` holds
+    (part, seconds); `say(part, seconds)`, where given, prints each part
+    as it closes."""
+
+    def __init__(self, say=None):
+        self.rows, self.say, self._open = [], say, None
+
+    def __call__(self, name=None) -> None:
+        now = time.monotonic()
+        if self._open is not None:
+            done, t0 = self._open
+            self.rows.append((done, now - t0))
+            if self.say is not None:
+                self.say(done, now - t0)
+        self._open = None if name is None else (name, now)
+
+
+def free_card() -> None:
+    """Give back every block of the card that nothing holds any more."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def print_laps(phase: str, who: str, rows) -> None:
+    """A child process's part walls as the parent's [wall] part lines."""
+    for name, s in rows:
+        print(f"[wall] part {phase} {who} {name}: {s:.1f} s", flush=True)
+
+
+def tp_one(tmp: str, laps) -> None:
+    """(b)'s single device, in rank 0's process before the ranks' parts
+    (segments that grow in place: the smoke's own process, after its
+    phases, holds segments that no longer leave the weights in one piece):
+    TP["big"] whole in bf16 (the sharded init at one rank), served like
     the ranks; its first logits, tokens, init wall and peak to
-    tmp/one.pt. A fresh process: the smoke's own, after its phases, holds
-    segments that no longer leave 68.8 GB in one piece."""
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = TP_ALLOC
+    tmp/one.pt."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.distributed.train import init_serve_params
     from repro_torch.models.model import Model
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
     big = get_config(TP["big"])
+    laps("(b) one device, draw")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     params = init_serve_params(Model(big, device=dev), None, TP["seed"])
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
+    laps("(b) one device, serve")
     first, tokens, passes, wall = tp_whole_serve(
         big, params, "native", tp_prompts(big.vocab_size), dev)
     torch.save(dict(first=first.cpu(), tokens=tokens, passes=passes,
                     wall=wall, init_s=init_s,
                     peak=torch.cuda.max_memory_allocated()),
                os.path.join(tmp, "one.pt"))
+    del params, first
+    free_card()
 
 
 def gemms_per_pass(cfg, encoder: bool = False) -> int:
@@ -846,29 +916,28 @@ def route_plans():
         moe._route_rows = real
 
 
-def tp_moe_one(_, tmp: str) -> None:
-    """(e)'s and (f)'s single device, in a process of its own after the
-    ranks: each MoE cut whole in bf16 (the sharded init at one rank),
-    served like the ranks under olm16, layer 0's wq held against each
-    rank's columns and K1 on the whole head table's columns at each
+def tp_moe_one(tmp: str, laps) -> None:
+    """(e)'s and (f)'s single device, in rank 0's process after the
+    ranks' parts: each MoE cut whole in bf16 (the sharded init at one
+    rank), served like the ranks under olm16, layer 0's wq held against
+    each rank's columns and K1 on the whole head table's columns at each
     rank's head input against the rank's local logits, bit for bit, and
     TP_F10's cut served once more for (l); then (f)'s ring cut native.
     Its results to tmp/moe_one.pt."""
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = TP_ALLOC
     import torch
     from repro_torch.configs import get_config
     from repro_torch.distributed.train import init_serve_params
     from repro_torch.kernels.online_dot.matmul import olm_matmul
     from repro_torch.models.model import Model
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
     ranks = [torch.load(os.path.join(tmp, f"tp{r}.pt"))["moe"]
              for r in range(TP_RANKS)]
     out = {}
     for arch, depth in MOE_DEPTH:
+        laps(f"(e) {arch} one device, draw")
         cfg = dataclasses.replace(get_config(arch), n_layers=depth)
         params = init_serve_params(Model(cfg, device=dev), None, TP["seed"])
+        laps(f"(e) {arch} one device, serve")
         runs = [[]]
         with olm_calls({0}) as seen:
             first, tokens, passes, wall = tp_whole_serve(
@@ -877,6 +946,7 @@ def tp_moe_one(_, tmp: str) -> None:
         f10 = None
         if arch == TP_F10:
             # (l) the same serve again: the same bits, pass for pass
+            laps(f"(l) {arch} one device, serve again")
             runs.append([])
             _, again, _, wall2 = tp_whole_serve(
                 cfg, params, "olm16", tp_prompts(cfg.vocab_size), dev,
@@ -884,6 +954,7 @@ def tp_moe_one(_, tmp: str) -> None:
             f10 = dict(bits=same_bits(*runs), tokens=again == tokens,
                        passes=len(runs[0]), walls=(wall, wall2))
         del runs
+        laps(f"(e) {arch} one device, columns")
         x0, out0 = seen[0]
         table = params["unembed"]["table"]
         n_wq, n_head = out0.shape[1] // TP_RANKS, table.shape[0] // TP_RANKS
@@ -900,29 +971,24 @@ def tp_moe_one(_, tmp: str) -> None:
                          wall=wall, bits=bits, n_wq=n_wq, n_head=n_head,
                          f10=f10)
         del params, table, seen, x0, out0
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_card()
+    laps("(f) one device")
     ring = dataclasses.replace(get_config("mixtral_8x22b"), **TP_RING)
     params = init_serve_params(Model(ring, device=dev), None, TP["seed"])
     first, tokens, passes, wall = tp_whole_serve(
         ring, params, "native", tp_ring_prompts(ring.vocab_size), dev)
     out["ring"] = dict(first=first.cpu(), tokens=tokens, passes=passes,
-                       wall=wall,
-                       peak=torch.cuda.max_memory_allocated())
+                       wall=wall)
     torch.save(out, os.path.join(tmp, "moe_one.pt"))
+    del params, first
+    free_card()
 
 
-def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
-    """One rank of the tp phase (a process of its own, on cuda:0, in a gloo
-    group of `world` ranks on 127.0.0.1): (a)-(p) on its blocks, its
+def tp_rank(rank: int, world: int, tmp: str, laps) -> None:
+    """The tp phase's (a)-(p) on this rank's blocks (`ranks_main`), its
     results in tmp/tp<r>.pt for the parent to hold against one device;
     raises on a launch count or a byte count that is off."""
-    # Yi-34B's blocks fill most of the card that two ranks share: segments
-    # that grow in place keep the init's freed f32 leaves from fragmenting
-    # what the serve needs (read at the process's first allocation)
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = TP_ALLOC
     import torch
-    import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.core.numerics import DotEngine
     from repro_torch.distributed.collectives import (all_gather_dim,
@@ -940,448 +1006,460 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
     from repro_torch.launch.shapes import ShapeCase
     from repro_torch.models.model import Model
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=world)
     res = {}
 
     def say(msg):
         print(f"[tp r{rank}] {msg}", flush=True)
 
-    try:
-        mesh = make_local_mesh(1, world, device_type="cuda")
+    mesh = make_local_mesh(1, world, device_type="cuda")
 
-        def whole(t):
-            return all_gather_dim(t, 1, mesh, "model")
+    def whole(t):
+        return all_gather_dim(t, 1, mesh, "model")
 
-        def mine(sharder):
-            """This rank's rows of a batch-major tensor under the
-            sharder's batch spec."""
-            return lambda t: shard_dims(t, sharder.batch_spec(), mesh)
+    def mine(sharder):
+        """This rank's rows of a batch-major tensor under the
+        sharder's batch spec."""
+        return lambda t: shard_dims(t, sharder.batch_spec(), mesh)
 
-        def blocks(cfg):
-            """(the sharder, this rank's serve blocks, their bytes, the
-            init's wall): the resident bytes equal to the specs' count."""
-            sharder = Sharder(mesh, cfg)
-            sharder.set_batch(SERVE["requests"])
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            params = init_serve_params(Model(cfg, device=dev), sharder,
-                                       TP["seed"])
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-            held = sum(t.untyped_storage().nbytes()
-                       for _, t in path_leaves(params))
-            want = serve_block_bytes(cfg, sharder)
-            if held != want:
-                raise RuntimeError(f"{cfg.name}: {held} bytes of blocks "
-                                   f"resident, the specs give {want}")
-            return sharder, params, held, wall
+    def blocks(cfg):
+        """(the sharder, this rank's serve blocks, their bytes, the
+        init's wall): the resident bytes equal to the specs' count."""
+        sharder = Sharder(mesh, cfg)
+        sharder.set_batch(SERVE["requests"])
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params = init_serve_params(Model(cfg, device=dev), sharder,
+                                   TP["seed"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        held = sum(t.untyped_storage().nbytes()
+                   for _, t in path_leaves(params))
+        want = serve_block_bytes(cfg, sharder)
+        if held != want:
+            raise RuntimeError(f"{cfg.name}: {held} bytes of blocks "
+                               f"resident, the specs give {want}")
+        return sharder, params, held, wall
 
-        def serve(cfg, sharder, params, mode, prompts, every=None):
-            """Greedy serve of `prompts` (tp_greedy) through the
-            partitioned steps: (the prefill's logits, tokens, passes,
-            wall). Where the Sharder replicates the weights the rank
-            serves its rows of the batch, every column of them."""
-            model = Model(cfg, DotEngine(mode=mode), device=dev)
-            cache = init_serve_cache(model, sharder, len(prompts),
-                                     TP["max_len"])
-            front = tp_front(cfg, dev)
-            prefill = jit_prefill_step(
-                model, sharder, params,
-                ["tokens"] + ([] if front is None else [front[0]]), cache)
-            decode = jit_decode_step(model, sharder, params, cache,
-                                     has_memory=front is not None)
-            if sharder.replicated:
-                rows, cols = mine(sharder), (lambda t: t)
-            else:
-                rows, cols = None, whole
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            first, tokens, passes = tp_greedy(prefill, decode, params, cache,
-                                              prompts, dev, cols, rows,
-                                              every, front)
-            torch.cuda.synchronize()
-            return first.cpu(), tokens, passes, time.monotonic() - t0
+    def serve(cfg, sharder, params, mode, prompts, every=None):
+        """Greedy serve of `prompts` (tp_greedy) through the
+        partitioned steps: (the prefill's logits, tokens, passes,
+        wall). Where the Sharder replicates the weights the rank
+        serves its rows of the batch, every column of them."""
+        model = Model(cfg, DotEngine(mode=mode), device=dev)
+        cache = init_serve_cache(model, sharder, len(prompts),
+                                 TP["max_len"])
+        front = tp_front(cfg, dev)
+        prefill = jit_prefill_step(
+            model, sharder, params,
+            ["tokens"] + ([] if front is None else [front[0]]), cache)
+        decode = jit_decode_step(model, sharder, params, cache,
+                                 has_memory=front is not None)
+        if sharder.replicated:
+            rows, cols = mine(sharder), (lambda t: t)
+        else:
+            rows, cols = None, whole
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        first, tokens, passes = tp_greedy(prefill, decode, params, cache,
+                                          prompts, dev, cols, rows,
+                                          every, front)
+        torch.cuda.synchronize()
+        return first.cpu(), tokens, passes, time.monotonic() - t0
 
-        # (a) the serve arch as published, olm16 and native -------------
-        cfg = get_config(TP["arch"])
-        prompts = tp_prompts(cfg.vocab_size)
+    # (a) the serve arch as published, olm16 and native -------------
+    laps("(a) draw")
+    cfg = get_config(TP["arch"])
+    prompts = tp_prompts(cfg.vocab_size)
+    sharder, params, held, init_s = blocks(cfg)
+    say(f"(a) {cfg.name} on {mesh_shape(mesh)}: {held} bytes of serve "
+        f"blocks resident (the specs' count), drawn in {init_s:.1f} s")
+    per_pass = gemms_per_pass(cfg)
+    laps("(a) olm16 serve")
+    with olm_calls({0, per_pass - 1}) as seen:
+        k12.launches = 0
+        first, tokens, passes, wall = serve(cfg, sharder, params,
+                                            "olm16", prompts)
+        launched = k12.launches
+    res["olm16"] = dict(first=first, tokens=tokens, wall=wall,
+                        wq=seen[0], head=seen[per_pass - 1],
+                        launches=launched, gemms=passes * per_pass)
+    say(f"(a) olm16: {passes} forward passes in {wall:.3f} s (ends in "
+        f"torch.cuda.synchronize), GEMMs issued {passes * per_pass}, "
+        f"K1 launches {launched}")
+    if launched != passes * per_pass:
+        raise RuntimeError(f"(a) K1 launched {launched} times for "
+                           f"{passes * per_pass} GEMMs")
+    laps("(a) native serve")
+    first, tokens, passes, wall = serve(cfg, sharder, params, "native",
+                                        prompts)
+    res["native"] = dict(first=first, tokens=tokens, wall=wall)
+    say(f"(a) native bf16: {passes} forward passes in {wall:.3f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) one decode step against its walk -------------------------
+    laps("(c)")
+    kind, B, T = TP_DECODE
+    sharder.set_batch(B)
+    res["card"] = dryrun.card_step(cfg, ShapeCase("tp_decode", T, B,
+                                                  kind), sharder)
+    say(f"(c) one partitioned decode ({B} lanes, {T} slots): FLOPs "
+        f"{res['card']['flops']}, peak {res['card']['peak']} B, walls "
+        f"{[round(w * 1e3, 3) for w in res['card']['walls_s']]} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the cache over its length, uneven heads -------------------
+    laps("(d)")
+    cut = dataclasses.replace(cfg, **TP_CUT)
+    sharder, params, held, _ = blocks(cut)
+    first, tokens, passes, wall = serve(cut, sharder, params, "native",
+                                        prompts)
+    res["cut"] = dict(first=first, tokens=tokens, wall=wall)
+    say(f"(d) {cut.n_heads} heads / {cut.n_kv_heads} KV head at "
+        f"{cut.n_layers} layers: {passes} passes in {wall:.3f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def peaked_blocks(cfg, tag):
+        """blocks(cfg) with the init's peak: (the sharder, the
+        blocks, their bytes, the init's wall, its peak, the largest
+        whole leaf in f32). The peak is this rank's blocks and one
+        whole f32 leaf being drawn, no more."""
+        biggest = max(t.numel() * 4 for _, t in path_leaves(
+            Model(cfg, device="meta").init(0)))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         sharder, params, held, init_s = blocks(cfg)
-        say(f"(a) {cfg.name} on {mesh_shape(mesh)}: {held} bytes of serve "
-            f"blocks resident (the specs' count), drawn in {init_s:.1f} s")
-        per_pass = gemms_per_pass(cfg)
-        with olm_calls({0, per_pass - 1}) as seen:
-            k12.launches = 0
-            first, tokens, passes, wall = serve(cfg, sharder, params,
-                                                "olm16", prompts)
-            launched = k12.launches
-        res["olm16"] = dict(first=first, tokens=tokens, wall=wall,
-                            wq=seen[0], head=seen[per_pass - 1],
-                            launches=launched, gemms=passes * per_pass)
-        say(f"(a) olm16: {passes} forward passes in {wall:.3f} s (ends in "
-            f"torch.cuda.synchronize), GEMMs issued {passes * per_pass}, "
-            f"K1 launches {launched}")
-        if launched != passes * per_pass:
-            raise RuntimeError(f"(a) K1 launched {launched} times for "
-                               f"{passes * per_pass} GEMMs")
-        first, tokens, passes, wall = serve(cfg, sharder, params, "native",
-                                            prompts)
-        res["native"] = dict(first=first, tokens=tokens, wall=wall)
-        say(f"(a) native bf16: {passes} forward passes in {wall:.3f} s")
-        del params
-        gc.collect()
-        torch.cuda.empty_cache()
+        init_peak = torch.cuda.max_memory_allocated() - base
+        if init_peak > held + biggest:
+            raise RuntimeError(
+                f"{tag} {cfg.name}: the init peaked at {init_peak} B, "
+                f"past its blocks {held} B and one whole f32 leaf "
+                f"{biggest} B")
+        return sharder, params, held, init_s, init_peak, biggest
 
-        # (c) one decode step against its walk -------------------------
-        kind, B, T = TP_DECODE
-        sharder.set_batch(B)
-        res["card"] = dryrun.card_step(cfg, ShapeCase("tp_decode", T, B,
-                                                      kind), sharder)
-        say(f"(c) one partitioned decode ({B} lanes, {T} slots): FLOPs "
-            f"{res['card']['flops']}, peak {res['card']['peak']} B, walls "
-            f"{[round(w * 1e3, 3) for w in res['card']['walls_s']]} ms")
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # (d) the cache over its length, uneven heads -------------------
-        cut = dataclasses.replace(cfg, **TP_CUT)
-        sharder, params, held, _ = blocks(cut)
-        first, tokens, passes, wall = serve(cut, sharder, params, "native",
-                                            prompts)
-        res["cut"] = dict(first=first, tokens=tokens, wall=wall)
-        say(f"(d) {cut.n_heads} heads / {cut.n_kv_heads} KV head at "
-            f"{cut.n_layers} layers: {passes} passes in {wall:.3f} s")
-        del params
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        def peaked_blocks(cfg, tag):
-            """blocks(cfg) with the init's peak: (the sharder, the
-            blocks, their bytes, the init's wall, its peak, the largest
-            whole leaf in f32). The peak is this rank's blocks and one
-            whole f32 leaf being drawn, no more."""
-            biggest = max(t.numel() * 4 for _, t in path_leaves(
-                Model(cfg, device="meta").init(0)))
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            sharder, params, held, init_s = blocks(cfg)
-            init_peak = torch.cuda.max_memory_allocated() - base
-            if init_peak > held + biggest:
-                raise RuntimeError(
-                    f"{tag} {cfg.name}: the init peaked at {init_peak} B, "
-                    f"past its blocks {held} B and one whole f32 leaf "
-                    f"{biggest} B")
-            return sharder, params, held, init_s, init_peak, biggest
-
-        # (e) the MoE archs: experts split by d_ff, and by expert --------
-        res["moe"] = {}
-        for arch, depth in MOE_DEPTH:
-            t0 = time.monotonic()
-            mcfg = dataclasses.replace(get_config(arch), n_layers=depth)
-            sharder, params, held, init_s, init_peak, biggest = \
-                peaked_blocks(mcfg, "(e)")
-            part = Partition(sharder)
-            per = gemms_per_pass(mcfg)
-            runs = [[]]
-            with olm_calls({0, per - 1}) as seen, route_plans() as plans:
-                k12.launches = 0
-                first, tokens, passes, wall = serve(
-                    mcfg, sharder, params, "olm16",
-                    tp_prompts(mcfg.vocab_size), every=runs[0])
-                launched = k12.launches
-            f10 = None
-            if arch == TP_F10:
-                # (l) F10: the same serve again, the same bits
-                runs.append([])
-                _, again, _, wall2 = serve(mcfg, sharder, params, "olm16",
-                                           tp_prompts(mcfg.vocab_size),
-                                           every=runs[1])
-                f10 = dict(bits=same_bits(*runs), tokens=again == tokens,
-                           passes=len(runs[0]), walls=(wall, wall2))
-                say(f"(l) {mcfg.name} partitioned, served twice: every "
-                    f"pass's logits bit-equal {f10['bits']} over "
-                    f"{f10['passes']} passes, tokens equal "
-                    f"{f10['tokens']}; walls {wall:.3f} and {wall2:.3f} s")
-            del runs
-            res["moe"][arch] = dict(
-                first=first, tokens=tokens, wall=wall, wq=seen[0],
-                head=seen[per - 1], launches=launched, gemms=passes * per,
-                held=held, init_s=init_s, init_peak=init_peak,
-                biggest=biggest, plans=plans, layout=part.experts_by,
-                experts=part.expert_range(), f10=f10)
-            say(f"(e) {mcfg.name} at {depth} layers, experts split "
-                f"{part.experts_by} (this rank's experts "
-                f"{part.expert_range()} of {mcfg.n_experts}): {held} B of "
-                f"serve blocks resident (the specs' count), drawn in "
-                f"{init_s:.1f} s, the init's peak {init_peak} B (blocks + "
-                f"one whole f32 leaf of {biggest} B at most); olm16 "
-                f"{passes} passes in {wall:.3f} s, GEMMs issued "
-                f"{passes * per}, K1 launches {launched}, {len(plans)} "
-                f"dispatch plans; the part {time.monotonic() - t0:.1f} s")
-            if launched != passes * per:
-                raise RuntimeError(f"(e) K1 launched {launched} times for "
-                                   f"{passes * per} GEMMs")
-            del params, part
-            gc.collect()
-            torch.cuda.empty_cache()
-
-        # (g) one partitioned MoE decode against its walk ----------------
+    # (e) the MoE archs: experts split by d_ff, and by expert --------
+    res["moe"] = {}
+    for arch, depth in MOE_DEPTH:
+        laps(f"(e) {arch}")
         t0 = time.monotonic()
-        kind, B, T = TP_DECODE
-        arch, depth = MOE_DEPTH[-1]
         mcfg = dataclasses.replace(get_config(arch), n_layers=depth)
-        sharder = Sharder(mesh, mcfg)
-        sharder.set_batch(B)
-        res["moe_card"] = dryrun.card_step(
-            mcfg, ShapeCase("tp_moe_decode", T, B, kind), sharder)
-        say(f"(g) one partitioned {mcfg.name} decode ({B} lanes, {T} "
-            f"slots): FLOPs {res['moe_card']['flops']}, peak "
-            f"{res['moe_card']['peak']} B, walls "
-            f"{[round(w * 1e3, 3) for w in res['moe_card']['walls_s']]} ms;"
-            f" the part {time.monotonic() - t0:.1f} s")
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # (f) the ring over its length ----------------------------------
-        t0 = time.monotonic()
-        ring = dataclasses.replace(get_config("mixtral_8x22b"), **TP_RING)
-        sharder, params, held, _ = blocks(ring)
+        sharder, params, held, init_s, init_peak, biggest = \
+            peaked_blocks(mcfg, "(e)")
         part = Partition(sharder)
-        kv = init_serve_cache(Model(ring, device="meta"), sharder,
-                              SERVE["requests"], TP["max_len"])[0]["k"]
-        first, tokens, passes, wall = serve(
-            ring, sharder, params, "native",
-            tp_ring_prompts(ring.vocab_size))
-        res["ring"] = dict(first=first, tokens=tokens, wall=wall)
-        say(f"(f) {ring.name} with {ring.n_kv_heads} KV head, window "
-            f"{ring.sliding_window}, cache of {TP['max_len']} slots: the "
-            f"ring over its length {not part.kv_by_heads}, this rank's "
-            f"block of it {tuple(kv.shape)}; {TP_RING_LEN}-token prompts "
-            f"and {passes} passes native in {wall:.3f} s; the part "
-            f"{time.monotonic() - t0:.1f} s")
-        if part.kv_by_heads or kv.shape[1] * TP_RANKS != \
-                ring.sliding_window:
-            raise RuntimeError("(f) the ring is not split over its length")
+        per = gemms_per_pass(mcfg)
+        runs = [[]]
+        with olm_calls({0, per - 1}) as seen, route_plans() as plans:
+            k12.launches = 0
+            first, tokens, passes, wall = serve(
+                mcfg, sharder, params, "olm16",
+                tp_prompts(mcfg.vocab_size), every=runs[0])
+            launched = k12.launches
+        f10 = None
+        if arch == TP_F10:
+            # (l) F10: the same serve again, the same bits
+            laps(f"(l) {arch}")
+            runs.append([])
+            _, again, _, wall2 = serve(mcfg, sharder, params, "olm16",
+                                       tp_prompts(mcfg.vocab_size),
+                                       every=runs[1])
+            f10 = dict(bits=same_bits(*runs), tokens=again == tokens,
+                       passes=len(runs[0]), walls=(wall, wall2))
+            say(f"(l) {mcfg.name} partitioned, served twice: every "
+                f"pass's logits bit-equal {f10['bits']} over "
+                f"{f10['passes']} passes, tokens equal "
+                f"{f10['tokens']}; walls {wall:.3f} and {wall2:.3f} s")
+        del runs
+        res["moe"][arch] = dict(
+            first=first, tokens=tokens, wall=wall, wq=seen[0],
+            head=seen[per - 1], launches=launched, gemms=passes * per,
+            held=held, init_s=init_s, init_peak=init_peak,
+            biggest=biggest, plans=plans, layout=part.experts_by,
+            experts=part.expert_range(), f10=f10)
+        say(f"(e) {mcfg.name} at {depth} layers, experts split "
+            f"{part.experts_by} (this rank's experts "
+            f"{part.expert_range()} of {mcfg.n_experts}): {held} B of "
+            f"serve blocks resident (the specs' count), drawn in "
+            f"{init_s:.1f} s, the init's peak {init_peak} B (blocks + "
+            f"one whole f32 leaf of {biggest} B at most); olm16 "
+            f"{passes} passes in {wall:.3f} s, GEMMs issued "
+            f"{passes * per}, K1 launches {launched}, {len(plans)} "
+            f"dispatch plans; the part {time.monotonic() - t0:.1f} s")
+        if launched != passes * per:
+            raise RuntimeError(f"(e) K1 launched {launched} times for "
+                               f"{passes * per} GEMMs")
         del params, part
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (h) the recurrent arch as published, native --------------------
-        t0 = time.monotonic()
-        rec = get_config(TP["rec"])
-        sharder, params, held, init_s, init_peak, biggest = peaked_blocks(
-            rec, "(h)")
-        state = init_serve_cache(Model(rec, device="meta"), sharder,
-                                 SERVE["requests"], TP["max_len"])[0]
-        w = rec.rnn_width // world
-        if tuple(state["h"].shape) != (SERVE["requests"], w) or \
-                tuple(state["conv"].shape) != (SERVE["requests"],
-                                               rec.conv_width - 1, w):
-            raise RuntimeError("(h) the RG-LRU state is not split over "
-                               f"its channels: {state}")
-        first, tokens, passes, wall = serve(rec, sharder, params, "native",
-                                            tp_prompts(rec.vocab_size))
-        res["rec"] = dict(first=first, tokens=tokens, wall=wall, held=held,
-                          init_s=init_s, init_peak=init_peak,
-                          biggest=biggest)
-        say(f"(h) {rec.name} ({rec.n_layers} layers, RG-LRU width "
-            f"{rec.rnn_width}) on {mesh_shape(mesh)}: {held} B of serve "
-            f"blocks resident (the specs' count), drawn in {init_s:.1f} s, "
-            f"the init's peak {init_peak} B (blocks + one whole f32 leaf of "
-            f"{biggest} B at most); this rank's RG-LRU state h "
-            f"{tuple(state['h'].shape)}, conv {tuple(state['conv'].shape)};"
-            f" native {passes} passes in {wall:.3f} s; the part "
-            f"{time.monotonic() - t0:.1f} s")
-        del params, state
-        gc.collect()
-        torch.cuda.empty_cache()
+    # (g) one partitioned MoE decode against its walk ----------------
+    laps("(g)")
+    t0 = time.monotonic()
+    kind, B, T = TP_DECODE
+    arch, depth = MOE_DEPTH[-1]
+    mcfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    sharder = Sharder(mesh, mcfg)
+    sharder.set_batch(B)
+    res["moe_card"] = dryrun.card_step(
+        mcfg, ShapeCase("tp_moe_decode", T, B, kind), sharder)
+    say(f"(g) one partitioned {mcfg.name} decode ({B} lanes, {T} "
+        f"slots): FLOPs {res['moe_card']['flops']}, peak "
+        f"{res['moe_card']['peak']} B, walls "
+        f"{[round(w * 1e3, 3) for w in res['moe_card']['walls_s']]} ms;"
+        f" the part {time.monotonic() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # (k) one partitioned decode of (h)'s arch against its walk -------
-        t0 = time.monotonic()
-        kind, B, T = TP_DECODE
-        sharder = Sharder(mesh, rec)
-        sharder.set_batch(B)
-        res["rec_card"] = dryrun.card_step(
-            rec, ShapeCase("tp_rec_decode", T, B, kind), sharder)
-        say(f"(k) one partitioned {rec.name} decode ({B} lanes, {T} "
-            f"slots): FLOPs {res['rec_card']['flops']}, peak "
-            f"{res['rec_card']['peak']} B, walls "
-            f"{[round(w * 1e3, 3) for w in res['rec_card']['walls_s']]} ms;"
-            f" the part {time.monotonic() - t0:.1f} s")
-        gc.collect()
-        torch.cuda.empty_cache()
+    # (f) the ring over its length ----------------------------------
+    laps("(f)")
+    t0 = time.monotonic()
+    ring = dataclasses.replace(get_config("mixtral_8x22b"), **TP_RING)
+    sharder, params, held, _ = blocks(ring)
+    part = Partition(sharder)
+    kv = init_serve_cache(Model(ring, device="meta"), sharder,
+                          SERVE["requests"], TP["max_len"])[0]["k"]
+    first, tokens, passes, wall = serve(
+        ring, sharder, params, "native",
+        tp_ring_prompts(ring.vocab_size))
+    res["ring"] = dict(first=first, tokens=tokens, wall=wall)
+    say(f"(f) {ring.name} with {ring.n_kv_heads} KV head, window "
+        f"{ring.sliding_window}, cache of {TP['max_len']} slots: the "
+        f"ring over its length {not part.kv_by_heads}, this rank's "
+        f"block of it {tuple(kv.shape)}; {TP_RING_LEN}-token prompts "
+        f"and {passes} passes native in {wall:.3f} s; the part "
+        f"{time.monotonic() - t0:.1f} s")
+    if part.kv_by_heads or kv.shape[1] * TP_RANKS != \
+            ring.sliding_window:
+        raise RuntimeError("(f) the ring is not split over its length")
+    del params, part
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # (i) the recurrent arch cut to one pattern group, olm16 ---------
-        t0 = time.monotonic()
-        rcut = dataclasses.replace(rec, **TP_REC_CUT)
-        sharder, params, held, _ = blocks(rcut)
-        per = gemms_per_pass(rcut)
-        with olm_calls({0, per - 1}) as seen:
-            k12.launches = 0
-            first, tokens, passes, wall = serve(rcut, sharder, params,
-                                                "olm16",
-                                                tp_prompts(rcut.vocab_size))
-            launched = k12.launches
-        res["rec_olm"] = dict(first=first, tokens=tokens, wall=wall,
-                              wx=seen[0], head=seen[per - 1],
-                              launches=launched, gemms=passes * per)
-        say(f"(i) {rcut.name} at {rcut.n_layers} layers "
-            f"{rcut.layer_kinds}: olm16 {passes} passes in {wall:.3f} s, "
-            f"GEMMs issued {passes * per}, K1 launches {launched}; the part "
-            f"{time.monotonic() - t0:.1f} s")
-        if launched != passes * per:
-            raise RuntimeError(f"(i) K1 launched {launched} times for "
-                               f"{passes * per} GEMMs")
-        del params
-        gc.collect()
-        torch.cuda.empty_cache()
+    # (h) the recurrent arch as published, native --------------------
+    laps("(h)")
+    t0 = time.monotonic()
+    rec = get_config(TP["rec"])
+    sharder, params, held, init_s, init_peak, biggest = peaked_blocks(
+        rec, "(h)")
+    state = init_serve_cache(Model(rec, device="meta"), sharder,
+                             SERVE["requests"], TP["max_len"])[0]
+    w = rec.rnn_width // world
+    if tuple(state["h"].shape) != (SERVE["requests"], w) or \
+            tuple(state["conv"].shape) != (SERVE["requests"],
+                                           rec.conv_width - 1, w):
+        raise RuntimeError("(h) the RG-LRU state is not split over "
+                           f"its channels: {state}")
+    first, tokens, passes, wall = serve(rec, sharder, params, "native",
+                                        tp_prompts(rec.vocab_size))
+    res["rec"] = dict(first=first, tokens=tokens, wall=wall, held=held,
+                      init_s=init_s, init_peak=init_peak,
+                      biggest=biggest)
+    say(f"(h) {rec.name} ({rec.n_layers} layers, RG-LRU width "
+        f"{rec.rnn_width}) on {mesh_shape(mesh)}: {held} B of serve "
+        f"blocks resident (the specs' count), drawn in {init_s:.1f} s, "
+        f"the init's peak {init_peak} B (blocks + one whole f32 leaf of "
+        f"{biggest} B at most); this rank's RG-LRU state h "
+        f"{tuple(state['h'].shape)}, conv {tuple(state['conv'].shape)};"
+        f" native {passes} passes in {wall:.3f} s; the part "
+        f"{time.monotonic() - t0:.1f} s")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # (j) the SSM arch as published, olm16: whole weights, its rows ---
-        t0 = time.monotonic()
-        ssm = get_config(TP["ssm"])
-        sharder, params, held, _ = blocks(ssm)
-        per = gemms_per_pass(ssm)
+    # (k) one partitioned decode of (h)'s arch against its walk -------
+    laps("(k)")
+    t0 = time.monotonic()
+    kind, B, T = TP_DECODE
+    sharder = Sharder(mesh, rec)
+    sharder.set_batch(B)
+    res["rec_card"] = dryrun.card_step(
+        rec, ShapeCase("tp_rec_decode", T, B, kind), sharder)
+    say(f"(k) one partitioned {rec.name} decode ({B} lanes, {T} "
+        f"slots): FLOPs {res['rec_card']['flops']}, peak "
+        f"{res['rec_card']['peak']} B, walls "
+        f"{[round(w * 1e3, 3) for w in res['rec_card']['walls_s']]} ms;"
+        f" the part {time.monotonic() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (i) the recurrent arch cut to one pattern group, olm16 ---------
+    laps("(i)")
+    t0 = time.monotonic()
+    rcut = dataclasses.replace(rec, **TP_REC_CUT)
+    sharder, params, held, _ = blocks(rcut)
+    per = gemms_per_pass(rcut)
+    with olm_calls({0, per - 1}) as seen:
         k12.launches = 0
-        first, tokens, passes, wall = serve(ssm, sharder, params, "olm16",
-                                            tp_prompts(ssm.vocab_size))
+        first, tokens, passes, wall = serve(rcut, sharder, params,
+                                            "olm16",
+                                            tp_prompts(rcut.vocab_size))
         launched = k12.launches
-        lanes = mine(sharder)(torch.arange(SERVE["requests"])).tolist()
-        res["ssm"] = dict(first=first, tokens=tokens, wall=wall, held=held,
-                          launches=launched, gemms=passes * per,
-                          per=per, lanes=lanes)
-        say(f"(j) {ssm.name}: {held} B of serve params resident (the "
-            f"specs' count: every weight whole), the batch over "
-            f"{sharder.batch_spec()[0]}, this rank's rows {lanes}; olm16 "
-            f"{passes} passes in "
-            f"{wall:.3f} s, GEMMs issued {passes * per}, K1 launches "
-            f"{launched}; the part {time.monotonic() - t0:.1f} s")
-        if launched != passes * per:
-            raise RuntimeError(f"(j) K1 launched {launched} times for "
-                               f"{passes * per} GEMMs")
-        del params
-        gc.collect()
-        torch.cuda.empty_cache()
+    res["rec_olm"] = dict(first=first, tokens=tokens, wall=wall,
+                          wx=seen[0], head=seen[per - 1],
+                          launches=launched, gemms=passes * per)
+    say(f"(i) {rcut.name} at {rcut.n_layers} layers "
+        f"{rcut.layer_kinds}: olm16 {passes} passes in {wall:.3f} s, "
+        f"GEMMs issued {passes * per}, K1 launches {launched}; the part "
+        f"{time.monotonic() - t0:.1f} s")
+    if launched != passes * per:
+        raise RuntimeError(f"(i) K1 launched {launched} times for "
+                           f"{passes * per} GEMMs")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # (m) the VLM arch as published, native --------------------------
-        t0 = time.monotonic()
-        vlm = get_config(TP["vlm"])
-        sharder, params, held, init_s, init_peak, biggest = peaked_blocks(
-            vlm, "(m)")
-        first, tokens, passes, wall = serve(vlm, sharder, params, "native",
-                                            tp_prompts(vlm.vocab_size))
-        res["vlm"] = dict(first=first, tokens=tokens, wall=wall, held=held,
-                          init_s=init_s, init_peak=init_peak,
-                          biggest=biggest)
-        say(f"(m) {vlm.name} ({vlm.n_layers} layers, "
-            f"{vlm.layer_kinds.count('cross')} cross) on {mesh_shape(mesh)}:"
-            f" {held} B of serve blocks resident (the specs' count), drawn "
-            f"in {init_s:.1f} s, the init's peak {init_peak} B (blocks + one "
-            f"whole f32 leaf of {biggest} B at most); native {passes} passes "
-            f"in {wall:.3f} s; the part {time.monotonic() - t0:.1f} s")
+    # (j) the SSM arch as published, olm16: whole weights, its rows ---
+    laps("(j)")
+    t0 = time.monotonic()
+    ssm = get_config(TP["ssm"])
+    sharder, params, held, _ = blocks(ssm)
+    per = gemms_per_pass(ssm)
+    k12.launches = 0
+    first, tokens, passes, wall = serve(ssm, sharder, params, "olm16",
+                                        tp_prompts(ssm.vocab_size))
+    launched = k12.launches
+    lanes = mine(sharder)(torch.arange(SERVE["requests"])).tolist()
+    res["ssm"] = dict(first=first, tokens=tokens, wall=wall, held=held,
+                      launches=launched, gemms=passes * per,
+                      per=per, lanes=lanes)
+    say(f"(j) {ssm.name}: {held} B of serve params resident (the "
+        f"specs' count: every weight whole), the batch over "
+        f"{sharder.batch_spec()[0]}, this rank's rows {lanes}; olm16 "
+        f"{passes} passes in "
+        f"{wall:.3f} s, GEMMs issued {passes * per}, K1 launches "
+        f"{launched}; the part {time.monotonic() - t0:.1f} s")
+    if launched != passes * per:
+        raise RuntimeError(f"(j) K1 launched {launched} times for "
+                           f"{passes * per} GEMMs")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # (n) its first pattern group, cut from the same blocks, olm16 ----
-        t0 = time.monotonic()
-        vcut = dataclasses.replace(vlm, **TP_VLM_CUT)
-        sharder = Sharder(mesh, vcut)
-        sharder.set_batch(SERVE["requests"])
-        per, wk_at = gemms_per_pass(vcut), tp_cross_wk(vcut)
-        with olm_calls({0, wk_at, per - 1}) as seen:
-            k12.launches = 0
-            first, tokens, passes, wall = serve(
-                vcut, sharder, tp_cut_params(params, vcut), "olm16",
-                tp_prompts(vcut.vocab_size))
-            launched = k12.launches
-        res["vlm_olm"] = dict(first=first, tokens=tokens, wall=wall,
-                              wq=seen[0], wk=seen[wk_at], head=seen[per - 1],
-                              launches=launched, gemms=passes * per)
-        say(f"(n) {vcut.name} at {vcut.n_layers} layers {vcut.layer_kinds}:"
-            f" olm16 {passes} passes in {wall:.3f} s, GEMMs issued "
-            f"{passes * per}, K1 launches {launched}; the cross wk GEMM "
-            f"{tuple(seen[wk_at][0].shape)} -> {tuple(seen[wk_at][1].shape)};"
-            f" the part {time.monotonic() - t0:.1f} s")
-        if launched != passes * per:
-            raise RuntimeError(f"(n) K1 launched {launched} times for "
-                               f"{passes * per} GEMMs")
-        del params, seen
-        gc.collect()
-        torch.cuda.empty_cache()
+    # (m) the VLM arch as published, native --------------------------
+    laps("(m)")
+    t0 = time.monotonic()
+    vlm = get_config(TP["vlm"])
+    sharder, params, held, init_s, init_peak, biggest = peaked_blocks(
+        vlm, "(m)")
+    first, tokens, passes, wall = serve(vlm, sharder, params, "native",
+                                        tp_prompts(vlm.vocab_size))
+    res["vlm"] = dict(first=first, tokens=tokens, wall=wall, held=held,
+                      init_s=init_s, init_peak=init_peak,
+                      biggest=biggest)
+    say(f"(m) {vlm.name} ({vlm.n_layers} layers, "
+        f"{vlm.layer_kinds.count('cross')} cross) on {mesh_shape(mesh)}:"
+        f" {held} B of serve blocks resident (the specs' count), drawn "
+        f"in {init_s:.1f} s, the init's peak {init_peak} B (blocks + one "
+        f"whole f32 leaf of {biggest} B at most); native {passes} passes "
+        f"in {wall:.3f} s; the part {time.monotonic() - t0:.1f} s")
 
-        # (p) one partitioned decode of (n)'s cut against its walk --------
-        t0 = time.monotonic()
-        kind, B, T = TP_DECODE
-        sharder = Sharder(mesh, vcut)
-        sharder.set_batch(B)
-        res["vlm_card"] = dryrun.card_step(
-            vcut, ShapeCase("tp_vlm_decode", T, B, kind), sharder)
-        say(f"(p) one partitioned {vcut.name} decode at {vcut.n_layers} "
-            f"layers ({B} lanes, {T} slots, the memory's rows): FLOPs "
-            f"{res['vlm_card']['flops']}, peak {res['vlm_card']['peak']} B, "
-            f"walls "
-            f"{[round(w * 1e3, 3) for w in res['vlm_card']['walls_s']]} ms;"
-            f" the part {time.monotonic() - t0:.1f} s")
-        gc.collect()
-        torch.cuda.empty_cache()
+    # (n) its first pattern group, cut from the same blocks, olm16 ----
+    laps("(n)")
+    t0 = time.monotonic()
+    vcut = dataclasses.replace(vlm, **TP_VLM_CUT)
+    sharder = Sharder(mesh, vcut)
+    sharder.set_batch(SERVE["requests"])
+    per, wk_at = gemms_per_pass(vcut), tp_cross_wk(vcut)
+    with olm_calls({0, wk_at, per - 1}) as seen:
+        k12.launches = 0
+        first, tokens, passes, wall = serve(
+            vcut, sharder, tp_cut_params(params, vcut), "olm16",
+            tp_prompts(vcut.vocab_size))
+        launched = k12.launches
+    res["vlm_olm"] = dict(first=first, tokens=tokens, wall=wall,
+                          wq=seen[0], wk=seen[wk_at], head=seen[per - 1],
+                          launches=launched, gemms=passes * per)
+    say(f"(n) {vcut.name} at {vcut.n_layers} layers {vcut.layer_kinds}:"
+        f" olm16 {passes} passes in {wall:.3f} s, GEMMs issued "
+        f"{passes * per}, K1 launches {launched}; the cross wk GEMM "
+        f"{tuple(seen[wk_at][0].shape)} -> {tuple(seen[wk_at][1].shape)};"
+        f" the part {time.monotonic() - t0:.1f} s")
+    if launched != passes * per:
+        raise RuntimeError(f"(n) K1 launched {launched} times for "
+                           f"{passes * per} GEMMs")
+    del params, seen
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # (o) the enc-dec arch as published, native; a 2 + 2 cut, olm16 ---
-        t0 = time.monotonic()
-        enc = get_config(TP["encdec"])
-        prompts = tp_prompts(enc.vocab_size)
-        sharder, params, held, init_s = blocks(enc)
-        first, tokens, passes, wall = serve(enc, sharder, params, "native",
-                                            prompts)
-        res["encdec"] = dict(first=first, tokens=tokens, wall=wall,
-                             held=held, init_s=init_s)
-        ecut = dataclasses.replace(enc, **TP_ENCDEC_CUT)
-        sharder = Sharder(mesh, ecut)
-        sharder.set_batch(SERVE["requests"])
-        with olm_calls({0}) as seen:
-            k12.launches = 0
-            first, tokens, passes, olm_wall = serve(
-                ecut, sharder, tp_cut_params(params, ecut), "olm16", prompts)
-            launched = k12.launches
-        gemms = gemms_per_pass(ecut, True) + (passes - 1) * gemms_per_pass(
-            ecut)
-        res["encdec_olm"] = dict(first=first, tokens=tokens, wall=olm_wall,
-                                 wq=seen[0], launches=launched, gemms=gemms)
-        say(f"(o) {enc.name} ({enc.n_enc_layers} encoder + {enc.n_layers} "
-            f"xdec layers): {held} B of serve blocks resident (the specs' "
-            f"count), drawn in {init_s:.1f} s; native {passes} passes in "
-            f"{wall:.3f} s; at {ecut.n_enc_layers} + {ecut.n_layers} layers "
-            f"olm16 in {olm_wall:.3f} s, GEMMs issued {gemms} "
-            f"({gemms_per_pass(ecut, True)} a prefill, "
-            f"{gemms_per_pass(ecut)} a decode), K1 launches {launched}; the "
-            f"part {time.monotonic() - t0:.1f} s")
-        if launched != gemms:
-            raise RuntimeError(f"(o) K1 launched {launched} times for "
-                               f"{gemms} GEMMs")
-        del params, seen
-        gc.collect()
-        torch.cuda.empty_cache()
+    # (p) one partitioned decode of (n)'s cut against its walk --------
+    laps("(p)")
+    t0 = time.monotonic()
+    kind, B, T = TP_DECODE
+    sharder = Sharder(mesh, vcut)
+    sharder.set_batch(B)
+    res["vlm_card"] = dryrun.card_step(
+        vcut, ShapeCase("tp_vlm_decode", T, B, kind), sharder)
+    say(f"(p) one partitioned {vcut.name} decode at {vcut.n_layers} "
+        f"layers ({B} lanes, {T} slots, the memory's rows): FLOPs "
+        f"{res['vlm_card']['flops']}, peak {res['vlm_card']['peak']} B, "
+        f"walls "
+        f"{[round(w * 1e3, 3) for w in res['vlm_card']['walls_s']]} ms;"
+        f" the part {time.monotonic() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # (b) the big arch as published ----------------------------------
-        big = get_config(TP["big"])
-        base = torch.cuda.memory_allocated()
-        sharder, params, held, init_s = blocks(big)
-        say(f"(b) {big.name} ({big.n_layers} layers, d_model "
-            f"{big.d_model}) on {mesh_shape(mesh)}: {held} bytes of serve "
-            f"blocks resident, the specs' count, drawn leaf by leaf in "
-            f"{init_s:.1f} s; allocated {torch.cuda.memory_allocated() - base}"
-            " B above the phase's start")
-        torch.cuda.reset_peak_memory_stats()
-        first, tokens, passes, wall = serve(big, sharder, params, "native",
-                                            tp_prompts(big.vocab_size))
-        peak = torch.cuda.max_memory_allocated()
-        res["big"] = dict(first=first, tokens=tokens, wall=wall, held=held,
-                          init_s=init_s, peak=peak)
-        say(f"(b) native bf16: {passes} passes in {wall:.3f} s; "
-            f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
-        del params
-        torch.save(res, os.path.join(tmp, f"tp{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
+    # (o) the enc-dec arch as published, native; a 2 + 2 cut, olm16 ---
+    laps("(o)")
+    t0 = time.monotonic()
+    enc = get_config(TP["encdec"])
+    prompts = tp_prompts(enc.vocab_size)
+    sharder, params, held, init_s = blocks(enc)
+    first, tokens, passes, wall = serve(enc, sharder, params, "native",
+                                        prompts)
+    res["encdec"] = dict(first=first, tokens=tokens, wall=wall,
+                         held=held, init_s=init_s)
+    ecut = dataclasses.replace(enc, **TP_ENCDEC_CUT)
+    sharder = Sharder(mesh, ecut)
+    sharder.set_batch(SERVE["requests"])
+    with olm_calls({0}) as seen:
+        k12.launches = 0
+        first, tokens, passes, olm_wall = serve(
+            ecut, sharder, tp_cut_params(params, ecut), "olm16", prompts)
+        launched = k12.launches
+    gemms = gemms_per_pass(ecut, True) + (passes - 1) * gemms_per_pass(
+        ecut)
+    res["encdec_olm"] = dict(first=first, tokens=tokens, wall=olm_wall,
+                             wq=seen[0], launches=launched, gemms=gemms)
+    say(f"(o) {enc.name} ({enc.n_enc_layers} encoder + {enc.n_layers} "
+        f"xdec layers): {held} B of serve blocks resident (the specs' "
+        f"count), drawn in {init_s:.1f} s; native {passes} passes in "
+        f"{wall:.3f} s; at {ecut.n_enc_layers} + {ecut.n_layers} layers "
+        f"olm16 in {olm_wall:.3f} s, GEMMs issued {gemms} "
+        f"({gemms_per_pass(ecut, True)} a prefill, "
+        f"{gemms_per_pass(ecut)} a decode), K1 launches {launched}; the "
+        f"part {time.monotonic() - t0:.1f} s")
+    if launched != gemms:
+        raise RuntimeError(f"(o) K1 launched {launched} times for "
+                           f"{gemms} GEMMs")
+    del params, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the big arch as published ----------------------------------
+    laps("(b) draw")
+    big = get_config(TP["big"])
+    base = torch.cuda.memory_allocated()
+    sharder, params, held, init_s = blocks(big)
+    say(f"(b) {big.name} ({big.n_layers} layers, d_model "
+        f"{big.d_model}) on {mesh_shape(mesh)}: {held} bytes of serve "
+        f"blocks resident, the specs' count, drawn leaf by leaf in "
+        f"{init_s:.1f} s; allocated {torch.cuda.memory_allocated() - base}"
+        " B above the phase's start")
+    torch.cuda.reset_peak_memory_stats()
+    laps("(b) serve")
+    first, tokens, passes, wall = serve(big, sharder, params, "native",
+                                        tp_prompts(big.vocab_size))
+    peak = torch.cuda.max_memory_allocated()
+    res["big"] = dict(first=first, tokens=tokens, wall=wall, held=held,
+                      init_s=init_s, peak=peak)
+    say(f"(b) native bf16: {passes} passes in {wall:.3f} s; "
+        f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
+    del params
+    torch.save(res, os.path.join(tmp, f"tp{rank}.pt"))
 
 
 def smi(fields: str) -> str:
@@ -1427,19 +1505,27 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return times[mid] if len(times) % 2 else (times[mid - 1] + times[mid]) / 2
 
 
-def device_busy(fn, name: str):
+def device_busy(fn, name: str, laps=None):
     """Run fn() under torch.profiler: (seconds the device ran any kernel,
-    seconds in kernels whose name holds `name`, device kernels seen)."""
+    seconds in kernels whose name holds `name`, device kernels seen).
+    Only the device's activity is recorded, and read from the profiler's
+    raw events: the host's ops, which no reading here takes, and the
+    profiler's own table of events cost a full-width serve's trace tens of
+    seconds to read (probes/device_busy_activities.py reads it each way).
+    `laps` (Laps), where given, opens a part for reading the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        if laps is not None:
+            laps(f"{name} trace read")
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda]
+    spans = sorted((a, b) for a, b, _ in events)
     busy, lo, hi = 0, None, None
     for a, b in spans:
         if hi is None or a > hi:
@@ -1448,10 +1534,8 @@ def device_busy(fn, name: str):
         else:
             hi = max(hi, b)
     busy += 0 if hi is None else hi - lo
-    own = sum(e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and name in e.name)
-    return busy / 1e6, own / 1e6, len(spans)
+    own = sum(b - a for a, b, kernel in events if name in kernel)
+    return busy / 1e9, own / 1e9, len(spans)
 
 
 def operands(shape, seed, device):
@@ -1504,7 +1588,7 @@ def ptxas_summary(log: str) -> str:
 
 
 def shard_vlm_batches(cfg, dev):
-    """(d3)'s SHARD_TP_STEPS whole batches: TRAIN["batch"] tokens of the
+    """(d3)'s SHARD_VLM["steps"] whole batches: TRAIN["batch"] tokens of the
     synthetic stream and one set of patches (B, n_frontend_tokens,
     d_model) N(0, 1) from TRAIN's seed."""
     import torch
@@ -1515,7 +1599,7 @@ def shard_vlm_batches(cfg, dev):
     patches = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
                           generator=g, device=dev)
     return [{"tokens": torch.from_numpy(data.batch(i)["tokens"]).to(dev),
-             "patches": patches} for i in range(SHARD_TP_STEPS)]
+             "patches": patches} for i in range(SHARD_VLM["steps"])]
 
 
 def update_sq(model, params, block=None) -> dict:
@@ -1537,9 +1621,10 @@ def update_sq(model, params, block=None) -> dict:
     return out
 
 
-def shard_partitioned(rank, dev, meshes, tmp, say, res) -> None:
+def shard_partitioned(rank, dev, meshes, tmp, say, res, laps) -> None:
     """(d) of the shard phase on this rank (`shard_rank`): each part
-    raises on a disagreement and leaves its numbers in res["tp_train"]."""
+    raises on a disagreement and leaves its numbers in res["tp_train"];
+    `laps` (Laps) takes each part's wall."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -1594,9 +1679,10 @@ def shard_partitioned(rank, dev, meshes, tmp, say, res) -> None:
         return float(mine.sum()) ** 0.5
 
     def run_steps(tag, model, sharder, batches, one, limits):
-        """SHARD_TP_STEPS steps from the sharded init: the state's bytes,
+        """A step a batch from the sharded init: the state's bytes,
         the walls, the peak, the readings against one device's `one`
         within `limits`."""
+        laps(f"({tag}) draw")
         torch.cuda.synchronize()
         t0 = time.monotonic()
         state = init_train_state(model, seed=TRAIN["seed"], sharder=sharder)
@@ -1611,6 +1697,7 @@ def shard_partitioned(rank, dev, meshes, tmp, say, res) -> None:
                               schedule_total=TRAIN["total"])
         walls, seen = [], []
         torch.cuda.reset_peak_memory_stats()
+        laps(f"({tag}) steps")
         for b in batches:
             rows = {k: shard_dims(v, specs[k], sharder.mesh)
                     for k, v in b.items()}
@@ -1621,6 +1708,7 @@ def shard_partitioned(rank, dev, meshes, tmp, say, res) -> None:
             walls.append(time.monotonic() - t0)
             seen.append([float(met["loss"]), float(met["grad_norm"])])
         peak = torch.cuda.max_memory_allocated()
+        laps(f"({tag}) update norm")
         upd = update_norm(model, sharder, tree_map(
             lambda t: t.to_local(), state["params"]))
         read = {"loss": max(abs(a[0] - b[0]) / abs(b[0])
@@ -1666,6 +1754,7 @@ def shard_partitioned(rank, dev, meshes, tmp, say, res) -> None:
         raise RuntimeError(f"(d1) peak {share:.3f} of one device's")
 
     # (d2) (c)'s cut, one olm16 step --------------------------------------
+    laps("(d2)")
     cut = dataclasses.replace(cfg, n_layers=SHARD_TRAIN_LAYERS)
     kB, kS = TRAIN["kernel_batch"]
     sharder = Sharder(meshes[(1, 2)], cut)
@@ -1717,13 +1806,15 @@ def shard_partitioned(rank, dev, meshes, tmp, say, res) -> None:
 
     # (d3) Llama-3.2-Vision's first group under fsdp_tp on (2, 1) ---------
     vcfg = dataclasses.replace(get_config(SHARD_VLM["arch"]),
-                               n_layers=SHARD_VLM["n_layers"])
+                               n_layers=SHARD_VLM["n_layers"],
+                               remat=SHARD_VLM["remat"])
     sharder = Sharder(meshes[(2, 1)], vcfg)
     sharder.set_batch(B)
     run_steps("d3", Model(vcfg, device=dev), sharder,
               shard_vlm_batches(vcfg, dev), ref["d3"], SHARD_DATA_LIMITS)
 
     # (d4) (d2)'s cut, one native step against its walk ------------------
+    laps("(d4)")
     sharder = Sharder(meshes[(1, 2)], cut)
     sharder.set_batch(B)
     out["d4"] = dryrun.card_step(cut, ShapeCase("shard_train", S, B,
@@ -1734,14 +1825,14 @@ def shard_partitioned(rank, dev, meshes, tmp, say, res) -> None:
         f"{[round(w, 3) for w in out['d4']['walls_s']]} s")
     gc.collect()
     torch.cuda.empty_cache()
+    laps()
 
 
-def shard_rank(rank: int, world: int, port: int, tmp: str,
-               serve_tokens) -> None:
-    """One rank of the shard phase (a process of its own, on cuda:0, in a
-    gloo group of `world` ranks on 127.0.0.1). Holds (a)-(c) against the
-    single-device results the parent left in `tmp`, raises on any
-    disagreement, and writes its numbers to tmp/rank<r>.json."""
+def shard_rank(rank: int, world: int, tmp: str, serve_tokens, laps) -> None:
+    """The shard phase's (a)-(d) on this rank (`ranks_main`). Holds them
+    against the single-device results the parent left in `tmp`, raises on
+    any disagreement, and writes its numbers and its parts' walls to
+    tmp/rank<r>.json."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1766,272 +1857,355 @@ def shard_rank(rank: int, world: int, port: int, tmp: str,
     from repro_torch.serving.engine import Request, ServeEngine
     from repro_torch.tree import tree_leaves, tree_unflatten, tree_flatten
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=world)
     tag = f"[shard r{rank}]"
     res = {"gemms": [], "launches": {}}
 
     def say(msg):
         print(f"{tag} {msg}", flush=True)
 
-    try:
-        meshes = {s: make_local_mesh(*s, device_type="cuda")
-                  for s in ((1, 2), (2, 1))}
-        say(f"backend {dist.get_backend()}, world {world}, meshes "
-            f"{[mesh_shape(m) for m in meshes.values()]}, device "
-            f"{torch.cuda.get_device_name(dev)}")
-        mesh = meshes[(1, 2)]
+    meshes = {s: make_local_mesh(*s, device_type="cuda")
+              for s in ((1, 2), (2, 1))}
+    say(f"backend {dist.get_backend()}, world {world}, meshes "
+        f"{[mesh_shape(m) for m in meshes.values()]}, device "
+        f"{torch.cuda.get_device_name(dev)}")
+    mesh = meshes[(1, 2)]
 
-        # (a) the sharded GEMMs against one device's K1 ------------------
-        ref = torch.load(os.path.join(tmp, "gemm.pt"))
-        for i, ((K, N), mode) in enumerate(SHARD_GEMMS):
-            n, p = mode_bits(mode)
-            x, w = operands((SHARD_ROWS, K, N), 100 + i, dev)
-            exact = (x.double() @ w.double())
-            lim = olm_error_bound(x, w, n_bits=n, trunc=p).double()
-            for part in ("m", "n", "k"):
-                torch.cuda.synchronize()
-                k12.launches = 0
-                t0 = time.monotonic()
-                out = olm_matmul_sharded(x, w, mesh=mesh, partition=part,
-                                         n_bits=n, trunc=p)
-                torch.cuda.synchronize()
-                wall = time.monotonic() - t0
-                launched = k12.launches
-                row = dict(shape=[SHARD_ROWS, K, N], mode=mode, part=part,
-                           wall_s=wall, k1_launches=launched)
-                if part in ("m", "n"):
-                    row["bit_identical"] = bits_equal(
-                        out, ref[f"{i}"].to(dev))
-                    # each rank receives the other ranks' blocks
-                    row["gather_bytes"] = (4 * SHARD_ROWS * N
-                                           * (world - 1) // world)
-                    ok = row["bit_identical"]
-                else:
-                    row["err_over_bound"] = float(
-                        ((out.double() - exact).abs() / lim).max())
-                    ok = row["err_over_bound"] <= 1.0
-                res["gemms"].append(row)
-                say(f"(a) {mode} ({SHARD_ROWS}, {K}) @ ({K}, {N}) over "
-                    f"{part}: wall {wall * 1e3:.3f} ms, K1 launches "
-                    f"{launched}, " + (
-                        f"bit-identical to one device {ok}, gathered "
-                        f"{row['gather_bytes']} bytes into this rank"
-                        if part != "k" else
-                        f"largest |err| / bound {row['err_over_bound']:.4f}"))
-                if not ok or launched != 1:
-                    raise RuntimeError(f"(a) {mode} {part} at ({K}, {N}) "
-                                       "disagrees or launched K1 "
-                                       f"{launched} times")
-            del x, w, exact, lim, out
-        res["launches"]["gemms"] = sum(r["k1_launches"]
-                                       for r in res["gemms"])
-        del ref
-
-        # (b) the serve, every GEMM's columns split over the two ranks ----
-        cfg = get_config(SERVE["arch"])
-        params = Model(cfg, device=dev).init(seed=SERVE["seed"])
-        model = Model(cfg, DotEngine(mode="olm16"), device=dev)
-
-        def seeded_engine():
-            engine = ServeEngine(model, params, slots=SERVE["slots"],
-                                 max_len=SERVE["max_len"],
-                                 kv_block_size=SERVE["block"], device=dev,
-                                 engine=EngineSpec(shard="n"), mesh=mesh)
-            rng = np.random.default_rng(SERVE["seed"])
-            lo, hi = SERVE["prompt"]
-            for rid in range(SERVE["requests"]):
-                prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(
-                    lo, hi + 1))).astype(np.int32)
-                engine.submit(Request(rid=rid, prompt=prompt,
-                                      max_new_tokens=SERVE["max_new"]))
-            return engine
-
-        engine = seeded_engine()
-        passes = []
-        for kind in ("prefill", "decode_step"):
-            real = getattr(engine.model, kind)
-
-            def counted(*a, _real=real, **kw):
-                passes.append(1)
-                return _real(*a, **kw)
-
-            setattr(engine.model, kind, counted)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        k12.launches = 0
-        t0 = time.monotonic()
-        done = engine.run()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        launched = k12.launches
-        peak = torch.cuda.max_memory_allocated()
-        gemms = len(passes) * gemms_per_pass(cfg)
-        tokens = [r.output for r in sorted(done, key=lambda r: r.rid)]
-        same = [list(map(int, t)) for t in tokens] == serve_tokens
-        busy, k1_s, n_events = device_busy(seeded_engine().run, "olm_matmul")
-        res["serve"] = dict(wall_s=wall, passes=len(passes), gemms=gemms,
-                            k1_launches=launched, same_tokens=same,
-                            peak_bytes=peak, busy_s=busy, k1_device_s=k1_s,
-                            device_kernels=n_events)
-        res["launches"]["serve"] = launched
-        say(f"(b) {cfg.name} ({cfg.n_layers} layers, d_model "
-            f"{cfg.d_model}) served under olm16 with shard='n' on "
-            f"{mesh_shape(mesh)}: wall {wall:.3f} s (ends in "
-            f"torch.cuda.synchronize), {len(passes)} forward passes, GEMMs "
-            f"issued {gemms}, K1 launches {launched}; the serve phase's "
-            f"single-device tokens: {same}; peak memory {peak} bytes "
-            f"({peak / 2**30:.2f} GiB); profiled run: this rank's kernels "
-            f"kept the device busy {busy:.3f} s ({100 * busy / wall:.1f}% "
-            f"of the first run's wall), K1 {k1_s:.3f} s, {n_events} "
-            "kernels")
-        if launched != gemms or not same:
-            raise RuntimeError(f"(b) K1 launched {launched} times for "
-                               f"{gemms} GEMMs, same tokens {same}")
-        del params, model, engine, done
-        torch.cuda.empty_cache()
-
-        # (c) the sharded train step -------------------------------------
-        cfg = dataclasses.replace(get_config(TRAIN["arch"]),
-                                  n_layers=SHARD_TRAIN_LAYERS)
-        model = Model(cfg, device=dev)
-        B, S = TRAIN["batch"]
-        data = SyntheticLMDataset(cfg, B, S, seed=TRAIN["seed"])
-        batches = [{k: torch.from_numpy(v).to(dev)
-                    for k, v in data.batch(i).items()}
-                   for i in range(SHARD_TRAIN_STEPS)]
-        opt_cfg = AdamWConfig(lr=TRAIN["lr"])
-        want = torch.load(os.path.join(tmp, "train.pt"), mmap=True)
-        one = json.loads(Path(tmp, "train.json").read_text())
-        sharders, train = {}, {}
-        for shape, m in meshes.items():
-            sharders[shape] = sharder = Sharder(m, cfg)
-            sharder.set_batch(B)
-            state = distribute_state(sharder, init_train_state(
-                model, seed=TRAIN["seed"]))
-            step = build_train_step(model, sharder, opt_cfg=opt_cfg,
-                                    schedule_total=TRAIN["total"])
-            walls, seen = [], []
-            for b in batches:
-                torch.cuda.synchronize()
-                t0 = time.monotonic()
-                state, met = step(state, b)
-                torch.cuda.synchronize()
-                walls.append(time.monotonic() - t0)
-                seen.append([float(met["loss"]), float(met["grad_norm"])])
-            got = tree_leaves(gather_state(state["params"]))
-            # each step's loss and grad_norm, and the update (params
-            # after minus before) against one device's, relative
-            read = {
-                "loss": max(abs(a[0] - b[0]) / abs(b[0])
-                            for a, b in zip(seen, one["metrics"])),
-                "grad_norm": max(abs(a[1] - b[1]) / abs(b[1])
-                                 for a, b in zip(seen, one["metrics"])),
-                "update": sum(float((g.double() - r.to(dev).double())
-                                    .pow(2).sum())
-                              for g, r in zip(got, want)) ** 0.5
-                / one["update_norm"]}
-            if shape == (1, 2):
-                agree = all(bits_equal(g, r.to(dev))
-                            for g, r in zip(got, want))
-                worst = None
+    # (a) the sharded GEMMs against one device's K1 ------------------
+    laps("(a)")
+    ref = torch.load(os.path.join(tmp, "gemm.pt"))
+    for i, ((K, N), mode) in enumerate(SHARD_GEMMS):
+        n, p = mode_bits(mode)
+        x, w = operands((SHARD_ROWS, K, N), 100 + i, dev)
+        exact = (x.double() @ w.double())
+        lim = olm_error_bound(x, w, n_bits=n, trunc=p).double()
+        for part in ("m", "n", "k"):
+            torch.cuda.synchronize()
+            k12.launches = 0
+            t0 = time.monotonic()
+            out = olm_matmul_sharded(x, w, mesh=mesh, partition=part,
+                                     n_bits=n, trunc=p)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launched = k12.launches
+            row = dict(shape=[SHARD_ROWS, K, N], mode=mode, part=part,
+                       wall_s=wall, k1_launches=launched)
+            if part in ("m", "n"):
+                row["bit_identical"] = bits_equal(
+                    out, ref[f"{i}"].to(dev))
+                # each rank receives the other ranks' blocks
+                row["gather_bytes"] = (4 * SHARD_ROWS * N
+                                       * (world - 1) // world)
+                ok = row["bit_identical"]
             else:
-                # the sum over the data axis moves every one of these:
-                # probes/sharded_train_faults.py plants its faults
-                agree = all(torch.allclose(g, r.to(dev), atol=5e-3,
-                                           rtol=5e-3)
-                            for g, r in zip(got, want)) and all(
-                    read[k] <= SHARD_DATA_LIMITS[k] for k in read)
-                worst = max(float((g - r.to(dev)).abs().max())
-                            for g, r in zip(got, want))
-            train[str(shape)] = dict(walls_s=walls, metrics=seen,
-                                     agree=agree, worst_abs=worst, **read)
-            say(f"(c) {cfg.name} at {cfg.n_layers} layers on "
-                f"{mesh_shape(m)}: {SHARD_TRAIN_STEPS} steps of {B} x {S}, "
-                f"walls {[round(w, 3) for w in walls]} s, loss and "
-                f"grad_norm by step {seen}; relative to one device: "
-                f"loss {read['loss']!r}, grad_norm {read['grad_norm']!r}, "
-                f"update {read['update']!r}; params after the steps "
-                + ("bit-equal to one device's" if shape == (1, 2) else
-                   "within 5e-3 of one device's (largest |diff| "
-                   f"{worst:.3e}) and the readings within "
-                   f"{SHARD_DATA_LIMITS}") + f": {agree}")
-            if not agree:
-                raise RuntimeError(f"(c) {shape} disagrees with one device")
-            if shape == (2, 1):
-                # saved on (2, 1), restored onto (1, 2)
-                ckpt = CheckpointManager(os.path.join(tmp, "ckpt"),
-                                         async_save=False)
-                t0 = time.monotonic()
-                ckpt.save(SHARD_TRAIN_STEPS, {"params": state["params"]})
-                t1 = time.monotonic()
-                _, treedef = tree_flatten(state["params"])
-                like = {"params": tree_unflatten(treedef, got)}
-                back = ckpt.restore(like, shardings=state_shardings(
-                    sharders[(1, 2)], like))
-                t2 = time.monotonic()
-                same = all(bits_equal(gather_dtensor(r), g) for r, g in zip(
-                    tree_leaves(back), got))
-                placed = tree_leaves(back)[0].placements
-                train["restore"] = dict(same=same, save_s=t1 - t0,
-                                        restore_s=t2 - t1)
-                say(f"(c) params saved on (2, 1) in {t1 - t0:.1f} s and "
-                    f"restored onto (1, 2) ({placed}) in {t2 - t1:.1f} s: "
-                    f"bit-equal to what was saved {same}")
-                if not same:
-                    raise RuntimeError("(c) the elastic restore changed bits")
-                del back, like
-            del state, got, step
-            torch.cuda.empty_cache()
-        del want
-        # one olm16 step, every GEMM's columns split over the two ranks
-        per_pass = gemms_per_pass(cfg)
-        recompute = per_pass - 1 - cfg.n_layers
-        B, S = TRAIN["kernel_batch"]
-        kb = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMDataset(
-            cfg, B, S, seed=TRAIN["seed"]).batch(0).items()}
-        step = build_train_step(model, sharders[(1, 2)], opt_cfg=opt_cfg,
-                                schedule_total=TRAIN["total"],
-                                engine_spec=EngineSpec(mode="olm16",
-                                                       shard="n"))
-        state = distribute_state(sharders[(1, 2)], init_train_state(
-            model, seed=TRAIN["seed"]))
-        torch.cuda.synchronize()
+                row["err_over_bound"] = float(
+                    ((out.double() - exact).abs() / lim).max())
+                ok = row["err_over_bound"] <= 1.0
+            res["gemms"].append(row)
+            say(f"(a) {mode} ({SHARD_ROWS}, {K}) @ ({K}, {N}) over "
+                f"{part}: wall {wall * 1e3:.3f} ms, K1 launches "
+                f"{launched}, " + (
+                    f"bit-identical to one device {ok}, gathered "
+                    f"{row['gather_bytes']} bytes into this rank"
+                    if part != "k" else
+                    f"largest |err| / bound {row['err_over_bound']:.4f}"))
+            if not ok or launched != 1:
+                raise RuntimeError(f"(a) {mode} {part} at ({K}, {N}) "
+                                   "disagrees or launched K1 "
+                                   f"{launched} times")
+        del x, w, exact, lim, out
+    res["launches"]["gemms"] = sum(r["k1_launches"]
+                                   for r in res["gemms"])
+    del ref
+
+    # (b) the serve, every GEMM's columns split over the two ranks ----
+    laps("(b) draw")
+    cfg = get_config(SERVE["arch"])
+    params = Model(cfg, device=dev).init(seed=SERVE["seed"])
+    model = Model(cfg, DotEngine(mode="olm16"), device=dev)
+
+    def seeded_engine():
+        engine = ServeEngine(model, params, slots=SERVE["slots"],
+                             max_len=SERVE["max_len"],
+                             kv_block_size=SERVE["block"], device=dev,
+                             engine=EngineSpec(shard="n"), mesh=mesh)
+        rng = np.random.default_rng(SERVE["seed"])
+        lo, hi = SERVE["prompt"]
+        for rid in range(SERVE["requests"]):
+            prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(
+                lo, hi + 1))).astype(np.int32)
+            engine.submit(Request(rid=rid, prompt=prompt,
+                                  max_new_tokens=SERVE["max_new"]))
+        return engine
+
+    engine = seeded_engine()
+    passes = []
+    for kind in ("prefill", "decode_step"):
+        real = getattr(engine.model, kind)
+
+        def counted(*a, _real=real, **kw):
+            passes.append(1)
+            return _real(*a, **kw)
+
+        setattr(engine.model, kind, counted)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    laps("(b) serve, profiled")
+    ran = []
+
+    def run():
+        # the serve, timed inside the profiler's window: its start and
+        # the reading of its trace stay out of the wall
         k12.launches = 0
         t0 = time.monotonic()
-        state, met = step(state, kb)
+        ran.append(engine.run())
         torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        launched = k12.launches
-        zero = float(met["grad_norm"]) == 0.0
-        train["olm16"] = dict(wall_s=wall, k1_launches=launched,
-                              gemms=per_pass + recompute, zero_grads=zero)
-        res["launches"]["train"] = launched
-        res["train"] = train
-        say(f"(c) one olm16 step with shard='n' on (1, 2) at {B} x {S}: "
-            f"wall {wall:.3f} s, K1 launches {launched} for {per_pass} "
-            f"forward GEMMs + {recompute} recomputed by remat; grad_norm "
-            f"{float(met['grad_norm'])} (every gradient zero: {zero})")
-        if launched != per_pass + recompute or not zero:
-            raise RuntimeError(f"(c) olm16: {launched} K1 launches for "
-                               f"{per_pass + recompute} GEMMs, zero {zero}")
-        del state, step, model
-        gc.collect()
-        torch.cuda.empty_cache()
+        ran.extend((time.monotonic() - t0, k12.launches))
 
-        # (d) the partitioned train step ---------------------------------
-        shard_partitioned(rank, dev, meshes, tmp, say, res)
-        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
-            json.dump(res, f)
+    busy, k1_s, n_events = device_busy(run, "olm_matmul")
+    done, wall, launched = ran
+    peak = torch.cuda.max_memory_allocated()
+    gemms = len(passes) * gemms_per_pass(cfg)
+    tokens = [r.output for r in sorted(done, key=lambda r: r.rid)]
+    same = [list(map(int, t)) for t in tokens] == serve_tokens
+    res["serve"] = dict(wall_s=wall, passes=len(passes), gemms=gemms,
+                        k1_launches=launched, same_tokens=same,
+                        peak_bytes=peak, busy_s=busy, k1_device_s=k1_s,
+                        device_kernels=n_events)
+    res["launches"]["serve"] = launched
+    say(f"(b) {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}) served under olm16 with shard='n' on "
+        f"{mesh_shape(mesh)}, under torch.profiler: wall {wall:.3f} s "
+        f"(ends in torch.cuda.synchronize), {len(passes)} forward passes, "
+        f"GEMMs issued {gemms}, K1 launches {launched}; the serve phase's "
+        f"single-device tokens: {same}; peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB); this rank's kernels kept the device "
+        f"busy {busy:.3f} s ({100 * busy / wall:.1f}% of the wall), K1 "
+        f"{k1_s:.3f} s, {n_events} kernels")
+    if launched != gemms or not same:
+        raise RuntimeError(f"(b) K1 launched {launched} times for "
+                           f"{gemms} GEMMs, same tokens {same}")
+    del params, model, engine, done
+    torch.cuda.empty_cache()
+
+    # (c) the sharded train step -------------------------------------
+    laps("(c) setup")
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=SHARD_TRAIN_LAYERS)
+    model = Model(cfg, device=dev)
+    B, S = TRAIN["batch"]
+    data = SyntheticLMDataset(cfg, B, S, seed=TRAIN["seed"])
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()}
+               for i in range(SHARD_TRAIN_STEPS)]
+    opt_cfg = AdamWConfig(lr=TRAIN["lr"])
+    want = torch.load(os.path.join(tmp, "train.pt"), mmap=True)
+    one = json.loads(Path(tmp, "train.json").read_text())
+    sharders, train = {}, {}
+    for shape, m in meshes.items():
+        laps(f"(c) {shape}")
+        sharders[shape] = sharder = Sharder(m, cfg)
+        sharder.set_batch(B)
+        state = distribute_state(sharder, init_train_state(
+            model, seed=TRAIN["seed"]))
+        step = build_train_step(model, sharder, opt_cfg=opt_cfg,
+                                schedule_total=TRAIN["total"])
+        walls, seen = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, met = step(state, b)
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+            seen.append([float(met["loss"]), float(met["grad_norm"])])
+        got = tree_leaves(gather_state(state["params"]))
+        # each step's loss and grad_norm, and the update (params
+        # after minus before) against one device's, relative
+        read = {
+            "loss": max(abs(a[0] - b[0]) / abs(b[0])
+                        for a, b in zip(seen, one["metrics"])),
+            "grad_norm": max(abs(a[1] - b[1]) / abs(b[1])
+                             for a, b in zip(seen, one["metrics"])),
+            "update": sum(float((g.double() - r.to(dev).double())
+                                .pow(2).sum())
+                          for g, r in zip(got, want)) ** 0.5
+            / one["update_norm"]}
+        if shape == (1, 2):
+            agree = all(bits_equal(g, r.to(dev))
+                        for g, r in zip(got, want))
+            worst = None
+        else:
+            # the sum over the data axis moves every one of these:
+            # probes/sharded_train_faults.py plants its faults
+            agree = all(torch.allclose(g, r.to(dev), atol=5e-3,
+                                       rtol=5e-3)
+                        for g, r in zip(got, want)) and all(
+                read[k] <= SHARD_DATA_LIMITS[k] for k in read)
+            worst = max(float((g - r.to(dev)).abs().max())
+                        for g, r in zip(got, want))
+        train[str(shape)] = dict(walls_s=walls, metrics=seen,
+                                 agree=agree, worst_abs=worst, **read)
+        say(f"(c) {cfg.name} at {cfg.n_layers} layers on "
+            f"{mesh_shape(m)}: {SHARD_TRAIN_STEPS} steps of {B} x {S}, "
+            f"walls {[round(w, 3) for w in walls]} s, loss and "
+            f"grad_norm by step {seen}; relative to one device: "
+            f"loss {read['loss']!r}, grad_norm {read['grad_norm']!r}, "
+            f"update {read['update']!r}; params after the steps "
+            + ("bit-equal to one device's" if shape == (1, 2) else
+               "within 5e-3 of one device's (largest |diff| "
+               f"{worst:.3e}) and the readings within "
+               f"{SHARD_DATA_LIMITS}") + f": {agree}")
+        if not agree:
+            raise RuntimeError(f"(c) {shape} disagrees with one device")
+        if shape == (2, 1):
+            # saved on (2, 1), restored onto (1, 2)
+            laps("(c) save and restore")
+            ckpt = CheckpointManager(os.path.join(tmp, "ckpt"),
+                                     async_save=False)
+            t0 = time.monotonic()
+            ckpt.save(SHARD_TRAIN_STEPS, {"params": state["params"]})
+            t1 = time.monotonic()
+            _, treedef = tree_flatten(state["params"])
+            like = {"params": tree_unflatten(treedef, got)}
+            back = ckpt.restore(like, shardings=state_shardings(
+                sharders[(1, 2)], like))
+            t2 = time.monotonic()
+            same = all(bits_equal(gather_dtensor(r), g) for r, g in zip(
+                tree_leaves(back), got))
+            placed = tree_leaves(back)[0].placements
+            train["restore"] = dict(same=same, save_s=t1 - t0,
+                                    restore_s=t2 - t1)
+            say(f"(c) params saved on (2, 1) in {t1 - t0:.1f} s and "
+                f"restored onto (1, 2) ({placed}) in {t2 - t1:.1f} s: "
+                f"bit-equal to what was saved {same}")
+            if not same:
+                raise RuntimeError("(c) the elastic restore changed bits")
+            del back, like
+        del state, got, step
+        torch.cuda.empty_cache()
+    del want
+    # one olm16 step, every GEMM's columns split over the two ranks
+    laps("(c) olm16")
+    per_pass = gemms_per_pass(cfg)
+    recompute = per_pass - 1 - cfg.n_layers
+    B, S = TRAIN["kernel_batch"]
+    kb = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMDataset(
+        cfg, B, S, seed=TRAIN["seed"]).batch(0).items()}
+    step = build_train_step(model, sharders[(1, 2)], opt_cfg=opt_cfg,
+                            schedule_total=TRAIN["total"],
+                            engine_spec=EngineSpec(mode="olm16",
+                                                   shard="n"))
+    state = distribute_state(sharders[(1, 2)], init_train_state(
+        model, seed=TRAIN["seed"]))
+    torch.cuda.synchronize()
+    k12.launches = 0
+    t0 = time.monotonic()
+    state, met = step(state, kb)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launched = k12.launches
+    zero = float(met["grad_norm"]) == 0.0
+    train["olm16"] = dict(wall_s=wall, k1_launches=launched,
+                          gemms=per_pass + recompute, zero_grads=zero)
+    res["launches"]["train"] = launched
+    res["train"] = train
+    say(f"(c) one olm16 step with shard='n' on (1, 2) at {B} x {S}: "
+        f"wall {wall:.3f} s, K1 launches {launched} for {per_pass} "
+        f"forward GEMMs + {recompute} recomputed by remat; grad_norm "
+        f"{float(met['grad_norm'])} (every gradient zero: {zero})")
+    if launched != per_pass + recompute or not zero:
+        raise RuntimeError(f"(c) olm16: {launched} K1 launches for "
+                           f"{per_pass + recompute} GEMMs, zero {zero}")
+    del state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the partitioned train step ---------------------------------
+    shard_partitioned(rank, dev, meshes, tmp, say, res, laps)
+    res["walls"] = laps.rows
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def stop(ctx) -> None:
+    """Terminate each process of a torch.multiprocessing context still
+    alive."""
+    for proc in ctx.processes:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(30)
+
+
+def await_ranks(ctx, events) -> None:
+    """Wait in the smoke's process until every one of `events` is set. A
+    rank that raised fails the call, and with it the script; so do ranks
+    that all ended before setting them."""
+    while not all(e.is_set() for e in events):
+        if ctx.join(timeout=1.0) and not all(e.is_set() for e in events):
+            raise SystemExit("the ranks ended before their results")
+
+
+def wait_parent(event, parent: int) -> None:
+    """Wait in a child process for the parent's `event`; raise if the
+    parent (pid `parent`) is gone."""
+    while not event.wait(1.0):
+        if os.getppid() != parent:
+            raise RuntimeError("the smoke's process is gone")
+
+
+def ranks_main(rank: int, world: int, port: int, tmp: str, serve_tokens,
+               events, parent: int) -> None:
+    """One of the shard and tp phases' ranks: a process of its own on
+    cuda:0 for both phases, in one gloo group of `world` ranks on
+    127.0.0.1 (NCCL refuses two ranks on one device). It runs the shard
+    phase's parts (`shard_rank`) once the parent's single-device results
+    are in `tmp` (events["shard"]) and sets events["shard_done"][rank];
+    then, once the parent's tp results are there (events["tp"]), rank 0
+    runs (b)'s single device (`tp_one`), both ranks the tp phase's parts
+    (`tp_rank`), and rank 0 (e) and (f)'s single device (`tp_moe_one`).
+    Each part frees its memory before the next starts. The parts' walls
+    go to the parent with each phase's results."""
+    # Yi-34B's blocks fill most of the card that two ranks share: segments
+    # that grow in place keep the init's freed f32 leaves from fragmenting
+    # what the serve needs (read at the process's first allocation)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = TP_ALLOC
+    laps = Laps()
+    laps("import and group")
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(torch.device("cuda", 0))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        laps("wait for the parent's single device")
+        wait_parent(events["shard"], parent)
+        shard_rank(rank, world, tmp, serve_tokens, laps)
+        free_card()
+        events["shard_done"][rank].set()
+        laps = Laps()
+        laps("wait for the parent's single device")
+        wait_parent(events["tp"], parent)
+        if rank == 0:
+            tp_one(tmp, laps)
+        laps("wait for (b)'s single device")
+        dist.barrier()
+        tp_rank(rank, world, tmp, laps)
+        free_card()
+        laps("wait for the other rank")
+        dist.barrier()
+        if rank == 0:
+            tp_moe_one(tmp, laps)
+        laps()
+        torch.save(laps.rows, os.path.join(tmp, f"tp_walls{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def main() -> int:
+def main(exits: contextlib.ExitStack) -> int:
+    """The phases, in order; `exits` stops the processes they start and
+    removes their directories when the script ends, whatever the way."""
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -2090,10 +2264,15 @@ def main() -> int:
                 "tpmm": k5.launches}
 
     walls, running = {}, []
+    # the running phase's parts: part(name) closes the running part,
+    # printing its wall on a line of its own, and opens `name`
+    part = Laps(lambda name, s: print(
+        f"[wall] part {running[-1][0]} {name}: {s:.1f} s", flush=True))
 
     def phase(name):
-        """Close the running phase, printing its wall on a line of its own,
-        and open `name` (None closes the last)."""
+        """Close the running phase (and its running part), printing its wall
+        on a line of its own, and open `name` (None closes the last)."""
+        part()
         now = time.monotonic()
         if running:
             done, t0 = running.pop()
@@ -2128,17 +2307,26 @@ def main() -> int:
         return ([(0, N)] if whole or N <= 2 * K1_SLICE
                 else [(0, K1_SLICE), (N - K1_SLICE, N)])
 
-    # The check phase's widest plain versions, at every serve GEMM shape
-    # and the dense family's M = 4 GEMMs, run on the card on a stream of
-    # their own, from a thread, while nvcc builds the kernels on the host
-    # and the lint phase reads them; the check phase draws the same
-    # operands again from their seeds.
+    # The check phase's K1/K2 plain versions at every model's GEMM shapes
+    # (the serve's, the dense family's M = 4 GEMMs, the recurrent, MoE,
+    # enc-dec and VLM families'), on the columns and rows it holds the
+    # kernels on, run on the card on a stream of their own, from a thread,
+    # while nvcc builds the kernels on the host and the lint phase reads
+    # them; the check phase draws the same operands again from their
+    # seeds.
     WIDE_K1 = ((CHATGLM_KN, "chatglm3_6b", True),
                (CUT_KN, "yi_34b / qwen1_5_110b", False))
     side = torch.cuda.Stream(dev)
 
+    def family_rows(arch):
+        return (4,) + (RG_ROWS if arch == "recurrentgemma_9b" else ())
+
+    def enc_spans():
+        return ((0, ENC_CHECK_ROWS), (ENC_ROWS - ENC_CHECK_ROWS, ENC_ROWS))
+
     def plain_wide():
         out = {}
+        t0 = time.monotonic()
         with torch.cuda.stream(side):
             for shape in SERVE_SHAPES:
                 out[shape] = plain_olm(*operands(shape, 2, dev))
@@ -2147,7 +2335,26 @@ def main() -> int:
                     xs, ws = operands((4, K, N), 13, dev)
                     out[(4, K, N)] = [plain_olm(xs, ws, a, b)
                                       for a, b in k1_spans(N, whole)]
-        return out
+            for arch, kns in FAMILY_KN.items():
+                for M in family_rows(arch):
+                    for K, N in kns:
+                        xs, ws = operands((M, K, N), 15, dev)
+                        out[(arch, M, K, N)] = [
+                            plain_olm(xs, ws, a, b) for a, b in k1_spans(
+                                N, M < 64 and N <= WHOLE_N)]
+            for arch, kns in CROSS_KN.items():
+                for K, N in kns:
+                    xs, ws = operands((4, K, N), 17, dev)
+                    out[(arch, 4, K, N)] = [
+                        plain_olm(xs, ws, a, b)
+                        for a, b in k1_spans(N, N <= WHOLE_N)]
+                for K, N in CROSS_ROWS_KN[arch]:
+                    xs, ws = operands((ENC_ROWS, K, N), 18, dev)
+                    out[(arch, ENC_ROWS, K, N)] = [
+                        plain_olm(xs[a:b].contiguous(), ws)
+                        for a, b in enc_spans()]
+            side.synchronize()
+        return out, time.monotonic() - t0
 
     ahead = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     wide = ahead.submit(plain_wide)
@@ -2222,6 +2429,29 @@ def main() -> int:
 
     # 3. each kernel against its plain version, bit for bit -------------
     phase("check")
+    # The dryrun phase's production cells walk on meta tensors in
+    # subprocesses of their own, on the host's CPU: started here, while the
+    # check and time phases keep the card busy and the host mostly idle;
+    # the dryrun phase reads them.
+    out_dir = tempfile.mkdtemp(prefix="dryrun_torch_")
+    exits.callback(shutil.rmtree, out_dir, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    for i, (arch, shape, *more) in enumerate(DRYRUN_CELLS):
+        # each cell's output to a file: no pipe fills while nothing reads
+        with open(Path(out_dir, f"cell{i}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, *more, "--out", out_dir], cwd=ROOT,
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+
+    def stop_cells():
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    exits.callback(stop_cells)
     max_err = dict.fromkeys(read_counts(), 0.0)
 
     def hold(kernel, label, got, want):
@@ -2254,6 +2484,7 @@ def main() -> int:
         hold("olm_matmul_host", f"{label} against olm_matmul_fused", host,
              fused)
 
+    part("K1/K2 ragged, edges, subnormal tile")
     x, w = operands(RAGGED, 1, dev)
     olm_modes = sorted(m for m in DotEngine.modes() if m.startswith("olm"))
     for mode in olm_modes:
@@ -2275,18 +2506,8 @@ def main() -> int:
                              f"exactly 0 (quantize={quantize!r})")
     print("[check] all-subnormal tile contributes exactly 0 in K1 and K2: "
           "True")
-    t0 = time.monotonic()
-    wants = wide.result()
-    ahead.shutdown()
-    torch.cuda.current_stream().wait_stream(side)
-    side.synchronize()
-    print(f"[check] the plain versions computed since the build phase "
-          f"ready after {time.monotonic() - t0:.1f} s more", flush=True)
-    for shape in SERVE_SHAPES:
-        hold_both(f"olm16 M,K,N={shape}", *operands(shape, 2, dev), 16,
-                  want=wants.pop(shape))
-        torch.cuda.empty_cache()
     # F7: row blocks past grid y's 65,535 continue in grid z
+    part("K1/K2 tall (F7)")
     M, K, N = TALL
     xs, ws = operands(TALL, 23, dev)
     grids = [k12.launch_plan(M, N, K, 16, host=host).launch_grid
@@ -2304,55 +2525,7 @@ def main() -> int:
     del xs, ws, fused, host, want
     torch.cuda.empty_cache()
 
-    def hold_k1(label, xs, ws, whole, wants=None):
-        """K1 on the whole GEMM against the plain version on all of its
-        columns, or on the first and the last K1_SLICE (`wants`, one a
-        span, else computed here)."""
-        got = olm_matmul(xs, ws, n_bits=16)
-        spans = k1_spans(ws.shape[1], whole)
-        if wants is None:
-            wants = [plain_olm(xs, ws, a, b) for a, b in spans]
-        for (a, b), want in zip(spans, wants):
-            hold("olm_matmul_fused", f"{label} columns {a}:{b}",
-                 got[:, a:b].contiguous(), want)
-
-    # (K1's 64-row prefill is held at the serve shapes above)
-    for kns, arch, whole in WIDE_K1:
-        for K, N in kns:
-            xs, ws = operands((4, K, N), 13, dev)
-            hold_k1(f"olm16 {arch} M,K,N={(4, K, N)}", xs, ws, whole,
-                    wants.pop((4, K, N)))
-            del xs, ws
-            torch.cuda.empty_cache()
-    assert not wants, wants.keys()
-    for arch, kns in FAMILY_KN.items():
-        rows = (4,) + (RG_ROWS if arch == "recurrentgemma_9b" else ())
-        for M in rows:
-            for K, N in kns:
-                xs, ws = operands((M, K, N), 15, dev)
-                hold_k1(f"olm16 {arch} M,K,N={(M, K, N)}", xs, ws,
-                        whole=M < 64 and N <= WHOLE_N)
-                del xs, ws
-                torch.cuda.empty_cache()
-    for arch, kns in CROSS_KN.items():
-        for K, N in kns:
-            xs, ws = operands((4, K, N), 17, dev)
-            hold_k1(f"olm16 {arch} M,K,N={(4, K, N)}", xs, ws,
-                    whole=N <= WHOLE_N)
-            del xs, ws
-            torch.cuda.empty_cache()
-        for K, N in CROSS_ROWS_KN[arch]:
-            xs, ws = operands((ENC_ROWS, K, N), 18, dev)
-            got = olm_matmul(xs, ws, n_bits=16)
-            for a, b in ((0, ENC_CHECK_ROWS),
-                         (ENC_ROWS - ENC_CHECK_ROWS, ENC_ROWS)):
-                hold("olm_matmul_fused", f"olm16 {arch} M,K,N="
-                     f"{(ENC_ROWS, K, N)} rows {a}:{b}",
-                     got[a:b].contiguous(),
-                     plain_olm(xs[a:b].contiguous(), ws))
-            del xs, ws, got
-            torch.cuda.empty_cache()
-
+    part("K4 and K3")
     for n, truncated in MUL_CASES:
         cfg = OnlinePrecision(n=n, truncated=truncated, tail_gating=truncated)
         xd, yd = digits((MUL_B, n), n, dev)
@@ -2382,6 +2555,7 @@ def main() -> int:
          online_dot_batch_ref(xd, yd, n=n))
     # the paper's scalar model (core/inner_product, core/online_mul) as a
     # second oracle, independent of the plain versions, row by row
+    part("K3 and K4 against the scalar model")
     B, K, n = ORACLE_DOT
     cfg = OnlinePrecision(n=n)
     xd, yd = digits((B, K, n), 21, dev)
@@ -2402,6 +2576,7 @@ def main() -> int:
          "core.online_mul.online_multiply", k4.online_mul_kernel(xd, yd, cfg),
          want)
     del xd, yd, want
+    part("K3 and K4 general and F6")
     for kw in GENERAL_CONFIGS + (dict(n=40),):
         cfg = OnlinePrecision(**kw)
         xd, yd = digits((GENERAL_MUL_B, cfg.n), cfg.n + cfg.delta, dev)
@@ -2490,6 +2665,7 @@ def main() -> int:
             yield (f"M,K,N={shape}",
                    decompose_operands(*operands(shape, 4, dev), n_bits=n_bits))
 
+    part("K5")
     for n_bits in (16, 8):
         for label, ops in tpmm_cases(n_bits):
             for mode in TPMM_MODES:
@@ -2497,7 +2673,7 @@ def main() -> int:
                      k5.tpmm_kernel(*ops, n_bits=n_bits, mode=mode),
                      tpmm_ref(*ops, n_bits=n_bits, mode=mode))
     del ops
-
+    part("smoke model")
     scfg = dataclasses.replace(smoke_config(SERVE["arch"]),
                                compute_dtype="float32")
     cpu_model = Model(scfg, device="cpu")
@@ -2522,6 +2698,74 @@ def main() -> int:
             raise SystemExit(f"smoke model under {mode} on the card disagrees "
                              "with the CPU")
 
+    # the checks that need no plain version from the side stream run
+    # while it finishes; then the GEMM shapes it computed them for
+    part("wait for the plain versions")
+    t0 = time.monotonic()
+    wants, side_s = wide.result()
+    ahead.shutdown()
+    torch.cuda.current_stream().wait_stream(side)
+    side.synchronize()
+    print(f"[check] the plain versions computed since the build phase "
+          f"({side_s:.1f} s on their stream) ready after "
+          f"{time.monotonic() - t0:.1f} s more", flush=True)
+    part("K1/K2 serve shapes")
+    for shape in SERVE_SHAPES:
+        hold_both(f"olm16 M,K,N={shape}", *operands(shape, 2, dev), 16,
+                  want=wants.pop(shape))
+        torch.cuda.empty_cache()
+
+    def hold_k1(label, xs, ws, whole, wants=None):
+        """K1 on the whole GEMM against the plain version on all of its
+        columns, or on the first and the last K1_SLICE (`wants`, one a
+        span, else computed here)."""
+        got = olm_matmul(xs, ws, n_bits=16)
+        spans = k1_spans(ws.shape[1], whole)
+        if wants is None:
+            wants = [plain_olm(xs, ws, a, b) for a, b in spans]
+        for (a, b), want in zip(spans, wants):
+            hold("olm_matmul_fused", f"{label} columns {a}:{b}",
+                 got[:, a:b].contiguous(), want)
+
+    # (K1's 64-row prefill is held at the serve shapes above)
+    part("K1 dense shapes")
+    for kns, arch, whole in WIDE_K1:
+        for K, N in kns:
+            xs, ws = operands((4, K, N), 13, dev)
+            hold_k1(f"olm16 {arch} M,K,N={(4, K, N)}", xs, ws, whole,
+                    wants.pop((4, K, N)))
+            del xs, ws
+            torch.cuda.empty_cache()
+    part("K1 family shapes")
+    for arch, kns in FAMILY_KN.items():
+        for M in family_rows(arch):
+            for K, N in kns:
+                xs, ws = operands((M, K, N), 15, dev)
+                hold_k1(f"olm16 {arch} M,K,N={(M, K, N)}", xs, ws,
+                        M < 64 and N <= WHOLE_N, wants.pop((arch, M, K, N)))
+                del xs, ws
+                torch.cuda.empty_cache()
+    part("K1 cross shapes")
+    for arch, kns in CROSS_KN.items():
+        for K, N in kns:
+            xs, ws = operands((4, K, N), 17, dev)
+            hold_k1(f"olm16 {arch} M,K,N={(4, K, N)}", xs, ws,
+                    N <= WHOLE_N, wants.pop((arch, 4, K, N)))
+            del xs, ws
+            torch.cuda.empty_cache()
+        for K, N in CROSS_ROWS_KN[arch]:
+            xs, ws = operands((ENC_ROWS, K, N), 18, dev)
+            got = olm_matmul(xs, ws, n_bits=16)
+            for (a, b), want in zip(enc_spans(),
+                                    wants.pop((arch, ENC_ROWS, K, N))):
+                hold("olm_matmul_fused", f"olm16 {arch} M,K,N="
+                     f"{(ENC_ROWS, K, N)} rows {a}:{b}",
+                     got[a:b].contiguous(), want)
+            del xs, ws, got
+            torch.cuda.empty_cache()
+    assert not wants, wants.keys()
+
+
     # 4. times ---------------------------------------------------------
     phase("time")
     timed = {}
@@ -2543,6 +2787,7 @@ def main() -> int:
               f"({by}: bytes {byte_ms:.4f} ms, operations {op_ms:.4f} ms); "
               f"plain version {plain}{ctx}", flush=True)
 
+    part("K1/K2 decode and prefill")
     for label, shape in (("decode_gemv", DECODE_GEMV),
                          ("prefill_gemm", PREFILL_GEMM)):
         M, K, N = shape
@@ -2577,6 +2822,7 @@ def main() -> int:
 
     # K1 at ChatGLM3-6B's GEMMs: the 4-lane decode and the 64-row prefill
     # of the dense phase's serve
+    part("K1 chatglm3 shapes")
     for M in (4, 64):
         for K, N in CHATGLM_KN:
             x, w = operands((M, K, N), 14, dev)
@@ -2589,6 +2835,7 @@ def main() -> int:
                    f"plan bm x bn x tb {plan.bm} x {plan.bn} x {plan.tb}")
             del x, w
     # K1 at the recurrent and MoE families' decode GEMMs
+    part("K1 family shapes")
     for arch, kns in FAMILY_KN.items():
         for K, N in kns:
             x, w = operands((4, K, N), 16, dev)
@@ -2603,6 +2850,7 @@ def main() -> int:
             torch.cuda.empty_cache()
     # K1 at the enc-dec and VLM families' new shapes: a 4-lane decode and
     # the ENC_ROWS-row cross K/V and encoder GEMMs
+    part("K1 cross shapes")
     for arch, kns in CROSS_KN.items():
         for M, K, N in ([(4, K, N) for K, N in kns]
                         + [(ENC_ROWS, K, N) for K, N in CROSS_ROWS_KN[arch]]):
@@ -2617,6 +2865,7 @@ def main() -> int:
                    f"{plan.tb}")
             del x, w
             torch.cuda.empty_cache()
+    part("K4, K3 and the general kernels")
     for n, truncated in MUL_CASES[:4]:
         cfg = OnlinePrecision(n=n)
         xd, yd = digits((MUL_B, n), n, dev)
@@ -2659,6 +2908,7 @@ def main() -> int:
                        reps=1),
                (2 * B * K * n + B * m) * 4, k3.int_ops(B, K, cfg), rate)
     del xd, yd
+    part("K5")
     for n_bits, shapes in ((16, SERVE_SHAPES), (8, (DECODE_GEMV, PREFILL_GEMM))):
         for shape in shapes:
             M, K, N = shape
@@ -2715,11 +2965,12 @@ def main() -> int:
         answered, finite logits, launches == GEMMs issued; a model that
         cannot right-pad its prompts prefills each request alone at its
         exact length), a second with the path kernel's launches bracketed
-        (the same tokens), a third profiled unless `profile` is False.
+        (the same tokens), under torch.profiler unless `profile` is False.
         Returns the first run's outputs by rid; its wall, GEMMs and, under
         dot_tiling="auto", the tuner cache's hits and misses go into
         serve_stats."""
         auto = (engine_kw or {}).get("dot_tiling") == "auto"
+        part(f"{cfg.name} {mode} serve")
         model = Model(cfg, DotEngine(mode=mode), device=dev)
         prompt_lens = []
 
@@ -2808,7 +3059,10 @@ def main() -> int:
         # of the path's kernel (and, under tpmm, every plane decomposition
         # of its operands) bracketed by CUDA events on its stream (an upper
         # bound on the device time: a gap while the host prepares a launch
-        # counts too).
+        # counts too); with `profile`, the same run under torch.profiler
+        # for the device's busy share.
+        part(f"{cfg.name} {mode} serve again, bracketed"
+             + (" and profiled" if profile else ""))
         engine = seeded_engine()
         parts = [(kernel, module, attr), *path_extra[mode]]
         spans = {label: [] for label, _, _ in parts}
@@ -2827,10 +3081,20 @@ def main() -> int:
         originals = [getattr(m, at) for _, m, at in parts]
         for (label, m, at), fn in zip(parts, originals):
             setattr(m, at, bracketed(label, fn))
-        t0 = time.monotonic()
-        again = engine.run()
-        torch.cuda.synchronize()
-        wall2 = time.monotonic() - t0
+        second = []
+
+        def run_again():
+            t0 = time.monotonic()
+            second.append(engine.run())
+            torch.cuda.synchronize()
+            second.append(time.monotonic() - t0)
+
+        if profile:
+            busy, kernel_s, n_events = device_busy(run_again,
+                                                   kernel_name[mode], part)
+        else:
+            run_again()
+        again, wall2 = second
         for (_, m, at), fn in zip(parts, originals):
             setattr(m, at, fn)
         secs = {label: sum(a.elapsed_time(b) for a, b in sp) / 1e3
@@ -2851,14 +3115,13 @@ def main() -> int:
 
         if not profile:
             return first
-        # The device's busy share: the same requests a third time under
-        # torch.profiler, the union of the device's kernel intervals over
-        # the first run's (unprofiled) wall, and the path kernel's own
-        # device time from the trace.
-        engine = seeded_engine()
-        busy, kernel_s, n_events = device_busy(engine.run, kernel_name[mode])
+        # The device's busy share: the union of the device's kernel
+        # intervals in the second run's trace over the first run's
+        # (unprofiled) wall, and the path kernel's own device time from the
+        # trace.
         if n_events:
-            print(f"[{tag}] {mode}: profiled run: {n_events} device kernels "
+            print(f"[{tag}] {mode}: profiled run (the second): {n_events} "
+                  f"device kernels "
                   f"({n_events / gemms:.1f} a GEMM), device busy {busy:.3f} s"
                   f", {100 * busy / wall:.1f}% of the first run's wall (idle "
                   f"{100 * (1 - busy / wall):.1f}%); {kernel} device time "
@@ -2874,6 +3137,7 @@ def main() -> int:
         print(f"[serve] depth cut to {SERVE_LAYERS} of 24 layers; widths as "
               "published")
     describe("serve", cfg)
+    part(f"{cfg.name} draw")
     params = Model(cfg, device=dev).init(seed=SERVE["seed"])
     for mode in SERVE["modes"]:
         outputs[mode] = serve("serve", cfg, params, mode)
@@ -2882,6 +3146,7 @@ def main() -> int:
     print(f"[serve] olm16 and tpmm16 agree on {agree} of "
           f"{sum(map(len, outputs['olm16']))} generated tokens (random "
           "weights; both within their documented error)")
+    part("free")
     del params
     torch.cuda.empty_cache()
 
@@ -2941,6 +3206,7 @@ def main() -> int:
     if SERVE_LAYERS is not None:
         cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
     per_pass = 7 * cfg.n_layers + 1
+    part(f"{cfg.name} draw")
     params = Model(cfg, device=dev).init(seed=SERVE["seed"])
     model = Model(cfg, DotEngine(mode="olm16"), device=dev)
     workload = build_workload(ReplayConfig(**REPLAY_WORKLOAD))
@@ -2958,6 +3224,7 @@ def main() -> int:
     def replay(label, faults=None, **extra):
         """One run of the workload: (done, report, engine, passes, K1
         launches by tier mode, wall seconds, peak bytes)."""
+        part(label)
         engine = ServeEngine(model, params, device=dev, **REPLAY_ENGINE,
                              **extra)
         passes = {"prefill": 0, "prefill_chunk": 0, "decode_step": 0}
@@ -3086,6 +3353,7 @@ def main() -> int:
           "the schedule, so requests wait, degrade or expire otherwise; the "
           "equality of chunked and unchunked prefill is held on the CPU)",
           flush=True)
+    part("free")
     del params, model, engine, inj
     gc.collect()                # the injector and its engine form a cycle
     torch.cuda.empty_cache()
@@ -3098,6 +3366,7 @@ def main() -> int:
     per_pass = 7 * cfg.n_layers + 1
     describe("dense", cfg)
     torch.cuda.reset_peak_memory_stats()
+    part(f"{cfg.name} draw")
     params = Model(cfg, device=dev).init(seed=SERVE["seed"])
     torch.cuda.synchronize()
     print(f"[dense] weights on the card: {torch.cuda.memory_allocated()} "
@@ -3106,6 +3375,7 @@ def main() -> int:
 
     # forward and lm_loss at full width under olm16, against prefill and a
     # plain NLL
+    part(f"{cfg.name} forward, prefill and lm_loss")
     model = Model(cfg, DotEngine(mode="olm16"), device=dev)
     toks = torch.from_numpy(np.random.default_rng(SERVE["seed"]).integers(
         0, cfg.vocab_size, (1, FORWARD_LEN))).to(dev)
@@ -3144,6 +3414,7 @@ def main() -> int:
 
     # a native forward long enough for the flash path, against the same
     # forward with the plain path forced
+    part(f"{cfg.name} flash and plain forwards")
     native = Model(cfg, DotEngine(mode="native"), device=dev)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, FLASH_LEN))).to(dev)
@@ -3189,6 +3460,7 @@ def main() -> int:
         full = get_config(arch)
         cfg = dataclasses.replace(full, n_layers=depth)
         per_pass = 7 * depth + 1
+        part(f"{cfg.name} at {depth} layers")
         describe("dense", cfg, cut=full.n_layers)
         torch.cuda.reset_peak_memory_stats()
         params = Model(cfg, device=dev).init(seed=SERVE["seed"])
@@ -3227,6 +3499,7 @@ def main() -> int:
           f"{torch.cuda.memory_allocated()} bytes", flush=True)
 
     def family_params(cfg, tag="families"):
+        part(f"{cfg.name} draw")
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         params = Model(cfg, device=dev).init(seed=SERVE["seed"])
@@ -3286,10 +3559,12 @@ def main() -> int:
         if not finite or max(errs) > 3e-2:
             raise SystemExit(f"{tag}: decode disagrees with forward")
 
-    # RecurrentGemma-9B at its full width and depth: served under olm16
-    # (K1 at every eng.dot GEMM), then a ring that rolls, under native
-    cfg = get_config("recurrentgemma_9b")
-    describe("families", cfg)
+    # RecurrentGemma-9B at its full width, FAMILY_RG_LAYERS deep: served
+    # under olm16 (K1 at every eng.dot GEMM), then a ring that rolls, under
+    # native
+    full = get_config("recurrentgemma_9b")
+    cfg = dataclasses.replace(full, n_layers=FAMILY_RG_LAYERS)
+    describe("families", cfg, cut=full.n_layers)
     print(f"[families] {cfg.name}: kinds {cfg.block_pattern} x "
           f"{cfg.pattern_groups} + {cfg.remainder_blocks}, window "
           f"{cfg.sliding_window}, rnn_width {cfg.rnn_width}; "
@@ -3299,6 +3574,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     print(f"[families] {cfg.name} serve peak memory {peak} bytes "
           f"({peak / 2**30:.2f} GiB)", flush=True)
+    part(f"{cfg.name} ring against forward")
     native = Model(cfg, DotEngine(mode="native"), device=dev)
     n_ring = RING_PROMPT + RING_DECODES
     toks = torch.from_numpy(np.random.default_rng(3).integers(
@@ -3338,6 +3614,7 @@ def main() -> int:
     describe("families", cfg)
     params = family_params(cfg)
     serve("families", cfg, params, "olm16")
+    part(f"{cfg.name} prefill and decode against forward")
     model = Model(cfg, DotEngine(mode="olm16"), device=dev)
     engine = ServeEngine(model, params, slots=SERVE["slots"],
                          max_len=SERVE["max_len"],
@@ -3380,6 +3657,7 @@ def main() -> int:
                   f"{cfg.capacity_factor}, window {cfg.sliding_window}; "
                   f"{per_pass} eng.dot GEMMs a pass", flush=True)
             params = family_params(cfg)
+            part(f"{cfg.name} prefill, decodes and forward")
             model = Model(cfg, DotEngine(mode="olm16"), device=dev)
             toks = torch.from_numpy(np.random.default_rng(5).integers(
                 0, cfg.vocab_size, (SERVE["slots"], 16))).to(dev)
@@ -3438,6 +3716,7 @@ def main() -> int:
         path = os.path.join(tmp, "tuning_torch.json")
         cache = tuning.TuningCache(path)
         t0 = time.monotonic()
+        part("tune")
         for M, K, N in SERVE_SHAPES:
             trace = []
             best = tuning.tune(M, N, K, 16, cache, trace=trace)
@@ -3466,10 +3745,12 @@ def main() -> int:
         if tuner.path != path:
             raise SystemExit("the tuner's default cache was made before "
                              "the tune phase")
+        part(f"{cfg.name} draw")
         params = Model(cfg, device=dev).init(seed=SERVE["seed"])
         first = serve("tune", cfg, params, "olm16", profile=False,
                       engine_kw=dict(dot_tiling="auto"))
         del params
+    part("against the committed plans")
     stats, fixed = serve_stats["tune olm16"], serve_stats["serve olm16"]
     hits, misses = stats["tuner"]
     print(f"[tune] serve under dot_tiling='auto': wall {stats['wall']:.3f} s "
@@ -3528,9 +3809,10 @@ def main() -> int:
         return out
 
     for arch in CROSS_ARCHS:
-        cfg = get_config(arch)
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, **CROSS_DEPTH[arch])
         key = "frames" if cfg.family == "encdec" else "patches"
-        describe("crossattn", cfg)
+        describe("crossattn", cfg, cut=full.n_layers)
         per_pass, with_enc = gemms_per_pass(cfg), gemms_per_pass(cfg, True)
         print(f"[crossattn] {cfg.name}: family {cfg.family}, kinds "
               f"{cfg.block_pattern} x {cfg.pattern_groups}, "
@@ -3538,6 +3820,7 @@ def main() -> int:
               f"{key} a lane; {with_enc} eng.dot GEMMs a pass over {key}, "
               f"{per_pass} a decode step", flush=True)
         params = family_params(cfg, tag="crossattn")
+        part(f"{cfg.name} prefill, decodes and forwards")
         model = Model(cfg, DotEngine(mode="olm16"), device=dev)
         g = torch.Generator(device=dev).manual_seed(SERVE["seed"])
         front = torch.randn(CROSS_LANES, cfg.n_frontend_tokens, cfg.d_model,
@@ -3639,6 +3922,7 @@ def main() -> int:
 
     # (a) native at full width and depth, f32 masters, bf16 compute,
     # remat="block": overfit one batch
+    part(f"{cfg.name} draw")
     t0 = time.monotonic()
     box = [init_train_state(model, seed=TRAIN["seed"])]
     torch.cuda.synchronize()
@@ -3651,10 +3935,13 @@ def main() -> int:
                                schedule_total=TRAIN["total"])
     # the first SHARD_TP_STEPS steps' readings and the update's norm over
     # them: what the shard phase's (d1) holds its partitioned ranks to
+    part(f"the first {SHARD_TP_STEPS} steps")
     state, rows = train_steps(step_fn, box, SHARD_TP_STEPS, "native")
+    part(f"the first {SHARD_TP_STEPS} steps' update norm")
     first_update = sum(update_sq(model, state["params"]).values()) ** 0.5
     box = [state]
     del state
+    part(f"steps {SHARD_TP_STEPS}-{TRAIN['steps'] - 1}")
     state, more = train_steps(step_fn, box, TRAIN["steps"] - SHARD_TP_STEPS,
                               "native", first=SHARD_TP_STEPS)
     rows += more
@@ -3680,6 +3967,7 @@ def main() -> int:
     # the forward and backward alone, with and without remat: what the
     # graph holds after the forward, the peak, the wall (each twice, the
     # second printed: the first call of a model warms its caches)
+    part("forward and backward, remat block and none, twice")
     for remat in ("block", "none") * 2:
         m = Model(dataclasses.replace(cfg, remat=remat), device=dev)
         leaves, treedef = tree_flatten(state["params"])
@@ -3703,6 +3991,7 @@ def main() -> int:
         del m, leaves, live, loss, grads
 
     # (b) microbatches = 2 from the state (a) ends in, against one batch
+    part("microbatches 2 against 1")
     p1 = step_fn(state, batch)[0]["params"]
     mb_fn = build_train_step(model, opt_cfg=opt_cfg, microbatches=2,
                              schedule_total=TRAIN["total"])
@@ -3720,6 +4009,7 @@ def main() -> int:
     del p1, two
 
     # (c) compressed gradients: one step, the error state allocated
+    part("compressed gradients")
     cz_fn = build_train_step(model, opt_cfg=opt_cfg, compress_grads=True,
                              schedule_total=TRAIN["total"])
     cz, met = cz_fn(state, batch)
@@ -3758,6 +4048,7 @@ def main() -> int:
             spans.append((start, stop))
             return out
 
+        part(f"{mode} steps")
         m = Model(cfg, DotEngine(mode=mode), device=dev)
         box = [init_train_state(m, seed=TRAIN["seed"])]
         fn = build_train_step(m, opt_cfg=opt_cfg,
@@ -3808,14 +4099,16 @@ def main() -> int:
     del model, kbatch
 
     # (e) the train CLI on Mamba2-130M, the reference example's settings:
-    # 20 steps with checkpoints, a resume to 30, a straight 30-step run
+    # 30 steps with checkpoints, a resume of its step 20 to 30
     saved, restored, streamed, save_walls = {}, [], [], []
+    ckpt_dirs = set()
 
     class Recording(train_cli.CheckpointManager):
         # the CLI's state rests as DTensors on its one-rank mesh: each leaf
         # is recorded whole; each save call's wall is the time the loop
         # waits in it (the write runs in the background unless it blocks)
         def save(self, step, tree, *, block=False):
+            ckpt_dirs.add(self.dir)
             saved[step] = [t.detach().clone()
                            for t in tree_leaves(gather_state(tree))]
             t0 = time.monotonic()
@@ -3859,16 +4152,23 @@ def main() -> int:
         args = ["--arch", CLI["arch"], "--batch", str(CLI["batch"]),
                 "--seq", str(CLI["seq"]), "--lr", str(CLI["lr"]),
                 "--log-every", "1"]
+        # run 1 goes straight to 30; its step-30 checkpoint removed, the
+        # directory is a run's that stopped after step 20's checkpoint, and
+        # run 2 resumes it to 30: steps 20-29 twice, once straight and once
+        # resumed (the first 20 steps run once)
         t0 = time.monotonic()
-        one, _ = cli(args + ["--steps", "20", "--ckpt-every", "10",
-                             "--ckpt-dir", f"{tmp}/resumed"])
+        part("cli straight 30")
+        one, straight = cli(args + ["--steps", "30", "--ckpt-every", "10",
+                                    "--ckpt-dir", f"{tmp}/run"])
         t1 = time.monotonic()
         at20 = saved.pop(20)
         saved.clear()
         streamed.clear()
+        (run_dir,) = ckpt_dirs
+        shutil.rmtree(run_dir / f"step_{30:08d}")   # the manager's layout
+        part("cli resumed to 30")
         two, resumed = cli(args + ["--steps", "30", "--ckpt-every", "10",
-                                   "--ckpt-dir", f"{tmp}/resumed",
-                                   "--resume"])
+                                   "--ckpt-dir", f"{tmp}/run", "--resume"])
         t2 = time.monotonic()
         first_step, first_tokens = streamed[0]
         same_state = len(restored) == 1 and len(restored[0]) == len(at20) and \
@@ -3877,23 +4177,20 @@ def main() -> int:
                                     CLI["seq"], seed=0).batch(20)["tokens"]
         same_batch = np.array_equal(first_tokens, stream)
         del at20, restored[:]
-        three, straight = cli(args + ["--steps", "30", "--ckpt-every", "1000",
-                                      "--ckpt-dir", f"{tmp}/straight"])
-        t3 = time.monotonic()
     saved.clear()
     rel = {k: abs(resumed[k] - straight[k]) / abs(straight[k])
            for k in range(20, 30)}
     print(f"[train] cli {CLI['arch']} (batch {CLI['batch']} x seq "
-          f"{CLI['seq']}, lr {CLI['lr']}): run 1 {one['steps']} steps in "
-          f"{t1 - t0:.1f} s, loss {one['loss_first']:.4f} -> "
-          f"{one['loss_last']:.4f}, improved {one['loss_improved']}; run 2 "
-          f"resumed at step {first_step} ({two['steps']} steps in "
-          f"{t2 - t1:.1f} s), restored state bit-equal to the saved one "
-          f"{same_state}, its first batch the stream's step 20 {same_batch}; "
-          f"run 3 straight {three['steps']} steps in {t3 - t2:.1f} s, steps "
-          f"20-29 within {max(rel.values()):.2e} of the resumed run's "
-          f"(gate 1e-3 relative); each save call's wall in s, in order "
-          f"(the last of each run blocks) {save_walls}", flush=True)
+          f"{CLI['seq']}, lr {CLI['lr']}): run 1 straight {one['steps']} "
+          f"steps in {t1 - t0:.1f} s, loss {one['loss_first']:.4f} -> "
+          f"{one['loss_last']:.4f}, improved {one['loss_improved']}; its "
+          f"step-30 checkpoint removed, run 2 resumed at step {first_step} "
+          f"({two['steps']} steps in {t2 - t1:.1f} s), restored state "
+          f"bit-equal to the saved one {same_state}, its first batch the "
+          f"stream's step 20 {same_batch}, steps 20-29 within "
+          f"{max(rel.values()):.2e} of the straight run's (gate 1e-3 "
+          f"relative); each save call's wall in s, in order (the last of "
+          f"each run blocks) {save_walls}", flush=True)
     if not one["loss_improved"]:
         raise SystemExit("train: the CLI's loss did not improve")
     if first_step != 20 or not same_state or not same_batch:
@@ -3910,134 +4207,150 @@ def main() -> int:
     import torch.multiprocessing as mp
     from repro_torch.kernels.online_dot.matmul_sharded import (
         sharded_traffic)
-    with tempfile.TemporaryDirectory() as tmp:
-        # the single-device results the ranks are held against: K1 at
-        # each GEMM, and the native train step over the cut model
-        refs = {}
-        for i, ((K, N), mode) in enumerate(SHARD_GEMMS):
-            n, p = mode_bits(mode)
-            x, w = operands((SHARD_ROWS, K, N), 100 + i, dev)
-            refs[f"{i}"] = olm_matmul(x, w, n_bits=n, trunc=p).cpu()
-            tr = {part: sharded_traffic(SHARD_ROWS, N, K, partition=part,
-                                        devices=SHARD_RANKS, n_bits=n,
-                                        trunc=p)
-                  for part in ("m", "n", "k")}
-            print(f"[shard] {mode} ({SHARD_ROWS}, {K}) @ ({K}, {N}): "
-                  f"sharded_traffic over {SHARD_RANKS}: local fused bytes "
-                  f"{ {k: v['local']['fused_bytes'] for k, v in tr.items()} }"
-                  f", collective bytes "
-                  f"{ {k: v['collective_bytes'] for k, v in tr.items()} }",
-                  flush=True)
-        torch.save(refs, os.path.join(tmp, "gemm.pt"))
-        del refs, x, w
-        cfg = dataclasses.replace(get_config(TRAIN["arch"]),
-                                  n_layers=SHARD_TRAIN_LAYERS)
-        describe("shard", cfg, cut=24)
-        model = Model(cfg, device=dev)
-        B, S = TRAIN["batch"]
-        data = SyntheticLMDataset(cfg, B, S, seed=TRAIN["seed"])
-        step_fn = build_train_step(model, opt_cfg=AdamWConfig(
-            lr=TRAIN["lr"]), schedule_total=TRAIN["total"])
-        state = init_train_state(model, seed=TRAIN["seed"])
-        start = tree_leaves(state["params"])
-        seen = []
-        t0 = time.monotonic()
-        for i in range(SHARD_TRAIN_STEPS):
-            state, met = step_fn(state, {k: torch.from_numpy(v).to(dev)
-                                         for k, v in data.batch(i).items()})
-            seen.append([met["loss"], met["grad_norm"]])
-        torch.cuda.synchronize()
-        seen = [[float(v) for v in m] for m in seen]
-        end = tree_leaves(state["params"])
-        # the norm of the whole update, the (2, 1) check's denominator
-        update = sum(float((e.double() - b.double()).pow(2).sum())
-                     for e, b in zip(end, start)) ** 0.5
-        print(f"[shard] one device: {SHARD_TRAIN_STEPS} steps in "
-              f"{time.monotonic() - t0:.3f} s, loss and grad_norm by step "
-              f"{seen}; update norm {update!r}; "
-              f"{sum(t.numel() for t in end)} params", flush=True)
-        torch.save([t.cpu() for t in end], os.path.join(tmp, "train.pt"))
-        Path(tmp, "train.json").write_text(json.dumps(
-            {"metrics": seen, "update_norm": update}))
-        del model, step_fn, state, met, start, end
-        gc.collect()
-        torch.cuda.empty_cache()
-        # (d2)'s one device: layer 0's wq under olm16 on the cut, at the
-        # kernel batch (its input and output)
-        t0 = time.monotonic()
-        kB, kS = TRAIN["kernel_batch"]
-        m16 = Model(cfg, DotEngine(mode="olm16"), device=dev)
-        params = m16.init(seed=TRAIN["seed"])
-        kb = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMDataset(
-            cfg, kB, kS, seed=TRAIN["seed"]).batch(0).items()}
-        with torch.no_grad(), olm_calls({0}) as calls:
-            lm_loss(m16, cast_params(params, cfg), kb)
-        torch.save([t.cpu() for t in calls[0]], os.path.join(tmp,
-                                                             "wq16.pt"))
-        del m16, params, kb, calls
-        gc.collect()
-        torch.cuda.empty_cache()
-        # (d3)'s one device: SHARD_VLM whole, SHARD_TP_STEPS steps
-        vcfg = dataclasses.replace(get_config(SHARD_VLM["arch"]),
-                                   n_layers=SHARD_VLM["n_layers"])
-        describe("shard (d3)", vcfg, cut=get_config(SHARD_VLM["arch"])
-                 .n_layers)
-        vmodel = Model(vcfg, device=dev)
-        state = init_train_state(vmodel, seed=TRAIN["seed"])
-        vstep = build_train_step(vmodel, opt_cfg=AdamWConfig(
-            lr=TRAIN["lr"]), schedule_total=TRAIN["total"])
-        vseen = []
-        torch.cuda.synchronize()
-        t1 = time.monotonic()
-        for b in shard_vlm_batches(vcfg, dev):
-            state, met = vstep(state, b)
-            vseen.append([float(met["loss"]), float(met["grad_norm"])])
-        torch.cuda.synchronize()
-        vwall = time.monotonic() - t1
-        vupdate = sum(update_sq(vmodel, state["params"]).values()) ** 0.5
-        print(f"[shard] (d3) one device: {SHARD_TP_STEPS} steps of "
-              f"{vcfg.name} at {vcfg.n_layers} layers in {vwall:.3f} s, "
-              f"loss and grad_norm by step {vseen}; update norm "
-              f"{vupdate!r}", flush=True)
-        del vmodel, state, vstep, met
-        gc.collect()
-        torch.cuda.empty_cache()
-        Path(tmp, "train_tp.json").write_text(json.dumps({
-            "d1": train_first,
-            "d3": {"metrics": vseen, "update_norm": vupdate}}))
-        print(f"[shard] (d)'s single-device references in "
-              f"{time.monotonic() - t0:.1f} s", flush=True)
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        tokens = [[int(t) for t in out] for out in outputs["olm16"]]
-        t0 = time.monotonic()
-        ctx = mp.start_processes(shard_rank, args=(SHARD_RANKS, port, tmp,
-                                                   tokens),
-                                 nprocs=SHARD_RANKS, join=False,
-                                 start_method="spawn")
-        try:
-            # (d4)'s walk, in this process (no default group here) while
-            # the ranks run
-            from repro_torch.launch import dryrun
-            from repro_torch.launch.mesh import make_abstract_mesh
-            from repro_torch.launch.shapes import ShapeCase
-            t1 = time.monotonic()
-            walked, _, _ = dryrun.walk_cell(
-                cfg, ShapeCase("shard_train", S, B, "train"),
-                make_abstract_mesh((1, SHARD_RANKS), ("data", "model")))
-            walk_s = time.monotonic() - t1
-            # a rank that raises fails this call, and with it the script
-            while not ctx.join():
-                pass
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.terminate()
-        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
-                 for r in range(SHARD_RANKS)]
-        print(f"[shard] {SHARD_RANKS} ranks done in "
-              f"{time.monotonic() - t0:.1f} s (spawn included)", flush=True)
+    # The two ranks of this phase and of the tp phase: one spawn, one gloo
+    # group, both phases' parts one after the other (`ranks_main`). They
+    # import torch and join their group while this process computes the
+    # single-device results they are held against.
+    part("spawn the ranks")
+    if SHARD_RANKS != TP_RANKS:
+        raise SystemExit("the shard and tp phases share their ranks")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    exits.callback(shutil.rmtree, tmp, ignore_errors=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    spawn = mp.get_context("spawn")
+    events = {"shard": spawn.Event(), "tp": spawn.Event(),
+              "shard_done": [spawn.Event() for _ in range(SHARD_RANKS)]}
+    tokens = [[int(t) for t in out] for out in outputs["olm16"]]
+    t_ranks = time.monotonic()
+    ranks_ctx = mp.start_processes(
+        ranks_main, args=(SHARD_RANKS, port, tmp, tokens, events,
+                          os.getpid()),
+        nprocs=SHARD_RANKS, join=False, start_method="spawn")
+    exits.callback(stop, ranks_ctx)
+    # the single-device results the ranks are held against: K1 at
+    # each GEMM, and the native train step over the cut model
+    part("(a) one device")
+    refs = {}
+    for i, ((K, N), mode) in enumerate(SHARD_GEMMS):
+        n, p = mode_bits(mode)
+        x, w = operands((SHARD_ROWS, K, N), 100 + i, dev)
+        refs[f"{i}"] = olm_matmul(x, w, n_bits=n, trunc=p).cpu()
+        tr = {how: sharded_traffic(SHARD_ROWS, N, K, partition=how,
+                                   devices=SHARD_RANKS, n_bits=n, trunc=p)
+              for how in ("m", "n", "k")}
+        print(f"[shard] {mode} ({SHARD_ROWS}, {K}) @ ({K}, {N}): "
+              f"sharded_traffic over {SHARD_RANKS}: local fused bytes "
+              f"{ {k: v['local']['fused_bytes'] for k, v in tr.items()} }"
+              f", collective bytes "
+              f"{ {k: v['collective_bytes'] for k, v in tr.items()} }",
+              flush=True)
+    torch.save(refs, os.path.join(tmp, "gemm.pt"))
+    del refs, x, w
+    part("(c) one device")
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=SHARD_TRAIN_LAYERS)
+    describe("shard", cfg, cut=24)
+    model = Model(cfg, device=dev)
+    B, S = TRAIN["batch"]
+    data = SyntheticLMDataset(cfg, B, S, seed=TRAIN["seed"])
+    step_fn = build_train_step(model, opt_cfg=AdamWConfig(
+        lr=TRAIN["lr"]), schedule_total=TRAIN["total"])
+    state = init_train_state(model, seed=TRAIN["seed"])
+    start = tree_leaves(state["params"])
+    seen = []
+    t0 = time.monotonic()
+    for i in range(SHARD_TRAIN_STEPS):
+        state, met = step_fn(state, {k: torch.from_numpy(v).to(dev)
+                                     for k, v in data.batch(i).items()})
+        seen.append([met["loss"], met["grad_norm"]])
+    torch.cuda.synchronize()
+    seen = [[float(v) for v in m] for m in seen]
+    end = tree_leaves(state["params"])
+    # the norm of the whole update, the (2, 1) check's denominator
+    update = sum(float((e.double() - b.double()).pow(2).sum())
+                 for e, b in zip(end, start)) ** 0.5
+    print(f"[shard] one device: {SHARD_TRAIN_STEPS} steps in "
+          f"{time.monotonic() - t0:.3f} s, loss and grad_norm by step "
+          f"{seen}; update norm {update!r}; "
+          f"{sum(t.numel() for t in end)} params", flush=True)
+    torch.save([t.cpu() for t in end], os.path.join(tmp, "train.pt"))
+    Path(tmp, "train.json").write_text(json.dumps(
+        {"metrics": seen, "update_norm": update}))
+    del model, step_fn, state, met, start, end
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d2)'s one device: layer 0's wq under olm16 on the cut, at the
+    # kernel batch (its input and output)
+    part("(d2) one device")
+    t0 = time.monotonic()
+    kB, kS = TRAIN["kernel_batch"]
+    m16 = Model(cfg, DotEngine(mode="olm16"), device=dev)
+    params = m16.init(seed=TRAIN["seed"])
+    kb = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMDataset(
+        cfg, kB, kS, seed=TRAIN["seed"]).batch(0).items()}
+    with torch.no_grad(), olm_calls({0}) as calls:
+        lm_loss(m16, cast_params(params, cfg), kb)
+    torch.save([t.cpu() for t in calls[0]], os.path.join(tmp,
+                                                         "wq16.pt"))
+    del m16, params, kb, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d3)'s one device: SHARD_VLM whole, its steps
+    part("(d3) one device")
+    vcfg = dataclasses.replace(get_config(SHARD_VLM["arch"]),
+                               n_layers=SHARD_VLM["n_layers"],
+                               remat=SHARD_VLM["remat"])
+    describe("shard (d3)", vcfg, cut=get_config(SHARD_VLM["arch"])
+             .n_layers)
+    vmodel = Model(vcfg, device=dev)
+    state = init_train_state(vmodel, seed=TRAIN["seed"])
+    vstep = build_train_step(vmodel, opt_cfg=AdamWConfig(
+        lr=TRAIN["lr"]), schedule_total=TRAIN["total"])
+    vseen = []
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    for b in shard_vlm_batches(vcfg, dev):
+        state, met = vstep(state, b)
+        vseen.append([float(met["loss"]), float(met["grad_norm"])])
+    torch.cuda.synchronize()
+    vwall = time.monotonic() - t1
+    vupdate = sum(update_sq(vmodel, state["params"]).values()) ** 0.5
+    print(f"[shard] (d3) one device: {len(vseen)} steps of "
+          f"{vcfg.name} at {vcfg.n_layers} layers in {vwall:.3f} s, "
+          f"loss and grad_norm by step {vseen}; update norm "
+          f"{vupdate!r}", flush=True)
+    del vmodel, state, vstep, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    Path(tmp, "train_tp.json").write_text(json.dumps({
+        "d1": train_first,
+        "d3": {"metrics": vseen, "update_norm": vupdate}}))
+    print(f"[shard] (d)'s single-device references in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    events["shard"].set()
+    # (d4)'s walk, in this process (no default group here) while the ranks
+    # run
+    part("(d4) walk")
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.launch.shapes import ShapeCase
+    t1 = time.monotonic()
+    walked, _, _ = dryrun.walk_cell(
+        cfg, ShapeCase("shard_train", S, B, "train"),
+        make_abstract_mesh((1, SHARD_RANKS), ("data", "model")))
+    walk_s = time.monotonic() - t1
+    part("ranks")
+    await_ranks(ranks_ctx, events["shard_done"])
+    ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+             for r in range(SHARD_RANKS)]
+    print(f"[shard] {SHARD_RANKS} ranks done in "
+          f"{time.monotonic() - t_ranks:.1f} s (spawn included); (d4)'s walk "
+          f"in this process meanwhile {walk_s:.1f} s", flush=True)
+    for r, res in enumerate(ranks):
+        print_laps("shard", f"rank {r}", res["walls"])
+    part("results")
     # (d4): each rank's card step against the walk
     for r, res in enumerate(ranks):
         card = res["tp_train"]["d4"]
@@ -4106,6 +4419,7 @@ def main() -> int:
     per_pass = gemms_per_pass(cfg)
     ones = {}
     # (a) on one device, on the same bf16 serve params
+    part("(a) one device")
     params = init_serve_params(Model(cfg, device=dev), None, TP["seed"])
     with olm_calls({0}) as seen:
         ones["olm16"] = tp_whole_serve(cfg, params, "olm16", prompts, dev)
@@ -4115,12 +4429,14 @@ def main() -> int:
     wq_whole = params["layers"][0]["attn"]["wq"].cpu()
     head_whole = params["unembed"]["table"].cpu()
     del params
+    part("(d) one device")
     cut = dataclasses.replace(cfg, **TP_CUT)
     params = init_serve_params(Model(cut, device=dev), None, TP["seed"])
     ones["cut"] = tp_whole_serve(cut, params, "native", prompts, dev)
     del params
     # (h), (i) and (j) on one device, on the same bf16 serve params
     t0 = time.monotonic()
+    part("(h) one device")
     rec = get_config(TP["rec"])
     params = init_serve_params(Model(rec, device=dev), None, TP["seed"])
     ones["rec"] = tp_whole_serve(rec, params, "native",
@@ -4128,6 +4444,7 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    part("(i) one device")
     rcut = dataclasses.replace(rec, **TP_REC_CUT)
     params = init_serve_params(Model(rcut, device=dev), None, TP["seed"])
     with olm_calls({0}) as seen:
@@ -4136,6 +4453,7 @@ def main() -> int:
     wx0 = seen[0]
     rec_head = params["unembed"]["table"].cpu()
     del params, seen
+    part("(j) one device")
     ssm = get_config(TP["ssm"])
     params = init_serve_params(Model(ssm, device=dev), None, TP["seed"])
     ones["ssm"] = tp_whole_serve(ssm, params, "olm16",
@@ -4148,9 +4466,11 @@ def main() -> int:
     t0 = time.monotonic()
     vlm = get_config(TP["vlm"])
     vcut = dataclasses.replace(vlm, **TP_VLM_CUT)
+    part("(m) one device")
     params = init_serve_params(Model(vlm, device=dev), None, TP["seed"])
     ones["vlm"] = tp_whole_serve(vlm, params, "native",
                                  tp_prompts(vlm.vocab_size), dev)
+    part("(n) one device")
     with olm_calls({0, tp_cross_wk(vcut)}) as seen:
         ones["vlm_olm"] = tp_whole_serve(vcut, tp_cut_params(params, vcut),
                                          "olm16", tp_prompts(vcut.vocab_size),
@@ -4162,6 +4482,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     enc = get_config(TP["encdec"])
     ecut = dataclasses.replace(enc, **TP_ENCDEC_CUT)
+    part("(o) one device")
     params = init_serve_params(Model(enc, device=dev), None, TP["seed"])
     ones["encdec"] = tp_whole_serve(enc, params, "native",
                                     tp_prompts(enc.vocab_size), dev)
@@ -4182,76 +4503,64 @@ def main() -> int:
     big = get_config(TP["big"])
     describe("tp", big)
     free, total = torch.cuda.mem_get_info()
-    print(f"[tp] the card before the spawns: {free} B free of {total}; this "
-          f"process {torch.cuda.memory_reserved()} B reserved", flush=True)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        # (b) on one device, in a process of its own
-        t0 = time.monotonic()
-        mp.start_processes(tp_one, args=(tmp,), nprocs=1, join=True,
-                           start_method="spawn")
-        one = torch.load(os.path.join(tmp, "one.pt"))
-        ones["big"] = (one["first"], one["tokens"], one["passes"],
-                       one["wall"])
-        print(f"[tp] one device, {big.name}: bf16 serve params drawn in "
-              f"{one['init_s']:.1f} s, {one['passes']} passes in "
-              f"{one['wall']:.3f} s, max_memory_allocated {one['peak']} B "
-              f"({one['peak'] / 2**30:.2f} GiB); the process "
-              f"{time.monotonic() - t0:.1f} s", flush=True)
-        t0 = time.monotonic()
-        ctx = mp.start_processes(tp_rank, args=(TP_RANKS, port, tmp),
-                                 nprocs=TP_RANKS, join=False,
-                                 start_method="spawn")
-        try:
-            # (c) the walk, in this process (no default group here) while
-            # the ranks run
-            kind, B, T = TP_DECODE
-            walked, coll, _ = dryrun.walk_cell(
-                cfg, ShapeCase("tp_decode", T, B, kind),
-                make_abstract_mesh((1, TP_RANKS), ("data", "model")))
-            # (g) the MoE decode's walk
-            arch, depth = MOE_DEPTH[-1]
-            moe_cut = dataclasses.replace(get_config(arch), n_layers=depth)
-            t0_walk = time.monotonic()
-            walked_moe, coll_moe, _ = dryrun.walk_cell(
-                moe_cut, ShapeCase("tp_moe_decode", T, B, kind),
-                make_abstract_mesh((1, TP_RANKS), ("data", "model")))
-            walk_moe_s = time.monotonic() - t0_walk
-            # (k) the recurrent decode's walk
-            t0_walk = time.monotonic()
-            walked_rec, coll_rec, _ = dryrun.walk_cell(
-                rec, ShapeCase("tp_rec_decode", T, B, kind),
-                make_abstract_mesh((1, TP_RANKS), ("data", "model")))
-            walk_rec_s = time.monotonic() - t0_walk
-            # (p) the VLM cut's decode's walk, with its memory
-            t0_walk = time.monotonic()
-            walked_vlm, coll_vlm, _ = dryrun.walk_cell(
-                vcut, ShapeCase("tp_vlm_decode", T, B, kind),
-                make_abstract_mesh((1, TP_RANKS), ("data", "model")))
-            walk_vlm_s = time.monotonic() - t0_walk
-            # a rank that raises fails this call, and with it the script
-            while not ctx.join():
-                pass
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.terminate()
-        ranks = [torch.load(os.path.join(tmp, f"tp{r}.pt"))
-                 for r in range(TP_RANKS)]
-        print(f"[tp] {TP_RANKS} ranks done in {time.monotonic() - t0:.1f} s "
-              "(spawn included)", flush=True)
-        # (e) and (f) on one device, in a process of its own
-        t0 = time.monotonic()
-        mp.start_processes(tp_moe_one, args=(tmp,), nprocs=1, join=True,
-                           start_method="spawn")
-        moe_one = torch.load(os.path.join(tmp, "moe_one.pt"))
-        print(f"[tp] one device, (e) and (f): the process "
-              f"{time.monotonic() - t0:.1f} s", flush=True)
+    print(f"[tp] the card before the ranks' parts: {free} B free of "
+          f"{total}; this process {torch.cuda.memory_reserved()} B reserved",
+          flush=True)
+    events["tp"].set()
+    part("ranks")
+    # the walks, in this process (no default group here) while the ranks
+    # run: (c) InternLM2's decode
+    kind, B, T = TP_DECODE
+    t0_walk = time.monotonic()
+    walked, coll, _ = dryrun.walk_cell(
+        cfg, ShapeCase("tp_decode", T, B, kind),
+        make_abstract_mesh((1, TP_RANKS), ("data", "model")))
+    walk_s = time.monotonic() - t0_walk
+    # (g) the MoE decode's walk
+    arch, depth = MOE_DEPTH[-1]
+    moe_cut = dataclasses.replace(get_config(arch), n_layers=depth)
+    t0_walk = time.monotonic()
+    walked_moe, coll_moe, _ = dryrun.walk_cell(
+        moe_cut, ShapeCase("tp_moe_decode", T, B, kind),
+        make_abstract_mesh((1, TP_RANKS), ("data", "model")))
+    walk_moe_s = time.monotonic() - t0_walk
+    # (k) the recurrent decode's walk
+    t0_walk = time.monotonic()
+    walked_rec, coll_rec, _ = dryrun.walk_cell(
+        rec, ShapeCase("tp_rec_decode", T, B, kind),
+        make_abstract_mesh((1, TP_RANKS), ("data", "model")))
+    walk_rec_s = time.monotonic() - t0_walk
+    # (p) the VLM cut's decode's walk, with its memory
+    t0_walk = time.monotonic()
+    walked_vlm, coll_vlm, _ = dryrun.walk_cell(
+        vcut, ShapeCase("tp_vlm_decode", T, B, kind),
+        make_abstract_mesh((1, TP_RANKS), ("data", "model")))
+    walk_vlm_s = time.monotonic() - t0_walk
+    t0 = time.monotonic()
+    # a rank that raises fails this call, and with it the script
+    while not ranks_ctx.join():
+        pass
+    ranks = [torch.load(os.path.join(tmp, f"tp{r}.pt"))
+             for r in range(TP_RANKS)]
+    one = torch.load(os.path.join(tmp, "one.pt"))
+    moe_one = torch.load(os.path.join(tmp, "moe_one.pt"))
+    print(f"[tp] the ranks done {time.monotonic() - t0:.1f} s after the "
+          f"walks in this process: (c) {walk_s:.1f} s, (g) "
+          f"{walk_moe_s:.1f} s, (k) {walk_rec_s:.1f} s, (p) "
+          f"{walk_vlm_s:.1f} s", flush=True)
+    for r in range(TP_RANKS):
+        print_laps("tp", f"rank {r}", torch.load(
+            os.path.join(tmp, f"tp_walls{r}.pt")))
+    ones["big"] = (one["first"], one["tokens"], one["passes"], one["wall"])
+    print(f"[tp] one device (rank 0's process), {big.name}: bf16 serve "
+          f"params drawn in {one['init_s']:.1f} s, {one['passes']} passes "
+          f"in {one['wall']:.3f} s, max_memory_allocated {one['peak']} B "
+          f"({one['peak'] / 2**30:.2f} GiB)", flush=True)
 
     def gathered(tag):
         return torch.cat([r[tag]["first"] for r in ranks], dim=-1)
+
+    part("results")
 
     # (a) bits: layer 0's wq and the head, each rank's columns
     n_wq = wq_whole.shape[1] // TP_RANKS
@@ -4549,6 +4858,7 @@ def main() -> int:
     reset_counts()
     results = {}
     for example, argv in EXAMPLES:
+        part(example)
         t0 = time.monotonic()
         spec = importlib.util.spec_from_file_location(
             f"example_{example}", ROOT / "examples" / f"{example}.py")
@@ -4562,6 +4872,7 @@ def main() -> int:
         print(f"[examples] {example} {' '.join(argv)}: "
               f"{time.monotonic() - t0:.1f} s; " + " | ".join(tail),
               flush=True)
+    part()
     counts = read_counts()
     for kernel, n in counts.items():
         by_path.setdefault(kernel, {})["examples"] = n
@@ -4593,76 +4904,67 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     reset_counts()
-    out_dir = tempfile.mkdtemp(prefix="dryrun_torch_")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, *more, "--out", out_dir], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for arch, shape, *more in DRYRUN_CELLS]
-    try:
-        # (a) the walk against the card, one rank
-        cfg = get_config(TRAIN["arch"])
-        for kind, Bd, Sd in DRYRUN_CARD:
-            case = ShapeCase(f"card_{kind}", Sd, Bd, kind)
-            got = dryrun.hold_against_card(cfg, case)
-            pred, card = got["walk"], got["card"]
-            terms = pred["terms"]
-            peak_rel = pred["bytes_per_device"]["peak"] / card["peak"] - 1
-            bound_s = terms["bound_s"]
-            print(f"[dryrun] {cfg.name} {kind} {Bd} x {Sd} on a one-rank "
-                  f"mesh: FLOPs walk {pred['flops']} card {card['flops']}; "
-                  f"peak walk {pred['bytes_per_device']['peak']} B card "
-                  f"{card['peak']} B ({peak_rel:+.2%}; gate "
-                  f"{DRYRUN_PEAK_TOL:.0%}); bound {terms['dominant']} "
-                  f"{bound_s * 1e3:.3f} ms (compute {terms['compute_s'] * 1e3:.3f}"
-                  f", memory {terms['memory_s'] * 1e3:.3f}) against the "
-                  f"card's wall {card['wall_s'] * 1e3:.3f} ms (walls "
-                  f"{[round(w * 1e3, 3) for w in card['walls_s']]}), "
-                  f"{bound_s / card['wall_s']:.3f} of it (gate "
-                  f"{DRYRUN_BOUND_SLACK}); walk bytes {pred['bytes']}, "
-                  f"{pred['ops']} ops; {smi_line}", flush=True)
-            if kind == "train":
-                print(f"[dryrun] the train phase's single-device step of "
-                      f"this configuration: peak {train_native['peak']} B, "
-                      f"median wall {train_native['wall'] * 1e3:.1f} ms",
-                      flush=True)
-            if pred["flops"] != card["flops"]:
-                raise SystemExit(f"dryrun: the walk's FLOPs of the {kind} "
-                                 f"step are not the card's")
-            if abs(peak_rel) > DRYRUN_PEAK_TOL:
-                raise SystemExit(f"dryrun: the walk's peak of the {kind} "
-                                 f"step is {peak_rel:+.2%} off the card's")
-            if bound_s > DRYRUN_BOUND_SLACK * card["wall_s"]:
-                raise SystemExit(f"dryrun: the {kind} step's roofline bound "
-                                 f"exceeds the card's wall")
-            gc.collect()
-            torch.cuda.empty_cache()
-        # (b) the production cells
-        for proc, (arch, shape, *more) in zip(procs, DRYRUN_CELLS):
-            text, _ = proc.communicate(timeout=600)
-            lines = [ln for ln in text.splitlines()
-                     if ln.startswith(("OK", "SKIP", "FAIL"))]
-            for ln in lines:
-                print(f"[dryrun] {ln}", flush=True)
-            want = 2 if more else 1
-            if proc.returncode != 0 or sum(
-                    ln.startswith("OK") for ln in lines) != want:
-                raise SystemExit(f"dryrun: {arch} x {shape} failed (exit "
-                                 f"{proc.returncode}): {text[-2000:]}")
-        for f in sorted(Path(out_dir).glob("*.json")):
-            rec = json.loads(f.read_text())
-            print(f"[dryrun] record {f.name}: peak "
-                  f"{rec['bytes_per_device']['peak']} B a rank, fits "
-                  f"{rec['fits']}, flops {rec['flops']}, collectives "
-                  f"{rec['collectives']['per_axis']}, "
-                  f"{rec['roofline']['dominant']} "
-                  f"{rec['roofline']['bound_s']:.4g} s", flush=True)
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    # (a) the walk against the card, one rank
+    cfg = get_config(TRAIN["arch"])
+    for kind, Bd, Sd in DRYRUN_CARD:
+        part(f"(a) {kind}")
+        case = ShapeCase(f"card_{kind}", Sd, Bd, kind)
+        got = dryrun.hold_against_card(cfg, case)
+        pred, card = got["walk"], got["card"]
+        terms = pred["terms"]
+        peak_rel = pred["bytes_per_device"]["peak"] / card["peak"] - 1
+        bound_s = terms["bound_s"]
+        print(f"[dryrun] {cfg.name} {kind} {Bd} x {Sd} on a one-rank "
+              f"mesh: FLOPs walk {pred['flops']} card {card['flops']}; "
+              f"peak walk {pred['bytes_per_device']['peak']} B card "
+              f"{card['peak']} B ({peak_rel:+.2%}; gate "
+              f"{DRYRUN_PEAK_TOL:.0%}); bound {terms['dominant']} "
+              f"{bound_s * 1e3:.3f} ms (compute {terms['compute_s'] * 1e3:.3f}"
+              f", memory {terms['memory_s'] * 1e3:.3f}) against the "
+              f"card's wall {card['wall_s'] * 1e3:.3f} ms (walls "
+              f"{[round(w * 1e3, 3) for w in card['walls_s']]}), "
+              f"{bound_s / card['wall_s']:.3f} of it (gate "
+              f"{DRYRUN_BOUND_SLACK}); walk bytes {pred['bytes']}, "
+              f"{pred['ops']} ops; {smi_line}", flush=True)
+        if kind == "train":
+            print(f"[dryrun] the train phase's single-device step of "
+                  f"this configuration: peak {train_native['peak']} B, "
+                  f"median wall {train_native['wall'] * 1e3:.1f} ms",
+                  flush=True)
+        if pred["flops"] != card["flops"]:
+            raise SystemExit(f"dryrun: the walk's FLOPs of the {kind} "
+                             f"step are not the card's")
+        if abs(peak_rel) > DRYRUN_PEAK_TOL:
+            raise SystemExit(f"dryrun: the walk's peak of the {kind} "
+                             f"step is {peak_rel:+.2%} off the card's")
+        if bound_s > DRYRUN_BOUND_SLACK * card["wall_s"]:
+            raise SystemExit(f"dryrun: the {kind} step's roofline bound "
+                             f"exceeds the card's wall")
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (b) the production cells
+    part("(b) the cells' processes, what is left of them")
+    for i, (proc, (arch, shape, *more)) in enumerate(zip(procs,
+                                                         DRYRUN_CELLS)):
+        proc.wait(timeout=600)
+        text = Path(out_dir, f"cell{i}.log").read_text()
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("OK", "SKIP", "FAIL"))]
+        for ln in lines:
+            print(f"[dryrun] {ln}", flush=True)
+        want = 2 if more else 1
+        if proc.returncode != 0 or sum(
+                ln.startswith("OK") for ln in lines) != want:
+            raise SystemExit(f"dryrun: {arch} x {shape} failed (exit "
+                             f"{proc.returncode}): {text[-2000:]}")
+    for f in sorted(Path(out_dir).glob("*.json")):
+        rec = json.loads(f.read_text())
+        print(f"[dryrun] record {f.name}: peak "
+              f"{rec['bytes_per_device']['peak']} B a rank, fits "
+              f"{rec['fits']}, flops {rec['flops']}, collectives "
+              f"{rec['collectives']['per_axis']}, "
+              f"{rec['roofline']['dominant']} "
+              f"{rec['roofline']['bound_s']:.4g} s", flush=True)
     counts = read_counts()
     for kernel, n in counts.items():
         by_path.setdefault(kernel, {})["dryrun"] = n
@@ -4671,7 +4973,10 @@ def main() -> int:
     phase(None)
     print(f"[wall] phases: {json.dumps({k: round(v, 1) for k, v in walls.items()})}",
           flush=True)
-    print(f"[wall] sum of phases: {sum(walls.values()):.1f} s", flush=True)
+    total = sum(walls.values())
+    print(f"[wall] sum of phases: {total:.1f} s", flush=True)
+    print(f"[wall] budget: {total:.1f} s of SMOKE_BUDGET_S {SMOKE_BUDGET_S} "
+          f"s ({100 * total / SMOKE_BUDGET_S:.1f}%)", flush=True)
 
     # the kernels line --------------------------------------------------
     src = "src/repro_torch/csrc/"
@@ -4713,4 +5018,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    with contextlib.ExitStack() as exits:
+        code = main(exits)
+    sys.exit(code)
