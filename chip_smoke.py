@@ -41,8 +41,12 @@ Phases, each printing its own lines:
                than the datapath too), in its int64 lane, n of 36 and
                40, and K past 1024 lanes (streams of 64 and 128 bits),
                one launch each, and a configuration no kernel holds
-               raising before any launch; F6's configurations (the
-               selection condition holds, the residual leaves int32 or
+               raising before any launch; K3 at the paper's
+               configuration past 1024 lanes (aligned subtrees of 1024
+               lanes merged by the row's last block) at a ragged B with
+               K of 1024, 1025, 4096 and 8192 at n 16 and 32; F6's
+               configurations (the selection condition holds, the
+               residual leaves int32 or
                is not proven in it: K4 at (n, delta, t) = (24, 2, 4),
                (28, 2, 4) and (24, 3, 4), K3 at (24, 2, 4) with K of
                256, at least 2^16 lanes each) bit-equal in int64 lanes,
@@ -64,8 +68,10 @@ Phases, each printing its own lines:
                under olm16 and under tpmm16 on the card against the same
                model on the CPU;
   4. time    - each kernel at those shapes (and the general K3/K4
-               kernels at one shape each, K1 at ChatGLM3-6B's decode and
-               prefill GEMMs and at the four families' decode GEMMs)
+               kernels at one shape each, K3 past 1024 lanes at
+               InternLM2-1.8B's d_model and d_ff lanes a row at n 16 and
+               32, K1 at ChatGLM3-6B's decode and prefill GEMMs and at
+               the four families' decode GEMMs)
                beside its bound, its plain version (K1's where a call of
                it is at most PLAIN_TIMED_WORK of M x K x N) and a PyTorch
                context call: the median of CUDA
@@ -435,6 +441,17 @@ GENERAL_TIMED = ((None, dict(n=16, delta=4), MUL_B),
                  (256, dict(n=16, delta=4), DOT_B),
                  (256, dict(n=24, delta=2, t=4), DOT_B),   # F6, int64
                  (2048, dict(n=16), 512))
+# K3 at the paper's configuration past 1024 lanes a row (each row cut into
+# aligned subtrees of 1024 lanes, the reference tree's level-10 nodes,
+# merged by the row's last block): timed at InternLM2-1.8B's d_model (2048)
+# and d_ff (8192) lanes a row at n 16 and 32, (B, K, n); held bit for bit
+# against the plain version at a ragged LONG_B rows with K of one whole
+# tree, one lane past it, and 4 and 8 subtrees
+LONG_TIMED = tuple((B, K, n) for B, K in ((512, 2048), (128, 8192))
+                   for n in (16, 32))
+LONG_B = 131
+LONG_CHECKS = tuple((LONG_B, K, n) for K in (1024, 1025, 4096, 8192)
+                    for n in (16, 32))
 # The examples phase: each twin with its arguments (the train twin cut to
 # 20 steps at the train phase's CLI learning rate).
 EXAMPLES = (("quickstart_torch", []), ("online_numerics_matmul_torch", []),
@@ -2382,7 +2399,7 @@ def main(exits: contextlib.ExitStack) -> int:
               f"static smem up to {row['smem']} B")
     geometry = {"olm_matmul_fused": k12.geometry,
                 "olm_matmul_host": k12.geometry, "online_dot": k3.geometry,
-                "tpmm": k5.geometry}
+                "online_dot_any": k3.geometry, "tpmm": k5.geometry}
     cases = lint_registry.iter_cases() + lint_smem.tuning_cases()
     held = 0
     for case in cases:
@@ -2404,6 +2421,8 @@ def main(exits: contextlib.ExitStack) -> int:
         "olm_matmul_fused": k12.olm_matmul_fused(x, w, n=16),
         "olm_matmul_host": olm_matmul(x, w, n_bits=16, quantize="host"),
         "online_dot": k3.online_dot_kernel(xd, yd, OnlinePrecision(n=16)),
+        "online_dot_any": k3.online_dot_kernel(
+            xd, yd, OnlinePrecision(n=16, delta=4)),
         "online_mul": k4.online_mul_kernel(xd[:, 0].contiguous(),
                                            yd[:, 0].contiguous(),
                                            OnlinePrecision(n=16)),
@@ -2576,7 +2595,7 @@ def main(exits: contextlib.ExitStack) -> int:
          "core.online_mul.online_multiply", k4.online_mul_kernel(xd, yd, cfg),
          want)
     del xd, yd, want
-    part("K3 and K4 general and F6")
+    part("K3 and K4 general")
     for kw in GENERAL_CONFIGS + (dict(n=40),):
         cfg = OnlinePrecision(**kw)
         xd, yd = digits((GENERAL_MUL_B, cfg.n), cfg.n + cfg.delta, dev)
@@ -2603,6 +2622,16 @@ def main(exits: contextlib.ExitStack) -> int:
              online_dot_batch_ref(xd, yd, n=cfg.n, delta=cfg.delta, t=cfg.t,
                                   truncated=cfg.truncated,
                                   tail_gating=cfg.tail_gating))
+    part("K3 past 1024 lanes")
+    for B, K, n in LONG_CHECKS:
+        cfg = OnlinePrecision(n=n)
+        xd, yd = digits((B, K, n), K + 3 * n, dev)
+        trees = -(-K // k3.MAX_LANES)
+        hold("online_dot", f"B={B} K={K} n={n} ({k3.route(cfg, K)} kernel, "
+             f"{trees} subtree{'s' if trees > 1 else ''} a row)",
+             k3.online_dot_kernel(xd, yd, cfg),
+             online_dot_batch_ref(xd, yd, n=n))
+    part("K3 and K4 F6")
     # F6: the general kernels' int64 lanes where the residual leaves int32
     for kw in F6_CONFIGS:
         cfg = OnlinePrecision(**kw)
@@ -2906,6 +2935,16 @@ def main(exits: contextlib.ExitStack) -> int:
                        warmup=2),
                cuda_ms(lambda: online_dot_batch_ref(xd, yd, **kw_ref),
                        reps=1),
+               (2 * B * K * n + B * m) * 4, k3.int_ops(B, K, cfg), rate)
+    for B, K, n in LONG_TIMED:
+        cfg = OnlinePrecision(n=n)
+        xd, yd = digits((B, K, n), K + n, dev)
+        m = n + 2 * tree_levels(K)
+        record("online_dot", f"long B={B} K={K} n={n} ({k3.route(cfg, K)} "
+               f"kernel, {-(-K // k3.MAX_LANES)} subtrees a row)",
+               cuda_ms(lambda: k3.online_dot_kernel(xd, yd, cfg), reps=20,
+                       warmup=2),
+               cuda_ms(lambda: online_dot_batch_ref(xd, yd, n=n), reps=1),
                (2 * B * K * n + B * m) * 4, k3.int_ops(B, K, cfg), rate)
     del xd, yd
     part("K5")

@@ -6,9 +6,9 @@ bounds the live slices but not the residual: where the selection cannot
 keep W in range (a delay of 1 or an estimate of 1 fractional digit at
 large n) an int32 datapath overflows on some inputs, while the int64
 plain versions do not. This script replays the kernels' recurrence
-(csrc/olm_digits.cuh `lane_any`, the same arithmetic as every kernel's
-lane) in exact Python integers over random digit pairs and the all-ones
-and alternating operands, and prints for each configuration the lanes
+(csrc/olm_digits.cuh `mul_digit_loop`, the same arithmetic as every
+kernel's lane) in exact Python integers over random digit pairs and the
+all-ones and alternating operands, and prints for each configuration the lanes
 whose values leave int32, the largest |value| / 2^S seen, and the
 datapath the kernels run it in (kernels/online_mul/kernel.py
 `lane_bits`: 32 bits only where the selection condition holds and

@@ -55,13 +55,17 @@ STATIC_SHAPE = BUCKETS["train"]
 # The dtype each kernel writes (the kernel-accum-dtype contract): f32 GEMM
 # accumulators, int32 digit streams.
 OUT_DTYPES = {"olm_matmul_fused": "float32", "olm_matmul_host": "float32",
-              "online_dot": "int32", "online_mul": "int32",
-              "tpmm": "float32"}
+              "online_dot": "int32", "online_dot_any": "int32",
+              "online_mul": "int32", "tpmm": "float32"}
 
 # K3's representative rows and lanes: a whole stage, the chip smoke's
-# timed K, and the unrolled kernel's most lanes; K4's a timed batch.
+# timed K, one whole level-10 subtree, and rows of 2 and 8 subtrees
+# (InternLM2-1.8B's d_model and d_ff); the general kernel's at one lane a
+# row (K4's general route), a stage and two subtrees, in each residual
+# datapath; K4's a timed batch.
 DOT_B = 4096
-DOT_KS = (16, 256, k3.MAX_LANES)
+DOT_KS = (16, 256, k3.MAX_LANES, 2048, 8192)
+ANY_KS = (1, 256, 2048)
 MUL_B = 1 << 20
 
 
@@ -69,8 +73,9 @@ MUL_B = 1 << 20
 class Launch:
     """What one launch asks of the card, in the kernel's own terms.
     `geometry` is the argument tuple of the kernel module's `geometry`
-    query (K1/K2: (n, host, vec, bm, bn, tb, L); K3: (n, vec, rows, L);
-    K5: (D, M, levels)), None for K4, whose static shared memory the
+    query (K1/K2: (n, host, vec, bm, bn, tb, L); K3 and its general
+    kernel: (n, vec, rows, L, general, wide); K5: (D, M, levels)), None
+    for K4, whose static shared memory the
     lint phase reads from ptxas instead (`smem.check_static_smem`)."""
     threads: int
     smem: int                 # bytes a block: dynamic, or static for K4
@@ -123,11 +128,12 @@ def matmul_launch(shape, n: int, t: Tiling, host: bool, vec: bool
                   (n, host, vec, p.bm, p.bn, p.tb, tree_levels(p.kt)))
 
 
-def _dot_launch(n: int, K: int, vec: bool) -> Launch:
-    p = k3.launch_plan(DOT_B, K, n, vec)
+def _dot_launch(n: int, K: int, vec: bool, general: bool = False,
+                wide: bool = False) -> Launch:
+    p = k3.launch_plan(DOT_B, K, n, vec, general=general)
     return Launch(k3.THREADS, p.smem, (p.grid, 1, 1),
                   p.smem <= k3.SMEM_PER_BLOCK,
-                  geometry=(n, vec, p.rows, tree_levels(K)))
+                  geometry=(n, vec, p.rows, tree_levels(K), general, wide))
 
 
 def _mul_launch(n: int) -> Launch:
@@ -185,6 +191,15 @@ def iter_cases(widths: Tuple[int, ...] | None = None) -> list[KernelCase]:
                     f"online_dot/olm{n}/b{DOT_B}k{K}{'/vec' if vec else ''}",
                     "online_dot", n, lambda n=n, K=K, v=vec: _dot_launch(
                         n, K, v), OUT_DTYPES["online_dot"]))
+        for K in ANY_KS:
+            for vec in (False, True):
+                for wide in (False, True):
+                    cases.append(KernelCase(
+                        f"online_dot_any/olm{n}/b{DOT_B}k{K}"
+                        f"{'/vec' if vec else ''}{'/int64' if wide else ''}",
+                        "online_dot_any", n,
+                        lambda n=n, K=K, v=vec, w=wide: _dot_launch(
+                            n, K, v, True, w), OUT_DTYPES["online_dot_any"]))
         if n % 4 == 0 and n // 4 <= 8:
             for label, shape in BUCKETS.items():
                 cases.append(KernelCase(

@@ -24,8 +24,9 @@ before it fails on the card.
 
 The card's half runs in `chip_smoke.py`'s lint phase: `check_geometry`
 holds each K1, K2, K3 and K5 plan's shared memory equal to what the
-compiled kernel asks for (each source's `geometry` query) and asks that an
-SM hold a block; `check_static_smem` holds K4's host count
+compiled kernel asks for (each source's `geometry` query; K3's answers
+for both its kernels, the general one in each residual datapath) and asks
+that an SM hold a block; `check_static_smem` holds K4's host count
 (`static_smem`) equal to the static shared memory ptxas reports for each
 online_mul_kernel<n> instance. The limits are the kernel modules' own.
 """
@@ -56,7 +57,8 @@ STATIC_SMEM = k4.MAX_STATIC_SMEM       # the most static shared memory
 MAX_GRID_YZ = k12.MAX_GRID_Y
 MAX_THREADS = {"olm_matmul_fused": k12.MAX_THREADS,
                "olm_matmul_host": k12.MAX_THREADS,
-               "online_dot": k3.THREADS, "online_mul": k4.ROWS,
+               "online_dot": k3.THREADS, "online_dot_any": k3.THREADS,
+               "online_mul": k4.ROWS,
                "tpmm": k5.THREADS}
 
 

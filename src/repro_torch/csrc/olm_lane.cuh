@@ -1,9 +1,11 @@
 // What the port's array kernels share beyond olm_digits.cuh: the
 // recurrence with the schedule's constants computed once on the host (K3's
-// `lane_loop`, and K1/K2's `lane_top`, which issues fewer integer-ALU
-// instructions), the online adder on 32- or 64-bit streams, cp.async
-// copies, and the packing of staged digit rows into +1/-1 masks.
-// online_dot.cu (K3) and olm_matmul.cu (K1, K2) include this one copy.
+// `lane_loop`, K1/K2's `lane_top`, which issues fewer integer-ALU
+// instructions, and `lane_gen`, the general lane of any delay, estimate
+// width and n <= 64, in an int32 or int64 residual), the online adder on
+// 32-, 64- or 128-bit streams, cp.async copies, and the packing of staged
+// digit rows into +1/-1 masks. online_dot.cu (K3, and K4's general route)
+// and olm_matmul.cu (K1, K2) include this one copy.
 //
 // Bit-identity rules: the same integer arithmetic as olm_digits.cuh's
 // `mul_digit_loop`, step for step and bit for bit.
@@ -126,10 +128,114 @@ __device__ __forceinline__ void lane_top(uint32_t xp, uint32_t xn,
   zn = on;
 }
 
+// The general lane's per-step constants and selection, computed once on
+// the host (online_dot.cu `any_steps`).
+struct AnySteps {
+  int2 kw[kAnySteps];      // per step: floor mask below 2^-T(j), and the
+                           // arriving digit's bit (or 0)
+  long long hi, lo;        // the selection: +1 where V > hi, -1 where V < lo
+  long long unit;          // 2^S
+  int n, delta;            // operand digits, online delay
+  int shift;               // the append's shift: delta, or 31 (the term's
+                           // sign) where delta < 0
+};
+
+// The general lane's operand digits: digit i of a lane in bits
+// [w-1-2i, w-2-2i] of a word of w = 64 (n <= 32) or 128 bits, as its two's
+// complement (01 for +1, 11 for -1, 00 for 0), so a step reads its digit
+// as the word's top two bits, shifted arithmetically, and moves the word
+// on by 2. The word for 32-bit output masks M is 64 bits, for 64-bit ones
+// 128.
+template <typename M> struct Fields;
+template <> struct Fields<uint32_t> { using T = uint64_t; };
+template <> struct Fields<uint64_t> { using T = unsigned __int128; };
+
+template <typename F>
+__device__ __forceinline__ int top_digit(F f) {
+  if constexpr (sizeof(F) == 8) {
+    return (int)((long long)f >> 62);
+  } else {
+    return (int)((long long)(uint64_t)(f >> 64) >> 62);
+  }
+}
+
+// A floor mask below 2^-T(j) (int32, negative: bits 31 .. dead set) in the
+// residual's datapath: sign-extended, so an int64 AND keeps the high word.
+template <typename D>
+__device__ __forceinline__ D keep_as(int keep) {
+  if constexpr (sizeof(D) == 4) {
+    return keep;
+  } else {
+    return ~(D)(uint32_t)~keep;
+  }
+}
+
+// One lane of the radix-2 online multiplier for any configuration a
+// kernel holds: olm_digits.cuh's `mul_digit_loop` recurrence step for
+// step, with n, the online delay and the estimate given at run time and
+// the digits read from their fields (`Fields`); past digit n the fields
+// are zero. The partial operands X and Y and the term stay in int32
+// (|X|, |Y| < 3 * 2^S and |term| < 2^31 at S <= 28); the residual W and
+// V = 2W + append run in D: int where the selection bounds the residual,
+// long long where it may not (kernels/online_mul `lane_bits` decides
+// which). The selection compares V with the host's (hi, lo), which equals
+// the plain version's estimate compared with +-2 in each of its cases:
+// V >> (S - t) where t <= S; the estimate wider than the datapath (t > S),
+// exact in the plain version as V * 2^(t - S) and so a threshold at +-1 or
+// 0; and an estimate shifted past the word, which never selects. The
+// output bits gather most significant first and are reversed once at the
+// end: output digit j lands at bit j of (zp, zn), n <= width of M.
+template <typename D, typename M>
+__device__ __forceinline__ void lane_gen(typename Fields<M>::T xf,
+                                         typename Fields<M>::T yf,
+                                         const AnySteps& a, M& zp, M& zn) {
+  int X = 0, Y = 0;
+  D W = 0;
+  M op = 0, on = 0;
+  const int steps = a.n + a.delta;
+  const int lead = min(max(a.delta, 0), steps);  // steps before digit 0
+  // step s's operand half: the arriving digits, X, Y and the append
+  auto operands = [&](int s, int& keep) {
+    const int2 c = a.kw[s];
+    const int xd = top_digit(xf), yd = top_digit(yf);
+    xf <<= 2;
+    yf <<= 2;
+    const int Yf = Y + yd * c.y;
+    const int term = X * yd + Yf * xd;
+    X = (X + xd * c.y) & c.x;
+    Y = Yf & c.x;
+    keep = c.x;
+    return (term >> a.shift) & c.x;
+  };
+  for (int s = 0; s < lead; ++s) {
+    int keep;
+    const int append = operands(s, keep);
+    W = (2 * W + append) & keep_as<D>(keep);
+  }
+  for (int s = lead; s < steps; ++s) {
+    int keep;
+    const int append = operands(s, keep);
+    const D V = 2 * W + append;
+    const int up = V > (D)a.hi, down = V < (D)a.lo;
+    W = (V - (up - down) * (D)a.unit) & keep_as<D>(keep);
+    op = (op << 1) | (M)up;                 // digit s - delta at bit
+    on = (on << 1) | (M)down;               // steps - 1 - s
+  }
+  constexpr int kBits = 8 * (int)sizeof(M);
+  if constexpr (sizeof(M) == 4) {
+    zp = __brev(op) >> (kBits - a.n);
+    zn = __brev(on) >> (kBits - a.n);
+  } else {
+    zp = __brevll(op) >> (kBits - a.n);
+    zn = __brevll(on) >> (kBits - a.n);
+  }
+}
+
 // One online adder of the tree, position-parallel on packed streams (digit
 // i at bit i) held in words of type W: uint32_t for streams of up to 30
-// digits, uint64_t for up to 62 (the result's last digit lands at the top
-// bit). With e_k the digit sums (e_0 = 0, then the sums, then zeros):
+// digits, uint64_t for up to 62, unsigned __int128 for up to 126 (the
+// result's last digit lands at the top bit). With e_k the digit sums
+// (e_0 = 0, then the sums, then zeros):
 //   t_k = +1 if e_k >= 2 or (e_k == 1 and e_{k+1} >= 0)
 //   t_k = -1 if e_k <= -2 or (e_k == -1 and e_{k+1} < 0)
 //   w_k = e_k - 2 t_k,  out_k = w_k + t_{k+1}  (in {-1, 0, 1})
@@ -226,6 +332,33 @@ __device__ __forceinline__ void pack(const int* row, int sw, uint32_t& p,
 #pragma unroll
     for (int i = 0; i < N; ++i) put<N>(row[i], i, p, q);
   }
+}
+
+// A staged row of n digits into `lane_gen`'s fields F (`Fields`): where
+// vec, n / 4 16-byte chunks, chunk c at position c ^ sw, each chunk's four
+// words gathered into one (their low bytes), whose low two bits a byte
+// are the digits' two's complement, moved into one byte, digit 0 on top,
+// by one multiply (byte i times 2^(30 - 10j) lands at bit 30 - 2i where
+// i = j, and nowhere in bits 22 .. 31 otherwise, with no carries); else n
+// words.
+template <typename F>
+__device__ __forceinline__ F pack_fields(const int* row, int n, bool vec,
+                                         int sw) {
+  constexpr int kBits = 8 * (int)sizeof(F);
+  F f = 0;
+  if (vec) {
+    for (int c = 0; c < n / 4; ++c) {
+      const int4 v = *reinterpret_cast<const int4*>(row + 4 * (c ^ sw));
+      const uint32_t g = __byte_perm(__byte_perm(v.x, v.y, 0x0040),
+                                     __byte_perm(v.z, v.w, 0x0040), 0x5410);
+      const uint32_t b = ((g & 0x03030303u) * 0x40100401u) >> 24;
+      f |= (F)b << (kBits - 8 - 8 * c);
+    }
+  } else {
+    for (int i = 0; i < n; ++i)
+      f |= (F)(uint32_t)(row[i] & 3) << (kBits - 2 - 2 * i);
+  }
+  return f;
 }
 
 }  // namespace olm

@@ -105,7 +105,7 @@ def recurrence_peak(cfg: OnlinePrecision, sched, scale: int) -> int:
 
 
 def lane_bits(cfg: OnlinePrecision, sched, S: int) -> int | None:
-    """The datapath the general lane (olm_digits.cuh `lane_any`) runs
+    """The datapath the general lane (olm_lane.cuh `lane_gen`) runs
     `cfg` in: 32 bits where the residual provably stays in int32, 64 where
     it may not but no value of the plain version (at scale 2^(n + delta),
     so none of the kernel's either) can leave int64 (`recurrence_peak`),

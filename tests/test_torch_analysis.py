@@ -538,3 +538,56 @@ def test_violation_message_names_contract():
                            where="fixture")
     msg = str(vs[0])
     assert "[launch-budget]" in msg and "contract:" in msg
+
+
+DOT_PTXAS = """ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0c1d2e3f_13_online_dot_cu_5a6b7c8d14online_dot_anyIijjEEvPKiS2_Pi3GeoNS_7AnyArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__0c1d2e3f_13_online_dot_cu_5a6b7c8d14online_dot_anyIijjEEvPKiS2_Pi3GeoNS_7AnyArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 552 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0c1d2e3f_13_online_dot_cu_5a6b7c8d14online_dot_anyIxmoEEvPKiS2_Pi3GeoNS_7AnyArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__0c1d2e3f_13_online_dot_cu_5a6b7c8d14online_dot_anyIxmoEEvPKiS2_Pi3GeoNS_7AnyArgsE
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 552 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__0c1d2e3f_13_online_dot_cu_5a6b7c8d17online_dot_kernelILi16ELb1EmEEvPKiS2_Pi3GeoN3olm10StepConstsILi35EEE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__0c1d2e3f_13_online_dot_cu_5a6b7c8d17online_dot_kernelILi16ELb1EmEEvPKiS2_Pi3GeoN3olm10StepConstsILi35EEE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 664 bytes cmem[0]
+"""
+
+
+def test_fixture_the_general_kernel_reported_by_residual_datapath():
+    # online_dot_any<D, M, W, LONG>: its int32 and int64 residual instances as
+    # two rows of the summary, the unrolled K3 as its own
+    report = sass.parse_ptxas(DOT_PTXAS)
+    rows = sass.summarize({"online_dot.cu": report})
+    assert rows["online_dot_any"] == dict(instances=1, registers=(40, 40),
+                                          spill_stores=0, spill_loads=0,
+                                          smem=0)
+    assert rows["online_dot_any/int64"]["registers"] == (96, 96)
+    assert rows["online_dot_any/int64"]["spill_stores"] == 8
+    assert rows["online_dot"]["instances"] == 1
+
+
+def test_general_kernel_plans_are_registered_at_every_width():
+    # both K3 kernels' plans, past 1024 lanes too, each naming the geometry
+    # query the lint phase holds against the card's answer
+    cases = registry.iter_cases()
+    general = [c for c in cases if c.kernel == "online_dot_any"]
+    assert len(general) == len(WIDTHS) * len(registry.ANY_KS) * 4
+    assert {c.plan().geometry[4:] for c in general} == {(True, False),
+                                                        (True, True)}
+    long = [c for c in cases if c.kernel == "online_dot"
+            and c.plan().geometry[3] > 10]
+    assert len(long) == len(WIDTHS) * 2 * 2
+    for case in general + long:
+        p = case.plan()
+        assert smem.check_plan(case) == [], case.name
+        assert smem.check_geometry(case, lambda *a: (p.smem, 1)) == []
+        assert _contracts(smem.check_geometry(
+            case, lambda *a: (p.smem + 16, 1))) == {"launch-budget"}
+
+
+def test_fixture_general_kernel_output_dtype():
+    assert sass.check_dtype("online_dot_any", "torch.int32", where="f") == []
+    assert _contracts(sass.check_dtype("online_dot_any", "torch.int64",
+                                       where="f")) == {"kernel-accum-dtype"}

@@ -1,11 +1,11 @@
 """Which kernel the digit-level API sends a configuration to, decided from
 the configuration before any launch; a replay on the CPU of the general
-kernel's lane (csrc/olm_digits.cuh `lane_any`, in its int32 or int64
-datapath, with the shifts the plain version takes past the word spelt
-out) against the plain version; and a replay of the general K3 kernel's
-reduction order (csrc/online_dot.cu `online_dot_any`: aligned subtrees of
-256 lanes, then a binary-counter merge of their streams) against the
-reference's adder tree.
+kernel's lane (csrc/olm_lane.cuh `lane_gen`: its operands in int32, its
+residual in the int32 or int64 datapath, the selection against the
+host's bounds, csrc/online_dot.cu `select_bounds`) against the plain
+version; and a replay of K3's reduction order past 1024 lanes
+(csrc/online_dot.cu: aligned subtrees of 1024 lanes, then their streams
+merged level by level) against the reference's adder tree.
 
 The kernels themselves run only on the card: their bit-equality tests are
 in tests/test_torch_gpu.py and chip_smoke.py.
@@ -28,7 +28,7 @@ from repro_torch.kernels.online_mul.ops import online_mul
 from repro_torch.kernels.online_mul.ops import runs_kernel as mul_runs
 from repro_torch.kernels.online_mul.ref import online_mul_batch_ref
 
-CHUNK_LEVELS = 8                   # online_dot.cu kChunkLevels
+TREE_LEVELS = 10                   # online_dot.cu kTreeLevels
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,9 +40,10 @@ def _one_torch_thread():
 
 
 @pytest.mark.parametrize("kw,K,route", [
-    (dict(n=16), 2048, "any"),
-    (dict(n=16), 1025, "any"),
+    (dict(n=16), 2048, "unrolled"),         # subtrees of 1024 lanes
+    (dict(n=16), 1025, "unrolled"),
     (dict(n=16), 1024, "unrolled"),
+    (dict(n=16), 1 << 24, "unrolled"),      # a stream of 16 + 48 digits
     (dict(n=16, delta=4), 16, "any"),
     (dict(n=16, t=3), 16, "unrolled"),
     (dict(n=16, delta=4, t=3), 2048, "any"),
@@ -92,16 +93,38 @@ def _wrap(v, bits):
     return v - (1 << bits) if v >> (bits - 1) else v
 
 
-def _lane_any(x, y, cfg, sched, S, bits):
-    """csrc/olm_digits.cuh `lane_any` at a `bits`-bit datapath, step for
-    step: the host's constants (`step_consts`, kernel.launch_any's lift),
-    the sign-filling shifts it spells out, and the word's wrap (the peak
-    |value| of the registers X and Y, the term, V and W is returned
-    too)."""
-    n, delta, t = cfg.n, cfg.delta, cfg.t
+def _select_bounds(S, t, lift, bits):
+    """csrc/online_dot.cu `select_bounds`: z = +1 where V > hi, -1 where
+    V < lo."""
     top = bits - 1
-    shift = min(S - t, top)
-    lift = 0 if t > n + delta else 1 << min(max(t - S, 0), 2)
+    hi = (1 << top) - 1
+    lo = -hi - 1
+    shift = S - t
+    if shift >= 0:
+        if shift + 1 < top:
+            hi, lo = (1 << (shift + 1)) - 1, -(1 << (shift + 1))
+    elif lift == 2:
+        hi, lo = 0, -1
+    elif lift == 4:
+        hi, lo = 0, 0
+    return hi, lo
+
+
+def _lift(cfg, S):
+    """kernel.launch_any's estimate factor where t > S."""
+    return 0 if cfg.t > cfg.n + cfg.delta else 1 << min(max(cfg.t - S, 0), 2)
+
+
+def _lane_any(x, y, cfg, sched, S, bits):
+    """csrc/olm_lane.cuh `lane_gen` with its residual in a `bits`-bit
+    datapath, step for step: the host's constants (`step_consts`,
+    `select_bounds`, kernel.launch_any's lift), the operands X, Y and the
+    term in int32, the append's shift (the term's sign where delta < 0),
+    and each word's wrap (the peak |value| of X and Y, the term, V and W
+    is returned too)."""
+    n, delta, t = cfg.n, cfg.delta, cfg.t
+    hi, lo = _select_bounds(S, t, _lift(cfg, S), bits)
+    shift = delta if delta >= 0 else 31
     X = Y = W = peak = 0
     z = [0] * n
     for s in range(n + delta):
@@ -109,17 +132,16 @@ def _lane_any(x, y, cfg, sched, S, bits):
         keep = _wrap(0xFFFFFFFF << max(S - T, 0), 32)
         wq = 1 << max(S - q, 0) if q <= min(T, S) else 0
         xd, yd = (int(x[s]), int(y[s])) if s < n else (0, 0)
-        Yf = _wrap(Y + yd * wq, bits)
-        term = _wrap(X * yd + Yf * xd, bits)
-        append = (term >> delta if delta >= 0 else term >> top) & keep
+        Yf = _wrap(Y + yd * wq, 32)
+        term = _wrap(X * yd + Yf * xd, 32)
+        append = (term >> shift) & keep
         peak = max(peak, abs(X * yd + Yf * xd), abs(X + xd * wq), abs(Yf),
                    abs(2 * W + append))
-        X = _wrap(X + xd * wq, bits) & keep
+        X = _wrap(X + xd * wq, 32) & keep
         Y = Yf & keep
         V = _wrap(2 * W + append, bits)
         if j >= 0:
-            vq = V >> shift if shift >= 0 else max(-2, min(V, 2)) * lift
-            zj = 1 if vq >= 2 else (0 if vq >= -2 else -1)
+            zj = int(V > hi) - int(V < lo)
             W = _wrap(V - zj * (1 << S), bits) & keep
             z[j] = zj
         else:
@@ -232,37 +254,33 @@ def _add(a, b):
 
 
 def _kernel_order(streams):
-    """online_dot_any's reduction of one row's (K, m) lane streams: lanes
-    padded with zero streams to whole 256-lane chunks, each chunk reduced
-    by the tree, the chunk streams merged as a binary counter carries,
-    and what is left paired with zero streams up to level L."""
+    """K3's reduction of one row's (K, m) lane streams past 1024 lanes: lanes
+    padded with zero streams to whole subtrees of 1024 lanes, each reduced
+    by the tree to a level-10 node, then the level-10 nodes merged level by
+    level (node i pairs 2i and 2i + 1, a zero stream for a missing right
+    child) up to level L."""
     K, m = streams.shape
     L = tree_levels(K)
-    if L <= CHUNK_LEVELS:
+    if L <= TREE_LEVELS:
         pad = streams.new_zeros((1 << L) - K, m)
         return adder_tree(torch.cat([streams, pad]))[0]
-    C = 1 << CHUNK_LEVELS
-    stack = {}
+    C = 1 << TREE_LEVELS
+    nodes = []
     for c in range(-(-K // C)):
-        chunk = streams[c * C:(c + 1) * C]
-        chunk = torch.cat([chunk, chunk.new_zeros(C - len(chunk), m)])
-        v, lv = adder_tree(chunk)[0], CHUNK_LEVELS
-        while lv in stack:
-            v = _add(stack.pop(lv), v)
-            lv += 1
-        stack[lv] = v
-    cur = None
-    for lv in range(CHUNK_LEVELS, L):
-        if cur is not None:
-            zero = torch.zeros_like(cur)
-            cur = _add(stack.pop(lv) if lv in stack else zero, cur)
-        elif lv in stack:
-            v = stack.pop(lv)
-            cur = _add(v, torch.zeros_like(v))
-    return stack.pop(L) if cur is None else cur
+        sub = streams[c * C:(c + 1) * C]
+        sub = torch.cat([sub, sub.new_zeros(C - len(sub), m)])
+        nodes.append(adder_tree(sub)[0])
+    for _ in range(TREE_LEVELS, L):
+        if len(nodes) % 2:
+            nodes.append(torch.zeros_like(nodes[0]))
+        nodes = [_add(nodes[2 * i], nodes[2 * i + 1])
+                 for i in range(len(nodes) // 2)]
+    assert len(nodes) == 1
+    return nodes[0]
 
 
-@pytest.mark.parametrize("K", [5, 200, 257, 300, 512, 1025, 2048, 3000])
+@pytest.mark.parametrize("K", [5, 200, 257, 300, 512, 1025, 2048, 3000,
+                               4097])
 def test_general_kernel_order_is_the_reference_tree(K):
     rng = np.random.default_rng(K)
     x = torch.from_numpy(rng.integers(-1, 2, (K, 8)).astype(np.int32))
@@ -272,3 +290,59 @@ def test_general_kernel_order_is_the_reference_tree(K):
     got = _kernel_order(lanes)
     assert levels == tree_levels(K)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_the_selection_bounds_are_the_estimate(bits):
+    # lane_gen compares V with select_bounds' (hi, lo) where the plain
+    # version compares its estimate with +-2 (V >> (S - t), the shift
+    # clamped at the word's top bit, or clamp(V, -2, 2) * lift where
+    # t > S): the two agree for every V of the word
+    top = bits - 1
+    values = sorted({v for e in range(top) for v in (1 << e, (1 << e) - 1,
+                                                     (1 << e) + 1)}
+                    | set(range(-40, 41)))
+    values = [v for v in values + [-v for v in values]
+              if -(1 << top) <= v < 1 << top] + [(1 << top) - 1, -(1 << top)]
+    checked = 0
+    for S in range(0, 29):
+        for t in range(-40, 40):
+            lift = 0 if t > 70 else 1 << min(max(t - S, 0), 2)
+            for lift in ({lift, 0} if t > S else {lift}):
+                hi, lo = _select_bounds(S, t, lift, bits)
+                shift = min(S - t, top)
+                for V in values:
+                    vq = (V >> shift if shift >= 0
+                          else max(-2, min(V, 2)) * lift)
+                    want = 1 if vq >= 2 else (0 if vq >= -2 else -1)
+                    assert int(V > hi) - int(V < lo) == want, (S, t, lift, V)
+                    checked += 1
+    assert checked > 100_000
+
+
+@pytest.mark.parametrize("kw", LANE_CONFIGS, ids=lambda kw: "-".join(
+    f"{k}{v}" for k, v in kw.items()))
+def test_the_general_lanes_operands_fit_int32(kw):
+    # lane_gen keeps X, Y and the term in int32 in both datapaths: at
+    # S <= 28 the partial operands stay below 3 * 2^S and the term below
+    # 2^31, on the all-ones, alternating and random lanes of each
+    # configuration (the exact 64-bit replay)
+    cfg = OnlinePrecision(**kw)
+    sched, S = checked_schedule(cfg)
+    assert S <= 28
+    rng = np.random.default_rng(cfg.n + 5 * cfg.delta + 100)
+    ones = np.ones(cfg.n, np.int64)
+    alt = np.resize(np.array([1, -1], np.int64), cfg.n)
+    for a, b in [(ones, ones), (ones, -ones), (alt, alt), (-alt, alt),
+                 *zip(rng.integers(-1, 2, (64, cfg.n)),
+                      rng.integers(-1, 2, (64, cfg.n)))]:
+        X = Y = 0
+        for s in range(cfg.n + cfg.delta):
+            T, q = int(sched[s]), s + 1
+            keep = _wrap(0xFFFFFFFF << max(S - T, 0), 32)
+            wq = 1 << max(S - q, 0) if q <= min(T, S) else 0
+            xd, yd = (int(a[s]), int(b[s])) if s < cfg.n else (0, 0)
+            Yf = Y + yd * wq
+            assert abs(X * yd + Yf * xd) < 1 << 31
+            X, Y = (X + xd * wq) & keep, Yf & keep
+            assert max(abs(X), abs(Y), abs(Yf)) < 3 << S

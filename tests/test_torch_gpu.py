@@ -328,10 +328,10 @@ def test_online_dot_kernel_at_every_configuration(cuda, kw, K):
                                  (70000, 8), (1500, 32), (300, 36),
                                  ((1 << 16) + 1, 32), (5000, 40)])
 def test_online_dot_kernel_past_1024_lanes(cuda, K, n):
-    # aligned subtrees of 256 lanes merged as a binary counter carries:
-    # ragged last chunks, every chunk real (2^L lanes) and streams in 32,
-    # 64 and 128 bits (n = 32 at K = 1500: 32 + 2 * 11 = 54 digits; at
-    # K = 2^16 + 1: 66; n = 40 at K = 5000: 66)
+    # aligned subtrees of 1024 lanes merged level by level by the row's
+    # last block: ragged last subtrees, every subtree real (2^L lanes) and
+    # streams in 32, 64 and 128 bits (n = 32 at K = 1500: 32 + 2 * 11 = 54
+    # digits; at K = 2^16 + 1: 66; n = 40 at K = 5000: 66)
     cfg = OnlinePrecision(n=n)
     B = 3 if K > 4096 else 21
     x, y = _digits(cuda, (B, K, n), K)
@@ -369,6 +369,52 @@ def test_online_dot_plan_knows_the_kernels_shared_memory(cuda):
                                                    tree_levels(K))
                 assert smem == plan.smem, (n, vec, K)
                 assert blocks >= 1, (n, vec, K)
+
+
+def test_online_dot_long_plan_knows_the_kernels_shared_memory(cuda):
+    # past 1024 lanes the unrolled kernel's own instance (a group one
+    # row's level-10 subtree) reports the shared memory launch_plan counts
+    for n in range(4, 33):
+        for vec in ((False, True) if n % 4 == 0 else (False,)):
+            for K in (1025, 2048, 8192, 1 << 16):
+                if n + 2 * tree_levels(K) > dot_kernel.UNROLLED_STREAM:
+                    continue
+                plan = dot_kernel.launch_plan(512, K, n, vec)
+                assert plan.trees > 1
+                smem, blocks = dot_kernel.geometry(n, vec, plan.rows,
+                                                   tree_levels(K))
+                assert smem == plan.smem, (n, vec, K)
+                assert blocks >= 1, (n, vec, K)
+
+
+@pytest.mark.parametrize("K", [1024, 1025, 4096, 8192])
+@pytest.mark.parametrize("n", [16, 32])
+def test_online_dot_kernel_in_level_10_subtrees(cuda, K, n):
+    # the paper's configuration past 1024 lanes: each row in aligned
+    # subtrees of 1024 lanes merged by its last block, at a ragged B
+    cfg = OnlinePrecision(n=n)
+    assert dot_kernel.route(cfg, K) == "unrolled"
+    x, y = _digits(cuda, (131, K, n), K + n)
+    before = dot_kernel.launches
+    z = dot_kernel.online_dot_kernel(x, y, cfg)
+    assert dot_kernel.launches == before + 1
+    assert torch.equal(z, online_dot_batch_ref(x, y, n=n))
+
+
+def test_general_plan_knows_the_kernels_shared_memory(cuda):
+    # launch_plan(general=True) counts online_dot_any's shared memory the
+    # way csrc/online_dot.cu does, in both residual datapaths
+    for n in (1, 5, 8, 16, 24, 33, 36, 40, 64):
+        for vec in ((False, True) if n % 4 == 0 else (False,)):
+            for K in (1, 3, 256, 1024, 1025, 1 << 16):
+                if n + 2 * tree_levels(K) > dot_kernel.MAX_STREAM:
+                    continue
+                plan = dot_kernel.launch_plan(512, K, n, vec, general=True)
+                for wide in (False, True):
+                    smem, blocks = dot_kernel.geometry(
+                        n, vec, plan.rows, tree_levels(K), True, wide)
+                    assert smem == plan.smem, (n, vec, K, wide)
+                    assert blocks >= 1, (n, vec, K, wide)
 
 
 @pytest.mark.parametrize("n_bits,mode", [(16, "nbit"), (8, "nbit"),

@@ -33,12 +33,39 @@ def test_plan_runs_every_row_once(B, K):
             seen = [r for b in range(plan.grid) for rng in plan.rows_of(b, B)
                     for r in rng]
             assert sorted(seen) == list(range(B)), (n, per_sm)
-            # every block has work, and the grid is one wave
+            # every block has work, and the grid is one wave of the
+            # blocks an SM runs (at most those it holds) that balance the
+            # groups over the SMs
             assert all(plan.rows_of(b, B) for b in range(plan.grid))
             fit = min(k3.BLOCKS_PER_SM,
                       k3.SMEM_PER_SM // (plan.smem + k3.SMEM_RESERVED))
             per = fit if per_sm is None else min(fit, per_sm)
-            assert plan.grid == min(plan.groups, 132 * per)
+            runs = k3.balanced_blocks(plan.groups, 132, per)
+            assert 1 <= runs <= per
+            assert plan.grid == min(plan.groups, 132 * runs)
+
+
+@pytest.mark.parametrize("groups,most,runs", [
+    (1024, 5, 4),       # B=512 K=2048 n=16: 2 groups on 496 of 528 blocks
+    (1024, 3, 2),       # B=512 K=2048 n=32
+    (1024, 6, 4),       # B=4096 K=64 n=16
+    (4096, 6, 5),       # B=4096 K=256 n=8 and 16
+    (4096, 3, 3),       # B=4096 K=256 n=32
+    (256, 6, 6),        # B=4096 K=16: one group a block on any count
+    (1, 8, 8),
+])
+def test_balanced_blocks_spread_the_groups_over_the_sms(groups, most, runs):
+    assert k3.balanced_blocks(groups, 132, most) == runs
+    loads = [k3.sm_load(groups, 132, p) for p in range(1, most + 1)]
+    # the count runs no SM more than 10% past the least load, and no
+    # larger count does as well
+    assert loads[runs - 1] <= k3.LOAD_SLACK * min(loads)
+    assert all(load > k3.LOAD_SLACK * min(loads) for load in loads[runs:])
+    # the load is an SM's blocks times its busiest block's groups
+    grid = min(groups, 132 * runs)
+    assert k3.sm_load(groups, 132, runs) >= groups / 132
+    assert k3.sm_load(groups, 132, runs) == (-(-grid // 132)
+                                              * -(-groups // grid))
 
 
 @pytest.mark.parametrize("K", KS)
@@ -68,19 +95,36 @@ def test_plan_fits_shared_memory_for_every_configuration():
 
 
 def test_plan_shared_memory_by_n_and_k():
-    # two operands of one 256-lane stage, then the tree's nodes (two masks
-    # a node, and half as many again for the later levels): 12 bytes a
-    # level-0 node where the stream fits 32 bits, else 24
-    assert k3.launch_plan(4096, 256, 32, True).smem == 2 * 256 * 128 + 24 * 256
-    assert k3.launch_plan(4096, 256, 16, True).smem == 2 * 256 * 64 + 12 * 256
-    assert k3.launch_plan(4096, 256, 8, True).smem == 2 * 256 * 32 + 12 * 256
+    # two operands of one 256-lane stage, then the tree's nodes: two masks
+    # a level-0 node in the lane's 32-bit word (8 bytes), and the nodes
+    # left after the warps' 7 levels (2^l >> 7 of them) in the row's
+    # stream word, two masks each (8 bytes where the stream fits 32 bits,
+    # else 16)
+    assert k3.launch_plan(4096, 256, 32, True).smem == (2 * 256 * 128
+                                                        + 8 * 256 + 16 * 2)
+    assert k3.launch_plan(4096, 256, 16, True).smem == (2 * 256 * 64
+                                                        + 8 * 256 + 8 * 2)
+    assert k3.launch_plan(4096, 256, 8, True).smem == (2 * 256 * 32
+                                                       + 8 * 256 + 8 * 2)
     assert k3.launch_plan(4096, 1024, 16, True).smem == (2 * 256 * 64
-                                                         + 24 * 1024)
+                                                         + 8 * 1024 + 16 * 8)
+    # one lane a row parks no level-0 node: 256 rows' streams in the
+    # stream word; a level of 2 lanes keeps its rows' streams
+    assert k3.launch_plan(4096, 1, 16, True).smem == 2 * 256 * 64 + 8 * 256
+    assert k3.launch_plan(4096, 2, 16, True).smem == (2 * 256 * 64 + 8 * 256
+                                                      + 8 * 128)
     # n = 24 pads its 6 chunks to 7, n = 13 its 13 words to 13, 14 to 15
     assert k3.row_words(24, True) == 28
     assert k3.row_words(13, False) == 13 and k3.row_words(14, False) == 15
+    # past MAX_LANES a group is one row's subtree of MAX_LANES lanes, its
+    # nodes in words as wide as the row's stream (8 + 22 digits: 32 bits)
+    assert k3.launch_plan(4096, k3.MAX_LANES + 1, 8, True).smem == (
+        2 * 256 * 32 + 8 * 1024 + 8 * 8)
+    # the unrolled kernel's streams end at 64 digits (n = 32 at 2^17 lanes
+    # is 66); the general kernel's at 128
     with pytest.raises(ValueError):
-        k3.launch_plan(4096, k3.MAX_LANES + 1, 8, True)
+        k3.launch_plan(4096, 1 << 17, 32, True)
+    assert k3.launch_plan(4096, 1 << 17, 32, True, general=True).trees == 128
 
 
 def test_tree_adders_are_the_reference_trees():

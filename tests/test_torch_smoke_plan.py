@@ -71,6 +71,9 @@ COMPARED = {
                          for kw in _GENERAL_CONFIGS)
     + ((300, {"n": 16}), (1025, {"n": 16}), (2048, {"n": 16}),
        (5000, {"n": 16}), (1500, {"n": 32}), (65537, {"n": 32})),
+    "LONG_B": 131,
+    "LONG_CHECKS": tuple((131, K, n) for K in (1024, 1025, 4096, 8192)
+                         for n in (16, 32)),
     "GENERAL_MUL_B": 65573,
     "GENERAL_DOT_B": 61,
     "UNHELD": {"n": 36, "delta": 1},
@@ -121,6 +124,19 @@ GATES = {
     "DRYRUN_BOUND_SLACK": 1.05,
 }
 
+# The shapes the time phase times the general and long-row K3/K4 routes
+# at: the before-and-after lines of PERF.md.
+TIMED = {
+    "GENERAL_TIMED": ((None, {"n": 16, "delta": 4}, 1 << 20),
+                      (None, {"n": 24, "t": 1}, 1 << 20),
+                      (None, {"n": 24, "delta": 2, "t": 4}, 1 << 20),
+                      (256, {"n": 16, "delta": 4}, 4096),
+                      (256, {"n": 24, "delta": 2, "t": 4}, 4096),
+                      (2048, {"n": 16}, 512)),
+    "LONG_TIMED": ((512, 2048, 16), (512, 2048, 32), (128, 8192, 16),
+                   (128, 8192, 32)),
+}
+
 PHASES = ["device", "build", "lint", "check", "time", "serve", "paths",
           "replay", "dense", "families", "tune", "crossattn", "train",
           "shard", "tp", "examples", "dryrun"]
@@ -134,6 +150,11 @@ def test_a_comparison_constant_keeps_its_value(name):
 @pytest.mark.parametrize("name", sorted(GATES))
 def test_a_gate_keeps_its_value(name):
     assert getattr(SMOKE, name) == GATES[name]
+
+
+@pytest.mark.parametrize("name", sorted(TIMED))
+def test_a_timed_shape_keeps_its_value(name):
+    assert getattr(SMOKE, name) == TIMED[name]
 
 
 def test_the_budget_is_1000_s():
